@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one GPU and hold every kernel
+against its plain PyTorch version.
+
+The main path is the paper's own: a schedule kind's map walks an
+m-simplex domain and a kernel does one tile of work per step.  This
+script
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. sets every launch counter to 0, drives the public entry points of
+   ``repro_torch.kernels.ops`` (MAP, ACCUM, EDM, CA at m=2 and m=3, plus
+   ACCUM and MAP at m=4; ACCUM and EDM also with ``split=True``, one
+   launch per composite piece) at the paper's sizes, and holds each output
+   against the body's plain version on the same card: integers bit-equal,
+   EDM within ``|k - p| <= 1e-5 + 1e-5 * max|p|`` (float32 sums run in
+   another order on the card and ``sqrtf`` rounds there);
+4. reads the counters, which must be > 0 for every kernel;
+5. times each kernel (median of CUDA-event-timed runs after warm-up),
+   its plain version and, where one PyTorch call computes the same
+   function, that call (``library_ms``, a yardstick the port never
+   calls), and prints one line per (test, m, kind) with grid steps, the
+   time ratio against ``bb`` at the same side, and the bound;
+6. checks a small input against the dense oracles of ``kernels/ref.py``;
+7. prints the ``kernels`` JSON line, then the result line.
+
+Any mismatch, build failure or launch error exits non-zero without the
+result line.  Run from the repository root::
+
+    python3 chip_smoke.py [--seed 0]
+
+The script needs one CUDA card; without one it exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
+EDM_D = 64
+TIMED_RUNS = 10
+
+REPLACES = {
+    "map": "src/repro/kernels/engine.py:737",
+    "accum": "src/repro/kernels/engine.py:503",
+    "edm": "src/repro/kernels/engine.py:503",
+    "ca": "src/repro/kernels/engine.py:503",
+}
+SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
+
+# (m, n, rho, kinds) per domain test; each composite side gets its own bb.
+DOMAIN_CASES = {
+    2: [(16384, 16, ("hmap", "rb", "bb", "table")), (16000, 16, ("composite", "bb"))],
+    3: [(1024, 8, ("octant", "table", "bb")), (960, 8, ("composite", "bb"))],
+    4: [(64, 4, ("hmap", "bb")), (60, 4, ("composite", "bb"))],
+}
+MAP_CASES = {
+    2: [(16384, ("hmap", "rb", "bb")), (1024, ("table", "bb")),
+        (16000, ("composite", "bb"))],
+    3: [(512, ("octant", "bb")), (128, ("table", "bb")), (480, ("composite", "bb"))],
+    4: [(16, ("hmap", "bb")), (15, ("composite", "bb"))],
+}
+# (test, m) whose composite cases also run split=True: one launch per piece.
+SPLIT = {("accum", 3), ("edm", 3), ("accum", 4)}
+CA_DENSITY = {2: 0.4, 3: 0.35}
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+class Smoke:
+    """One run of the smoke: cases, comparisons, timings, failures."""
+
+    def __init__(self, torch, engine, ops, ref, seed: int):
+        self.torch, self.engine, self.ops, self.ref = torch, engine, ops, ref
+        self.seed = seed
+        self.dev = torch.device("cuda")
+        self.failures: list = []
+        self.err = {k: 0.0 for k in REPLACES}
+        self.rows: list = []  # per-case results
+
+    # -- helpers ------------------------------------------------------
+
+    def gen(self, salt: int):
+        """A CUDA generator seeded from ``--seed`` and a per-input salt."""
+        g = self.torch.Generator(device=self.dev)
+        g.manual_seed(self.seed * 1000 + salt)
+        return g
+
+    def time_ms(self, fn, runs: int = TIMED_RUNS, warm: int = 2) -> float:
+        """Median CUDA-event time of ``fn`` in ms, after ``warm`` calls."""
+        torch = self.torch
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(runs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    def fail(self, what: str) -> None:
+        """Record a failed check; the run then exits non-zero."""
+        self.failures.append(what)
+        _log(f"MISMATCH {what}")
+
+    def domain_cells(self, m: int, n: int) -> int:
+        """Domain elements: the inclusive triangle at m=2, else C(n+m-1, m)."""
+        return math.comb(n + m - 1, m) if m > 2 else n * (n + 1) // 2
+
+    # -- the main path: entry points + comparison with the plain version
+
+    def main_path(self) -> None:
+        """Every case through the ops entry points, each held against
+        its plain version on the card."""
+        torch, ops, engine = self.torch, self.ops, self.engine
+        for m, cases in MAP_CASES.items():
+            for nb, kinds in cases:
+                for kind in kinds:
+                    out = ops.map_table(nb, kind=kind, m=m)
+                    torch.cuda.synchronize()
+                    sched = engine.schedule_for(m, nb, kind)
+                    want = engine.get_body("map").plain(sched, self.dev)
+                    if not torch.equal(out, want):
+                        self.fail(f"map m={m} nb={nb} kind={kind}")
+                    self.rows.append(dict(test="map", m=m, n=nb, rho=1, kind=kind,
+                                          split=False, steps=sched.steps))
+                    del out, want
+        for m, cases in DOMAIN_CASES.items():
+            for n, rho, kinds in cases:
+                self._accum_cases(m, n, rho, kinds)
+                if m <= 3:
+                    self._edm_cases(m, n, rho, kinds)
+                    self._ca_cases(m, n, rho, kinds)
+                torch.cuda.empty_cache()
+
+    def variants(self, test, m, kinds):
+        """``(kind, split)`` per case: every kind fused, and the composite
+        kind also split into one launch per piece where ``SPLIT`` says."""
+        out = [(kind, False) for kind in kinds]
+        if "composite" in kinds and (test, m) in SPLIT:
+            out.append(("composite", True))
+        return out
+
+    def plan(self, test, m, n, rho, kind, split) -> list:
+        """The schedules one entry-point call launches, one kernel each."""
+        body = self.engine.get_body(test)
+        return self.engine.launch_plan(m, n // rho, kind, split, body.element_local)
+
+    def entry(self, test, m, n, rho, kind, split, fn, *args, takes_split=False):
+        """Call the entry point ``fn(*args, rho=rho, kind=kind)`` (with
+        ``split=split`` when it ``takes_split``) and check it launched one
+        kernel per schedule of its plan (more than one when split).
+
+        Returns:
+            ``(output, row)``: the call's output and the case's row.
+        """
+        body = self.engine.get_body(test)
+        plan = self.plan(test, m, n, rho, kind, split)
+        before = body.launches
+        kw = {"split": split} if takes_split else {}
+        out = fn(*args, rho=rho, kind=kind, **kw)
+        self.torch.cuda.synchronize()
+        what = f"{test} m={m} n={n} kind={kind} split={split}"
+        if body.launches - before != len(plan) or (split and len(plan) < 2):
+            self.fail(f"{what}: {body.launches - before} launches for a plan of "
+                      f"{len(plan)} schedules")
+        row = dict(test=test, m=m, n=n, rho=rho, kind=kind, split=split,
+                   steps=sum(s.steps for s in plan))
+        self.rows.append(row)
+        return out, row
+
+    def _accum_cases(self, m, n, rho, kinds):
+        torch, ops, engine = self.torch, self.ops, self.engine
+        x = torch.randint(0, 100, (n,) * m, generator=self.gen(1 + m), device=self.dev,
+                          dtype=torch.int32)
+        for kind, split in self.variants("accum", m, kinds):
+            if m == 2:
+                out, _ = self.entry("accum", m, n, rho, kind, split, ops.simplex_accum2d, x)
+            else:
+                fn = ops.simplex_accum3d if m == 3 else ops.simplex_accum_md
+                out, _ = self.entry("accum", m, n, rho, kind, split, fn, x,
+                                    takes_split=True)
+            want = x.clone()
+            engine.get_body("accum").plain_(want, engine.schedule_for(m, n // rho, kind), rho)
+            if not torch.equal(out, want):
+                self.fail(f"accum m={m} n={n} kind={kind} split={split}")
+            del out, want
+
+    def _edm_cases(self, m, n, rho, kinds):
+        torch, ops, engine = self.torch, self.ops, self.engine
+        p = torch.randn((n, EDM_D), generator=self.gen(10 + m), device=self.dev)
+        for kind, split in self.variants("edm", m, kinds):
+            if m == 2:
+                out, row = self.entry("edm", m, n, rho, kind, split, ops.simplex_edm2d, p)
+            else:
+                out, row = self.entry("edm", m, n, rho, kind, split, ops.simplex_edm_md,
+                                      p, m, takes_split=True)
+            want = torch.zeros_like(out)
+            engine.get_body("edm").plain_(want, p, engine.schedule_for(m, n // rho, kind), rho)
+            err = (out - want).abs().max().item()
+            self.err["edm"] = max(self.err["edm"], err)
+            row["max_abs_err"] = err
+            if not math.isfinite(err) or err > 1e-5 + 1e-5 * want.abs().max().item():
+                self.fail(f"edm m={m} n={n} kind={kind} split={split} max_abs_err={err}")
+            del out, want
+
+    def _ca_cases(self, m, n, rho, kinds):
+        torch, ops, engine, ref = self.torch, self.ops, self.engine, self.ref
+        msk = ref.simplex_mask(m, n, torch.int32, self.dev)
+        s = (torch.rand((n,) * m, generator=self.gen(20 + m), device=self.dev)
+             < CA_DENSITY[m]).to(torch.int32) * msk
+        del msk
+        fn = ops.simplex_ca2d if m == 2 else ops.simplex_ca3d
+        for kind, split in self.variants("ca", m, kinds):
+            out, _ = self.entry("ca", m, n, rho, kind, split, fn, s)
+            want = s.clone()
+            engine.get_body("ca").plain_(want, s, engine.schedule_for(m, n // rho, kind), rho)
+            if not torch.equal(out, want):
+                self.fail(f"ca m={m} n={n} kind={kind}")
+            del out, want
+
+    # -- timing ---------------------------------------------------------
+
+    def bound(self, row) -> tuple:
+        """``(bound_ms, bound_by)``: the least time the card could take
+        for the case's work, from its bytes and float32 operations."""
+        test, m, n, kind = row["test"], row["m"], row["n"], row["kind"]
+        if test == "map":
+            nbytes = row["steps"] * (m + 1) * 4
+            if kind == "table":
+                nbytes += row["steps"] * m * 4
+            return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+        v = self.domain_cells(m, n)
+        if test in ("accum", "ca"):
+            return 2 * v * 4 / HBM_BYTES_PER_S * 1e3, "bytes"
+        # edm: write every domain cell, read the points.  Operations in
+        # the Gram form ||a||^2 + ||b||^2 - 2 a.b: one d-wide FMA per point
+        # for the norms, one d-wide dot product (FMAs) plus 3 per distinct
+        # pair i < j that a domain cell holds (every pair at m=2; i + j < n
+        # at m >= 3, the other coordinates 0), then the m(m-1)/2 - 1 adds
+        # that sum each cell's pair distances.
+        nbytes = v * 4 + n * EDM_D * 4
+        if m == 2:
+            pairs = n * (n - 1) // 2
+        else:
+            pairs = sum(max(0, n - 1 - 2 * i) for i in range(n))
+        flops = n * 2 * EDM_D + pairs * (2 * EDM_D + 3) + v * (m * (m - 1) // 2 - 1)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+    def timings(self) -> None:
+        """Time every case's kernel, plain version and library call,
+        and print one line per case."""
+        torch, engine, ref = self.torch, self.engine, self.ref
+        data = {}
+        for row in self.rows:
+            test, m, n, kind, rho = row["test"], row["m"], row["n"], row["kind"], row["rho"]
+            body = engine.get_body(test)
+            if test == "map":
+                sched = engine.schedule_for(m, n, kind)
+                row["ms"] = self.time_ms(lambda: body.kernel(sched, 128, self.dev))
+                row["plain_ms"] = self.time_ms(lambda: body.plain(sched, self.dev), runs=3, warm=1)
+                row["library_ms"] = None
+            else:
+                key = (test, m, n)
+                if key not in data:
+                    data.clear()
+                    torch.cuda.empty_cache()
+                    data[key] = self._timing_data(test, m, n)
+                d = data[key]
+                plan = self.plan(test, m, n, rho, kind, row["split"])
+                if test == "accum":
+                    buf = d["x"].clone()
+                    row["ms"] = self.time_ms(
+                        lambda: [body.kernel_(buf, s, rho) for s in plan])
+                    row["plain_ms"] = self.time_ms(
+                        lambda: [body.plain_(buf, s, rho) for s in plan], runs=3, warm=1)
+                    del buf
+                    msk = ref.simplex_mask(m, n, torch.bool, self.dev)
+                    x = d["x"]
+                    row["library_ms"] = self.time_ms(lambda: torch.where(msk, x + 1, x))
+                    del msk
+                elif test == "edm":
+                    out = torch.zeros((n,) * m, device=self.dev)
+                    p = d["p"]
+                    row["ms"] = self.time_ms(
+                        lambda: [body.kernel_(out, p, s, rho) for s in plan])
+                    row["plain_ms"] = self.time_ms(
+                        lambda: [body.plain_(out, p, s, rho) for s in plan], runs=3, warm=1)
+                    del out
+                    row["library_ms"] = (
+                        self.time_ms(lambda: torch.cdist(p, p).tril()) if m == 2 else None
+                    )
+                else:
+                    st = d["s"]
+                    out = st.clone()
+                    row["ms"] = self.time_ms(
+                        lambda: [body.kernel_(out, st, s, rho) for s in plan])
+                    row["plain_ms"] = self.time_ms(
+                        lambda: [body.plain_(out, st, s, rho) for s in plan], runs=3, warm=1)
+                    row["library_ms"] = None
+                    del out
+            torch.cuda.synchronize()
+            row["bound_ms"], row["bound_by"] = self.bound(row)
+        for row in self.rows:
+            bb = next(r for r in self.rows if r["test"] == row["test"] and r["m"] == row["m"]
+                      and r["n"] == row["n"] and r["kind"] == "bb")
+            row["bb_over_kind"] = bb["ms"] / row["ms"]
+            lib = row["library_ms"]
+            _log(
+                f"case test={row['test']} m={row['m']} n={row['n']} rho={row['rho']} "
+                f"kind={row['kind']} split={row['split']} steps={row['steps']} ms={row['ms']:.4f} "
+                f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                f"({row['bound_by']}) bound_share={row['bound_ms'] / row['ms']:.3f} "
+                f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
+                f"bb_ms/ms={row['bb_over_kind']:.3f} "
+                f"equal={'tol' if row['test'] == 'edm' else 'bit'}"
+            )
+
+    def _timing_data(self, test, m, n):
+        torch, ref = self.torch, self.ref
+        if test == "accum":
+            return {"x": torch.randint(0, 100, (n,) * m, generator=self.gen(1 + m),
+                                       device=self.dev, dtype=torch.int32)}
+        if test == "edm":
+            return {"p": torch.randn((n, EDM_D), generator=self.gen(10 + m), device=self.dev)}
+        msk = ref.simplex_mask(m, n, torch.int32, self.dev)
+        s = (torch.rand((n,) * m, generator=self.gen(20 + m), device=self.dev)
+             < CA_DENSITY[m]).to(torch.int32) * msk
+        return {"s": s}
+
+    # -- oracle check on a small input ---------------------------------
+
+    def oracle_check(self) -> None:
+        """A small input through the entry points against the dense
+        oracles of ``kernels/ref.py``."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        g = self.gen(99)
+        for m, n, rho in ((2, 64, 8), (3, 32, 4)):
+            msk = ref.simplex_mask(m, n, torch.bool, self.dev)
+            x = torch.randint(0, 9, (n,) * m, generator=g, device=self.dev, dtype=torch.int32)
+            a = ops.map_table(n // rho, m=m, kind="hmap" if m == 2 else "octant")
+            acc = (ops.simplex_accum2d if m == 2 else ops.simplex_accum3d)(x, rho=rho)
+            want = ref.accum_md(x)
+            if not (torch.equal(acc[msk], want[msk]) and torch.equal(acc[~msk], x[~msk])):
+                self.fail(f"oracle accum m={m}")
+            s = (x > 5).to(torch.int32) * msk
+            st = (ops.simplex_ca2d if m == 2 else ops.simplex_ca3d)(s, rho=rho)
+            want = ref.ca2d_step(s) if m == 2 else ref.ca3d_step(s)
+            if not torch.equal(st[msk], want[msk]):
+                self.fail(f"oracle ca m={m}")
+            p = torch.randn((n, 5), generator=g, device=self.dev)
+            e = ops.simplex_edm2d(p, rho=rho) if m == 2 else ops.simplex_edm3d(p, rho=rho)
+            if not (torch.isfinite(e).all() and
+                    torch.allclose(e, ref.edm_md(p, m), rtol=1e-5, atol=1e-5)):
+                self.fail(f"oracle edm m={m}")
+            blocks = {tuple(r) for r in a[a[:, -1] == 1, :-1].tolist()}
+            if len(blocks) != math.comb(n // rho + m - 1, m):
+                self.fail(f"oracle map m={m}: valid steps do not cover the simplex")
+        torch.cuda.synchronize()
+
+
+def main(argv=None) -> int:
+    """Run every phase; 0 only when every check passed."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    src = pathlib.Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build, engine, ops, ref
+
+    t_all = time.perf_counter()
+    card = _card_line()
+    _log(f"card: {card}")
+    _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    _build.library()
+    _log(f"phase build: {time.perf_counter() - t0:.1f} s")
+
+    smoke = Smoke(torch, engine, ops, ref, args.seed)
+    for name in engine.registered_bodies():
+        engine.get_body(name).launches = 0
+    t0 = time.perf_counter()
+    smoke.main_path()
+    launches = engine.launch_counts()
+    _log(f"phase main path: {time.perf_counter() - t0:.1f} s, launches {launches}")
+    for name in REPLACES:
+        if launches[name] <= 0:
+            smoke.fail(f"kernel {name} was never launched on the main path")
+
+    t0 = time.perf_counter()
+    smoke.timings()
+    _log(f"phase timing: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    smoke.oracle_check()
+    _log(f"phase oracle: {time.perf_counter() - t0:.1f} s")
+
+    kernels = []
+    for name in REPLACES:
+        head = next(r for r in smoke.rows if r["test"] == name and r["m"] == 2
+                    and r["kind"] == "hmap")
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": smoke.err[name], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": f"m=2 n={head['n']} rho={head['rho']} kind=hmap",
+        })
+    _log(f"phase total: {time.perf_counter() - t_all:.1f} s")
+    if smoke.failures:
+        print(f"{len(smoke.failures)} failures: {smoke.failures}", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

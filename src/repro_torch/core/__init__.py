@@ -1,0 +1,28 @@
+"""The port's scheduling core: simplex maps and schedules, numpy or torch."""
+
+from . import general_m, hmap, maps_baseline, schedule, simplex, trapezoids
+from .schedule import (
+    SimplexSchedule,
+    folded_causal_pairs,
+    grid_steps,
+    registered_kinds,
+    resolve_kind,
+)
+from .simplex import simplex_volume, tet, tri
+
+__all__ = [
+    "general_m",
+    "hmap",
+    "maps_baseline",
+    "schedule",
+    "simplex",
+    "trapezoids",
+    "SimplexSchedule",
+    "folded_causal_pairs",
+    "grid_steps",
+    "registered_kinds",
+    "resolve_kind",
+    "simplex_volume",
+    "tet",
+    "tri",
+]

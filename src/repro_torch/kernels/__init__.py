@@ -1,0 +1,7 @@
+"""Simplex kernels of the port: CUDA C++ for Hopper plus plain PyTorch.
+
+``engine`` launches the MAP/ACCUM/EDM/CA bodies over any schedule,
+``ops`` holds the public entry points, ``ref`` the dense oracles,
+``policy`` the device policy and ``_build`` the nvcc build.  Importing
+the package builds nothing: the kernels are compiled on first use.
+"""

@@ -1,0 +1,138 @@
+"""Build and bind the CUDA kernels of ``kernels/csrc``.
+
+The sources have a plain C interface (no PyTorch headers), so ``nvcc``
+compiles each ``.cu`` to an object in a few seconds; the objects are
+compiled in parallel and linked into one shared library, which is loaded
+with ``ctypes``.  The build runs at first use, keyed by a hash of the
+sources and flags, into ``<repo>/build/repro_torch/<hash>/`` — a path
+resolved from this file, not from the working directory.  Nothing here
+runs at import time: hosts without ``nvcc`` import the package and use
+the plain PyTorch versions on CPU tensors.
+
+Every C entry returns ``cudaGetLastError()`` after its launch;
+``check`` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+from typing import Optional
+
+__all__ = ["CSRC", "BUILD_ROOT", "CUDA_HOME", "NVCC_FLAGS", "library", "check", "nvcc_path"]
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+CUDA_HOME = pathlib.Path("/usr/local/cuda")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # out, header, data, threads, stream
+    "simplex_map_launch": (_P, _P, _P, _I, _P),
+    # x, dtype, header, data, n, rho, stream
+    "simplex_accum_launch": (_P, _I, _P, _P, _I, _I, _P),
+    # out, points, d, header, data, n, rho, stream
+    "simplex_edm_launch": (_P, _P, _I, _P, _P, _I, _I, _P),
+    # out, in, periodic, header, data, n, rho, stream
+    "simplex_ca_launch": (_P, _P, _I, _P, _P, _I, _I, _P),
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` to build with: on PATH, else under /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = CUDA_HOME / "bin" / "nvcc"
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are built on first use on a host "
+        "with the CUDA toolkit; CPU tensors use the plain PyTorch versions"
+    )
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cus, cuhs = _sources()
+    for path in cus + cuhs:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(target: pathlib.Path) -> None:
+    nvcc = nvcc_path()
+    cus, _ = _sources()
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs = [pathlib.Path(tmp) / (cu.stem + ".o") for cu in cus]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for cu, obj in zip(cus, objs)
+        ]
+        failed = []
+        for cu, proc in zip(cus, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{cu.name}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = pathlib.Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(lib)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(lib, target)  # atomic: concurrent builds agree
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use and then cached.
+
+    Returns:
+        The loaded ``ctypes.CDLL`` with ``argtypes``/``restype`` set.
+    """
+    global _LIB
+    if _LIB is None:
+        target = BUILD_ROOT / _digest() / "libsimplex_kernels.so"
+        if not target.exists():
+            _build(target)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error.
+
+    Args:
+        code: The ``cudaError_t`` the entry returned.
+        what: The kernel's name, for the message.
+    """
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {code}")

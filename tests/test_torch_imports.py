@@ -1,0 +1,63 @@
+"""The port stands alone: nothing under src/repro_torch/, and not
+chip_smoke.py, imports JAX or the JAX package ``repro``."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == root or name.startswith(root + ".") for root in ("jax", "repro"))
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def test_port_has_modules():
+    names = {p.relative_to(REPO / "src").as_posix() for p in PORT_FILES[:-1]}
+    for want in ("repro_torch/core/schedule.py", "repro_torch/kernels/engine.py",
+                 "repro_torch/kernels/ops.py", "repro_torch/kernels/policy.py",
+                 "repro_torch/kernels/ref.py", "repro_torch/kernels/_build.py",
+                 "repro_torch/state.py"):
+        assert want in names
+    for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh"):
+        assert (REPO / "src/repro_torch/kernels/csrc" / cu).is_file()
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(REPO).as_posix())
+def test_no_jax_or_repro_import(path):
+    bad = [(line, name) for line, name in _imports(path) if _forbidden(name)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_import_loads_neither_jax_nor_repro():
+    code = (
+        "import sys; import repro_torch.kernels.ops, repro_torch.kernels.engine, "
+        "repro_torch.state, repro_torch.core; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+        "assert not bad, bad"
+    )
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
+
+
+def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    res = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
