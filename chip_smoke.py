@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one GPU and hold every kernel
+"""Drive the PyTorch port's main paths on one GPU and hold every kernel
 against its plain PyTorch version.
 
-The main path is the paper's own: a schedule kind's map walks an
-m-simplex domain and a kernel does one tile of work per step.  This
-script
+The first main path is the paper's own: a schedule kind's map walks an
+m-simplex domain and a kernel does one tile of work per step.  The
+second is serving: ``repro_torch.launch.serve`` prefills a batch of
+prompts through full-width yi-6b, whose attention runs the
+folded-simplex flash kernel, and decodes greedily.  This script
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
@@ -22,7 +24,20 @@ script
    calls), and prints one line per (test, m, kind) with grid steps, the
    time ratio against ``bb`` at the same side, and the bound;
 6. checks a small input against the dense oracles of ``kernels/ref.py``;
-7. prints the ``kernels`` JSON line, then the result line.
+7. serves full-width yi-6b (32 layers, d_model 4096, float32 weights
+   from ``--seed``; batch 4, prompt 2048, 16 greedy tokens) with every
+   counter at 0, and checks that prefill launched the flash kernel once
+   per layer;
+8. prefills the same prompts again with ``attention_impl="chunked"``
+   (the reference's own executor knob) and holds the last-token logits
+   of the two within ``rtol 2e-3, atol 2e-4``;
+9. holds the flash kernel against its plain version on the card, within
+   ``|k - p| <= 2e-5 + 2e-5 * max|p|``, at the serve shape (folded and
+   bb), an odd tile count, ``Hkv == Hq``, a broadcast bias and segment
+   ids, and against ``_reference_attention`` on a small case;
+10. times the flash kernel (folded and bb), its plain version and
+    ``scaled_dot_product_attention`` at the serve shape;
+11. prints the ``kernels`` JSON line, then the result line.
 
 Any mismatch, build failure or launch error exits non-zero without the
 result line.  Run from the repository root::
@@ -48,13 +63,22 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
 EDM_D = 64
 TIMED_RUNS = 10
 
+SIMPLEX = ("map", "accum", "edm", "ca")
 REPLACES = {
     "map": "src/repro/kernels/engine.py:737",
     "accum": "src/repro/kernels/engine.py:503",
     "edm": "src/repro/kernels/engine.py:503",
     "ca": "src/repro/kernels/engine.py:503",
+    "flash": "src/repro/kernels/flash_attention.py:296",
 }
-SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
+SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in SIMPLEX}
+SOURCES["flash"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+
+# Serving: full-width yi-6b, batch 4, prompt 2048 (16 query tiles of 128).
+SERVE_ARGV = ["--arch", "yi-6b", "--batch", "4", "--prompt-len", "2048", "--gen", "16",
+              "--temperature", "0"]
+SERVE_SHAPE = (4, 32, 4, 2048, 128)  # (B, Hq, Hkv, S, D) of one attention call
+LOGIT_TOL = dict(rtol=2e-3, atol=2e-4)
 
 # (m, n, rho, kinds) per domain test; each composite side gets its own bb.
 DOMAIN_CASES = {
@@ -93,7 +117,7 @@ class Smoke:
         self.seed = seed
         self.dev = torch.device("cuda")
         self.failures: list = []
-        self.err = {k: 0.0 for k in REPLACES}
+        self.err = {k: 0.0 for k in SIMPLEX}
         self.rows: list = []  # per-case results
 
     # -- helpers ------------------------------------------------------
@@ -383,6 +407,179 @@ class Smoke:
         torch.cuda.synchronize()
 
 
+class FlashSmoke:
+    """The serving path and the flash kernel's checks and timings.
+
+    Shares the simplex ``Smoke``'s generators, timer and failure list.
+    """
+
+    def __init__(self, smoke: Smoke, fa, serve):
+        self.s, self.fa, self.serve = smoke, fa, serve
+        self.torch = smoke.torch
+        self.err = 0.0
+        self.rows: list = []
+        self.stats: dict = {}
+
+    # -- the serving main path ------------------------------------------
+
+    def serve_path(self):
+        """``serve.run`` on full-width yi-6b; returns the run."""
+        torch = self.torch
+        torch.cuda.reset_peak_memory_stats()
+        r = self.serve.run(self.serve.parse_args(SERVE_ARGV + ["--seed", str(self.s.seed)]))
+        torch.cuda.synchronize()
+        cfg = r.model.cfg
+        b, gen = r.tokens.shape
+        self.stats = dict(prefill_s=r.prefill_s, decode_tok_s=(gen - 1) * b / r.decode_s,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          params=sum(p.numel() for p in r.model.parameters()))
+        _log(f"serve {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} heads "
+             f"{cfg.n_heads}/{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab {cfg.vocab}, "
+             f"{self.stats['params']} float32 parameters; batch {b}, prompt "
+             f"{r.prompts.shape[1]}, {gen - 1} greedy tokens")
+        _log(f"serve prefill_s={r.prefill_s:.4f} decode_s={r.decode_s:.4f} "
+             f"decode_tok_s={self.stats['decode_tok_s']:.2f} "
+             f"peak_gib={self.stats['peak_gib']:.3f}")
+        lg = r.prefill_logits
+        if tuple(lg.shape) != (b, 1, cfg.vocab) or not torch.isfinite(lg).all():
+            self.s.fail(f"serve: prefill logits {tuple(lg.shape)} not finite or misshapen")
+        if (tuple(r.tokens.shape) != (b, 17) or int(r.tokens.min()) < 0
+                or int(r.tokens.max()) >= cfg.vocab):
+            self.s.fail(f"serve: token ids {tuple(r.tokens.shape)} out of range")
+        return r
+
+    def hold(self, r) -> None:
+        """The same prefill with the chunked executor: last-token logits
+        must agree with the flash path's."""
+        torch = self.torch
+        model = r.model
+        before = self.fa.FLASH.launches
+        model.cfg = model.cfg.replace(attention_impl="chunked")
+        try:
+            t0 = time.perf_counter()
+            chunked, _ = model.prefill({"tokens": r.prompts})
+            torch.cuda.synchronize()
+            self.stats["chunked_prefill_s"] = time.perf_counter() - t0
+        finally:
+            model.cfg = model.cfg.replace(attention_impl="auto")
+        if self.fa.FLASH.launches != before:
+            self.s.fail("hold: the chunked prefill launched the flash kernel")
+        flash = r.prefill_logits
+        err = (flash - chunked).abs().max().item()
+        self.stats["logit_err"] = err
+        self.stats["logit_rel"] = err / chunked.abs().max().item()
+        ok = torch.allclose(flash, chunked, **LOGIT_TOL)
+        _log(f"hold flash vs chunked prefill: max_abs_err={err:.3e} "
+             f"max|logit|={chunked.abs().max().item():.3f} "
+             f"chunked_prefill_s={self.stats['chunked_prefill_s']:.4f} allclose={ok}")
+        if not ok:
+            self.s.fail(f"hold: flash and chunked logits differ by {err}")
+
+    # -- the kernel against its plain version ----------------------------
+
+    def qkv(self, b, hq, hkv, s, d, salt):
+        """Random float32 q, k, v on the card from ``--seed`` and ``salt``."""
+        torch, dev = self.torch, self.s.dev
+        g = self.s.gen(salt)
+        return (torch.randn((b, hq, s, d), generator=g, device=dev),
+                torch.randn((b, hkv, s, d), generator=g, device=dev),
+                torch.randn((b, hkv, s, d), generator=g, device=dev))
+
+    def segments(self, b, s):
+        """Packing ids with boundaries inside tiles: rows of a later
+        segment see fully masked first KV tiles."""
+        seg = self.torch.zeros((b, s), dtype=self.torch.int32, device=self.s.dev)
+        seg[0, s // 3:] = 1
+        seg[-1, (2 * s) // 3 + 5:] = 2
+        return seg
+
+    def compare(self, what, got, want) -> None:
+        """Hold ``got`` within ``2e-5 + 2e-5 * max|want|`` of ``want``."""
+        err = (got - want).abs().max().item()
+        self.err = max(self.err, err)
+        tol = 2e-5 + 2e-5 * want.abs().max().item()
+        _log(f"flash check {what}: max_abs_err={err:.3e} tol={tol:.3e}")
+        if not math.isfinite(err) or err > tol:
+            self.s.fail(f"flash {what}: max_abs_err={err} > {tol}")
+
+    def kernel_cases(self) -> None:
+        """Every case through the kernel and its plain version."""
+        torch, FL = self.torch, self.fa.FLASH
+        b, hq, hkv, s, d = SERVE_SHAPE
+        cases = [  # (what, (b, hq, hkv, s, d), block_q, kinds, bias lead dims, segments)
+            ("serve shape", (b, hq, hkv, s, d), 128, ("folded", "bb"), None, False),
+            ("odd nq=15", (1, hq, hkv, 1920, d), 128, ("folded", "bb"), None, False),
+            ("Hkv == Hq", (1, hq, hq, 1024, d), 128, ("folded",), None, False),
+            ("bias (1,Hq)", (2, 8, 2, 512, d), 128, ("folded", "bb"), (1, 8), False),
+            ("bias (B,1)+segments", (2, 8, 2, 512, d), 64, ("folded", "bb"), (2, 1), True),
+            ("segments", (2, 8, 2, 512, d), 128, ("folded",), None, True),
+        ]
+        for i, (what, shape, bq, kinds, lead, with_seg) in enumerate(cases):
+            q, k, v = self.qkv(*shape, salt=40 + i)
+            bias = None if lead is None else torch.randn(
+                lead + (shape[3], shape[3]), generator=self.s.gen(60 + i), device=self.s.dev)
+            seg = self.segments(shape[0], shape[3]) if with_seg else None
+            for kind in kinds:
+                scale = shape[4] ** -0.5
+                got = FL.kernel(kind, bq, scale, q, k, v, bias, seg)
+                torch.cuda.synchronize()
+                self.compare(f"{what} {kind} shape={shape} block_q={bq}", got,
+                             FL.plain(kind, bq, scale, q, k, v, bias, seg))
+            del q, k, v, bias, seg
+        q, k, v = self.qkv(1, 4, 2, 256, 64, salt=70)
+        bias = torch.randn((1, 4, 256, 256), generator=self.s.gen(71), device=self.s.dev)
+        seg = self.segments(1, 256)
+        got = FL.kernel("folded", 64, 0.125, q, k, v, bias, seg)
+        self.compare("folded vs _reference_attention shape=(1, 4, 2, 256, 64)", got,
+                     self.fa._reference_attention(q, k, v, bias, seg, 0.125))
+        torch.cuda.empty_cache()
+
+    # -- timing -----------------------------------------------------------
+
+    @staticmethod
+    def bound(b, hq, hkv, s, d) -> tuple:
+        """``(bound_ms, bound_by)`` of one causal attention call: q, k, v
+        read once and the output written once, against float32
+        operations 4 * B * Hq * D * S(S+1)/2 (QK^T and PV, 2*D each per
+        visible (query, key) pair; the softmax's exp and sums are not
+        counted)."""
+        nbytes = 4 * d * s * (2 * b * hq + 2 * b * hkv)
+        flops = 4 * b * hq * d * s * (s + 1) // 2
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+    def timings(self) -> None:
+        """Kernel (folded, bb), plain version and SDPA at the serve shape."""
+        torch, FL = self.torch, self.fa.FLASH
+        b, hq, hkv, s, d = SERVE_SHAPE
+        q, k, v = self.qkv(b, hq, hkv, s, d, salt=80)
+        scale = d**-0.5
+        kx = k.repeat_interleave(hq // hkv, dim=1)
+        vx = v.repeat_interleave(hq // hkv, dim=1)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = self.s.time_ms(lambda: sdpa(q, kx, vx, is_causal=True, scale=scale))
+        lib_err = (sdpa(q, kx, vx, is_causal=True, scale=scale)
+                   - FL.plain("folded", 128, scale, q, k, v)).abs().max().item()
+        _log(f"library scaled_dot_product_attention vs plain: max_abs_err={lib_err:.3e}")
+        bound_ms, bound_by = self.bound(b, hq, hkv, s, d)
+        for kind in ("folded", "bb"):
+            ms = self.s.time_ms(lambda: FL.kernel(kind, 128, scale, q, k, v))
+            plain = self.s.time_ms(lambda: FL.plain(kind, 128, scale, q, k, v), runs=3, warm=1)
+            self.rows.append(dict(kind=kind, ms=ms, plain_ms=plain, library_ms=lib,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  steps=b * hq * self.fa.flash_grid_steps(s // 128, kind)))
+        bb = next(r for r in self.rows if r["kind"] == "bb")
+        for row in self.rows:
+            _log(f"case test=flash kind={row['kind']} B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+                 f"block_q=128 steps={row['steps']} ms={row['ms']:.4f} "
+                 f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                 f"({row['bound_by']}) bound_share={row['bound_ms'] / row['ms']:.3f} "
+                 f"library_ms={row['library_ms']:.4f} bb_ms/ms={bb['ms'] / row['ms']:.3f} "
+                 f"equal=tol")
+        del q, k, v, kx, vx
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     """Run every phase; 0 only when every check passed."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -402,6 +599,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _build, engine, ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
 
     t_all = time.perf_counter()
     card = _card_line()
@@ -415,26 +614,55 @@ def main(argv=None) -> int:
     _build.library()
     _log(f"phase build: {time.perf_counter() - t0:.1f} s")
 
+    def zero_counts():
+        for name in engine.registered_bodies():
+            engine.get_body(name).launches = 0
+        fa.FLASH.launches = 0
+
+    def counts():
+        return dict(engine.launch_counts(), **fa.launch_counts())
+
     smoke = Smoke(torch, engine, ops, ref, args.seed)
-    for name in engine.registered_bodies():
-        engine.get_body(name).launches = 0
+    flash = FlashSmoke(smoke, fa, serve)
+    zero_counts()
     t0 = time.perf_counter()
     smoke.main_path()
-    launches = engine.launch_counts()
+    launches = counts()
     _log(f"phase main path: {time.perf_counter() - t0:.1f} s, launches {launches}")
-    for name in REPLACES:
+    for name in SIMPLEX:
         if launches[name] <= 0:
             smoke.fail(f"kernel {name} was never launched on the main path")
+    torch.cuda.empty_cache()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    run = flash.serve_path()
+    serve_launches = counts()
+    _log(f"phase serve path: {time.perf_counter() - t0:.1f} s, launches {serve_launches}")
+    launches["flash"] = serve_launches["flash"]
+    n_layers = run.model.cfg.n_layers
+    if serve_launches["flash"] != n_layers:
+        smoke.fail(f"serve: prefill launched the flash kernel {serve_launches['flash']} "
+                   f"times, not once per layer ({n_layers})")
+    t0 = time.perf_counter()
+    flash.hold(run)
+    _log(f"phase hold: {time.perf_counter() - t0:.1f} s")
+    del run
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flash.kernel_cases()
+    _log(f"phase flash checks: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     smoke.timings()
+    flash.timings()
     _log(f"phase timing: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     smoke.oracle_check()
     _log(f"phase oracle: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
-    for name in REPLACES:
+    for name in SIMPLEX:
         head = next(r for r in smoke.rows if r["test"] == name and r["m"] == 2
                     and r["kind"] == "hmap")
         kernels.append({
@@ -445,6 +673,20 @@ def main(argv=None) -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": f"m=2 n={head['n']} rho={head['rho']} kind=hmap",
         })
+    head = next(r for r in flash.rows if r["kind"] == "folded")
+    b, hq, hkv, s, d = SERVE_SHAPE
+    kernels.append({
+        "name": "flash", "route": "cuda", "source": SOURCES["flash"],
+        "replaces": REPLACES["flash"], "launches": launches["flash"],
+        "max_abs_err": flash.err, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shape": f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} block_q=128 kind=folded",
+    })
+    st = flash.stats
+    _log(f"serve summary: prefill_s={st['prefill_s']:.4f} "
+         f"decode_tok_s={st['decode_tok_s']:.2f} peak_gib={st['peak_gib']:.3f} "
+         f"logit_err={st['logit_err']:.3e}")
     _log(f"phase total: {time.perf_counter() - t_all:.1f} s")
     if smoke.failures:
         print(f"{len(smoke.failures)} failures: {smoke.failures}", file=sys.stderr)

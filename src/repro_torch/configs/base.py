@@ -1,0 +1,91 @@
+"""The port's own copy of the architecture configuration dataclasses.
+
+``LayerSpec`` and ``ArchConfig`` carry the fields of the JAX package's
+``configs/base.py`` that serving a dense decoder on one card reads or
+refuses; the training, sharding, MoE, MLA, Mamba and xLSTM knobs wait
+for their slices (ROADMAP A.8, A.9).
+``param_count`` counts the port's own ``Model`` on the meta device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+__all__ = ["LayerSpec", "ArchConfig"]
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One layer of a (possibly heterogeneous) period pattern."""
+
+    mixer: str = "attn"  # attn | mamba | mlstm | slstm
+    ffn: str = "dense"  # dense | moe | none
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """A model architecture: widths, layer pattern and executor knobs."""
+
+    name: str
+    family: str  # dense | moe | vlm | audio | hybrid | ssm | encdec
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    period: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    n_prefix: int = 0
+    prefix_spec: Tuple[LayerSpec, ...] = ()
+    attention: str = "gqa"  # gqa | mla
+    rope_theta: float = 1_000_000.0
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+    encoder_layers: int = 0
+    n_patches: int = 0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    mtp: bool = False
+    act_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    attention_chunk: int = 512  # chunked-attention tile
+    attention_schedule: str = "folded"  # folded (simplex) | bb (baseline)
+    # prefill attention executor: "auto" resolves through
+    # autotune.choose_attn_impl; "flash" / "chunked" force a path,
+    # "flash-folded" / "flash-bb" also pin the kernel schedule.
+    attention_impl: str = "auto"
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        """Head dimension."""
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def n_periods(self) -> int:
+        """Repetitions of ``period`` after the prefix layers."""
+        body = self.n_layers - self.n_prefix
+        if body % len(self.period):
+            raise ValueError(f"{self.name}: {body} layers are not whole periods "
+                             f"of {len(self.period)}")
+        return body // len(self.period)
+
+    def replace(self, **kw) -> "ArchConfig":
+        """A copy with the given fields replaced."""
+        return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Total parameters of the port's ``Model``, counted on the meta
+        device (no memory is allocated).
+
+        Example:
+            >>> from repro_torch.configs.yi_6b import reduced
+            >>> reduced().param_count()
+            135488
+        """
+        from ..models.model import Model
+
+        return sum(p.numel() for p in Model(self, device="meta").parameters())
+

@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # out, header, data, threads, stream
     "simplex_map_launch": (_P, _P, _P, _I, _P),
@@ -45,6 +46,10 @@ _SIGNATURES = {
     "simplex_edm_launch": (_P, _P, _I, _P, _P, _I, _I, _P),
     # out, in, periodic, header, data, n, rho, stream
     "simplex_ca_launch": (_P, _P, _I, _P, _P, _I, _I, _P),
+    # o, q, k, v, bias, bias_b, bias_h, seg, b, hq, hkv, s, d, block_q,
+    # folded, scale, stream
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

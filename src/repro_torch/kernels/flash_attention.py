@@ -1,0 +1,380 @@
+"""Causal flash attention on the 2-simplex grid (DESIGN.md §8).
+
+The causal score matrix is a standard 2-simplex of tiles
+``(q_tile, kv_tile)`` with ``kv <= q``.  The bounding-box schedule
+(``kind='bb'``) visits all ``nq x nq`` tiles and skips the upper half,
+the paper's BB baseline.  The folded schedule (``kind='folded'``) is the
+zero-waste walk: pair ``p`` serves query tiles ``p`` and ``nq-1-p``::
+
+    step j <= p:   (q, kv) = (p, j)
+    step j >  p:   (q, kv) = (nq-1-p, j-p-1)
+
+Every pair owns ``nq+1`` KV tiles, and each query tile's KV visits are
+consecutive, which the online-softmax recurrence needs.  An odd tile
+count self-pairs the middle tile: its second half-walk recomputes the
+same output and rewrites it.
+
+Two versions of the forward compute the same function:
+
+* the CUDA kernel ``kernels/csrc/flash_attention.cu`` for CUDA tensors,
+  one thread block per ``(b*Hq, pair)`` (folded) or ``(b*Hq, q tile)``
+  (bb) that walks its tile steps in order;
+* a plain PyTorch version that walks the same schedule over one batch of
+  ``b*Hq`` slabs with the same running max, denominator, resets and
+  flushes, for CPU tensors and as the kernel's reference on the card.
+
+Dispatch follows the tensor; nothing falls back.  GQA reads the KV row
+``bh // (Hq/Hkv)`` without a repeated K/V tensor.  ``_reference_attention``
+is the independent dense check.  The backward (training) is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from .policy import SMEM_LIMIT, on_card, resolve_device
+
+NEG_INF = -1e30
+
+__all__ = [
+    "NEG_INF",
+    "FLASH",
+    "FlashKernel",
+    "flash_attention",
+    "flash_fold_pairs",
+    "flash_grid_steps",
+    "folded_qkv",
+    "kernel_fits",
+    "flash_smem_bytes",
+    "launch_counts",
+]
+
+# Tiles and head dims the CUDA kernel is compiled for.
+KERNEL_BLOCKS = (8, 16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_fold_pairs(nq_tiles: int) -> int:
+    """Folded-grid pair rows for ``nq_tiles`` query tiles.
+
+    Example:
+        >>> flash_fold_pairs(4), flash_fold_pairs(5)
+        (2, 3)
+    """
+    if nq_tiles < 1:
+        raise ValueError(f"nq_tiles must be >= 1, got {nq_tiles}")
+    return (nq_tiles + 1) // 2
+
+
+def flash_grid_steps(nq_tiles: int, kind: str) -> int:
+    """Tile steps the schedule walks for ``nq_tiles`` query tiles, per
+    ``b*Hq`` slab.
+
+    Raises:
+        ValueError: Unknown kind or non-positive tile count.
+
+    Example:
+        >>> flash_grid_steps(4, "bb"), flash_grid_steps(4, "folded")
+        (16, 10)
+        >>> flash_grid_steps(5, "folded")  # odd: 3 pair rows x 6 steps
+        18
+    """
+    if nq_tiles < 1:
+        raise ValueError(f"nq_tiles must be >= 1, got {nq_tiles}")
+    if kind == "bb":
+        return nq_tiles * nq_tiles
+    if kind == "folded":
+        return flash_fold_pairs(nq_tiles) * (nq_tiles + 1)
+    raise ValueError(f"unknown flash schedule kind {kind!r}")
+
+
+def folded_qkv(p: int, j: int, nq: int):
+    """Folded step ``(p, j)`` -> ``(q_tile, kv_tile, is_start, is_last)``.
+
+    Example:
+        >>> [folded_qkv(0, j, 4)[:2] for j in range(5)]
+        [(0, 0), (3, 0), (3, 1), (3, 2), (3, 3)]
+    """
+    second = j > p
+    q = nq - 1 - p if second else p
+    kv = j - p - 1 if second else j
+    return q, kv, j in (0, p + 1), j in (p, nq)
+
+
+def _schedule(kind: str, nq: int, p: int):
+    """``(q, kv, start, last)`` of each live step of row ``p``, in order."""
+    if kind == "folded":
+        return [folded_qkv(p, j, nq) for j in range(nq + 1)]
+    return [(p, kv, kv == 0, kv == p) for kv in range(p + 1)]
+
+
+def _bias_index(bias_shape, b: int, hq: int):
+    """Map from the fused ``bh`` index into the ``bias_b * bias_h`` slabs
+    of a bias broadcast over batch and heads."""
+    bias_b, bias_h = bias_shape[0], bias_shape[1]
+    if bias_b not in (1, b) or bias_h not in (1, hq):
+        raise ValueError(
+            f"bias must broadcast over (batch={b}, heads={hq}); got "
+            f"leading dims {(bias_b, bias_h)}"
+        )
+
+    def to_slab(bh):
+        batch = bh // hq
+        head = bh % hq
+        bb = batch % bias_b if bias_b > 1 else 0 * batch
+        hh = head % bias_h if bias_h > 1 else 0 * head
+        return bb * bias_h + hh
+
+    return to_slab
+
+
+def flash_smem_bytes(block_q: int, d: int) -> int:
+    """Shared memory of one ``flash_attention.cu`` block: Q^T padded to
+    ``block_q+4`` columns, one K^T sub-chunk padded to ``bc+4``, one V
+    sub-chunk and the P sub-tile, ``bc = min(32, block_q)`` keys each.
+
+    Example:
+        >>> flash_smem_bytes(128, 128)
+        118784
+    """
+    bc = min(32, block_q)
+    return 4 * (d * (block_q + 4) + d * (bc + 4) + bc * d + bc * block_q)
+
+
+def kernel_fits(block_q: int, d: int) -> bool:
+    """Whether the CUDA kernel is compiled for ``(block_q, d)`` and its
+    block fits the shared memory a Hopper block may use."""
+    return (block_q in KERNEL_BLOCKS and d in KERNEL_HEAD_DIMS
+            and flash_smem_bytes(block_q, d) <= SMEM_LIMIT)
+
+
+class FlashKernel:
+    """The flash forward's two versions and its launch counter.
+
+    Attributes:
+        launches: Launches of the CUDA kernel so far, never of the plain
+            version.
+    """
+
+    name = "flash"
+
+    def __init__(self):
+        self.launches = 0
+
+    def plain(self, kind: str, block_q: int, scale: float, q, k, v, bias=None,
+              seg=None) -> torch.Tensor:
+        """The schedule walked with torch ops over all ``b*Hq`` slabs."""
+        b, hq, s, d = q.shape
+        hkv = k.shape[1]
+        nq = s // block_q
+        bh = b * hq
+        dev = q.device
+        slabs = torch.arange(bh, device=dev)
+        kv_rows = slabs // (hq // hkv)
+        qs = q.reshape(bh, nq, block_q, d).to(torch.float32) * scale
+        kr = k.reshape(b * hkv, nq, block_q, d).to(torch.float32)
+        vr = v.reshape(b * hkv, nq, block_q, d).to(torch.float32)
+        if bias is not None:
+            bias_slab = _bias_index(bias.shape, b, hq)(slabs)
+            br = bias.reshape(-1, s, s).to(torch.float32)
+        if seg is not None:
+            segr = seg.reshape(b, nq, block_q)[slabs // hq]  # (bh, nq, bq)
+        tri = torch.ones((block_q, block_q), dtype=torch.bool, device=dev).tril()
+        full = torch.ones_like(tri)
+        out = torch.empty((bh, nq, block_q, d), dtype=q.dtype, device=dev)
+        rows = flash_fold_pairs(nq) if kind == "folded" else nq
+        for p in range(rows):
+            for qt, kt, start, last in _schedule(kind, nq, p):
+                if start:
+                    m = torch.full((bh, block_q), NEG_INF, device=dev)
+                    l = torch.zeros((bh, block_q), device=dev)
+                    acc = torch.zeros((bh, block_q, d), device=dev)
+                kb = kr[kv_rows, kt]
+                sc = qs[:, qt] @ kb.transpose(1, 2)  # (bh, bq, bq)
+                if bias is not None:
+                    sc = sc + br[bias_slab, qt * block_q:(qt + 1) * block_q,
+                                 kt * block_q:(kt + 1) * block_q]
+                valid = (tri if qt == kt else full)[None]
+                if seg is not None:
+                    valid = valid & (segr[:, qt, :, None] == segr[:, kt, None, :])
+                sc = torch.where(valid, sc, NEG_INF)
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp(m - m_new)
+                pr = torch.exp(sc - m_new[..., None]) * valid
+                l = l * alpha + pr.sum(-1)
+                acc = acc * alpha[..., None] + pr @ vr[kv_rows, kt]
+                m = m_new
+                if last:
+                    out[:, qt] = (acc / torch.where(l == 0, 1.0, l)[..., None]).to(q.dtype)
+        return out.reshape(b, hq, s, d)
+
+    def kernel(self, kind: str, block_q: int, scale: float, q, k, v, bias=None,
+               seg=None) -> torch.Tensor:
+        """The CUDA kernel ``flash_attention.cu`` on CUDA tensors."""
+        b, hq, s, d = q.shape
+        hkv = k.shape[1]
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.device.type != "cuda" or t.dtype != torch.float32:
+                raise ValueError(f"flash kernel takes float32 CUDA tensors; {name} is "
+                                 f"{t.dtype} on {t.device}")
+            if t.device != q.device:
+                raise ValueError(f"flash kernel: {name} on {t.device}, q on {q.device}")
+        if not kernel_fits(block_q, d):
+            raise ValueError(
+                f"flash kernel is built for block_q in {KERNEL_BLOCKS} and head_dim in "
+                f"{KERNEL_HEAD_DIMS} within {SMEM_LIMIT} bytes of shared memory; got "
+                f"block_q={block_q}, head_dim={d}"
+            )
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        bias_b = bias_h = 1
+        if bias is not None:
+            bias_b, bias_h = bias.shape[0], bias.shape[1]
+            bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+        if seg is not None:
+            seg = seg.to(device=q.device, dtype=torch.int32).contiguous()
+        out = torch.empty_like(q)
+        lib = _build.library()
+        with torch.cuda.device(q.device):
+            code = lib.flash_attention_launch(
+                out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if bias is None else bias.data_ptr(), bias_b, bias_h,
+                None if seg is None else seg.data_ptr(), b, hq, hkv, s, d, block_q,
+                int(kind == "folded"), float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        _build.check(code, self.name)
+        self.launches += 1
+        return out
+
+
+FLASH = FlashKernel()
+
+
+def launch_counts() -> dict:
+    """Launches of the flash kernel since its counter was last 0.
+
+    Example:
+        >>> sorted(launch_counts())
+        ['flash']
+    """
+    return {FLASH.name: FLASH.launches}
+
+
+def flash_attention(
+    q,
+    k,
+    v,
+    *,
+    bias=None,
+    segment_ids=None,
+    kind: str = "folded",
+    block_q: int = 128,
+    block_kv: int = 128,
+    scale: Optional[float] = None,
+    device=None,
+) -> torch.Tensor:
+    """Causal self-attention on the simplex grid, GQA-aware.
+
+    Args:
+        q: Queries, ``(B, Hq, S, D)``.
+        k: Keys, ``(B, Hkv, S, D)`` with ``Hq % Hkv == 0``.
+        v: Values, same shape as ``k``.
+        bias: Optional additive logit bias broadcastable to
+            ``(B, Hq, S, S)``; its leading dims may each be 1.
+        segment_ids: Optional ``(B, S)`` integer packing ids; attention
+            only flows within equal ids.
+        kind: ``'folded'`` (the simplex fold) or ``'bb'`` (bounding box).
+        block_q: Query tile size (clamped to S; must divide S).
+        block_kv: KV tile size; the fold pairs tiles 1:1, so it must
+            equal ``block_q``.
+        scale: Logit scale; defaults to ``1/sqrt(D)``.
+        device: Where to run; None means the card.  Tensors already on
+            it stay where they are.
+
+    Returns:
+        ``(B, Hq, S, D)`` attention output in ``q.dtype`` (float32
+        softmax accumulation).
+
+    Raises:
+        ValueError: S not divisible by the block size, ``block_q !=
+            block_kv``, a bias or segment ids of the wrong shape, or an
+            unknown kind.
+        RuntimeError: ``device`` is None and no CUDA device is present.
+
+    Example:
+        >>> q = torch.randn(1, 2, 8, 4)
+        >>> out = flash_attention(q, q[:, :1], q[:, :1], block_q=4, block_kv=4,
+        ...                       device="cpu")
+        >>> bool(torch.allclose(out, _reference_attention(q, q[:, :1], q[:, :1],
+        ...                                               None, None, 0.5), atol=1e-6))
+        True
+    """
+    device = resolve_device(device)
+    q, k, v = (torch.as_tensor(x, device=device) for x in (q, k, v))
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if hkv < 1 or hq % hkv or tuple(k.shape) != (b, hkv, s, d) or k.shape != v.shape:
+        raise ValueError(
+            f"expected q (B, Hq, S, D) and k, v (B, Hkv, S, D) with Hq % Hkv == 0; "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    block_q = min(block_q, s)
+    block_kv = min(block_kv, s)
+    if s % block_q or s % block_kv:
+        raise ValueError(
+            f"sequence length {s} must be divisible by the block size "
+            f"(block_q={block_q}, block_kv={block_kv})"
+        )
+    if block_q != block_kv:
+        raise ValueError(
+            f"fold pairs q/kv tiles 1:1 (square tiles); got "
+            f"block_q={block_q} != block_kv={block_kv}"
+        )
+    nq = s // block_q
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    if kind == "folded" and nq == 1:
+        kind = "bb"  # single tile: nothing to fold
+    if kind not in ("folded", "bb"):
+        raise ValueError(f"unknown flash schedule kind {kind!r}")
+    if bias is not None:
+        bias = torch.as_tensor(bias, device=device)
+        if bias.ndim != 4:
+            raise ValueError(f"bias must be 4-D, got shape {tuple(bias.shape)}")
+        if tuple(bias.shape[2:]) != (s, s):
+            raise ValueError(
+                f"bias trailing dims must be ({s}, {s}), got {tuple(bias.shape)}"
+            )
+        _bias_index(bias.shape, b, hq)
+    if segment_ids is not None:
+        segment_ids = torch.as_tensor(segment_ids, device=device).to(torch.int32)
+        if tuple(segment_ids.shape) != (b, s):
+            raise ValueError(
+                f"segment_ids must be (batch, seq) = ({b}, {s}), got "
+                f"{tuple(segment_ids.shape)}"
+            )
+    run = FLASH.kernel if on_card(q, "flash_attention") else FLASH.plain
+    return run(kind, block_q, float(scale), q, k, v, bias, segment_ids)
+
+
+def _reference_attention(q, k, v, bias, segment_ids, scale) -> torch.Tensor:
+    """Dense causal attention: the full ``(B, Hq, S, S)`` scores (GQA heads
+    repeated) with the kernel's NEG_INF causal and segment mask and
+    additive bias; the independent check of both versions."""
+    b, hq, s, d = q.shape
+    g = hq // k.shape[1]
+    kf = k.repeat_interleave(g, dim=1).to(torch.float32)
+    vf = v.repeat_interleave(g, dim=1).to(torch.float32)
+    sc = torch.einsum("bhid,bhjd->bhij", q.to(torch.float32) * scale, kf)
+    if bias is not None:
+        sc = sc + bias.to(torch.float32).expand(sc.shape)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()[None, None]
+    if segment_ids is not None:
+        mask = mask & (segment_ids[:, None, :, None] == segment_ids[:, None, None, :])
+    sc = torch.where(mask, sc, NEG_INF)
+    pr = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhij,bhjd->bhid", pr, vf).to(q.dtype)

@@ -14,7 +14,10 @@ from typing import Optional
 
 import torch
 
-from . import engine
+from ..autotune.tuner import choose_attn_impl
+from . import engine, ref
+from .flash_attention import flash_attention
+from .policy import resolve_device
 
 __all__ = [
     "simplex_accum2d",
@@ -27,6 +30,7 @@ __all__ = [
     "simplex_edm_md",
     "simplex_ca_md",
     "map_table",
+    "causal_flash_attention",
 ]
 
 
@@ -90,3 +94,35 @@ def map_table(nb: int, kind: str = "hmap", m: int = 2, device=None) -> torch.Ten
         (3, 3)
     """
     return engine.map_table(nb, m=m, kind=kind, device=device)
+
+
+def causal_flash_attention(q, k, v, kind: str = "auto", block_q: int = 0,
+                           block_kv: int = 0, device=None) -> torch.Tensor:
+    """Causal GQA attention through the flash kernel.
+
+    ``kind='auto'`` resolves schedule and tile through
+    ``autotune.choose_attn_impl``; a shape no tile maps runs the dense
+    ``ref.causal_attention``, the reference's structural route.
+    ``kind='folded'``/``'bb'`` forces the schedule, with ``block_q`` /
+    ``block_kv`` passed to the kernel (0 lets the tuner pick the tile).
+
+    Example:
+        >>> q = torch.randn(1, 2, 64, 16)
+        >>> causal_flash_attention(q, q, q, device="cpu").shape
+        torch.Size([1, 2, 64, 16])
+    """
+    device = resolve_device(device)
+    q, k, v = (torch.as_tensor(x, device=device) for x in (q, k, v))
+    if kind == "auto" or block_q <= 0:
+        b, hq, s, d = q.shape
+        dec = choose_attn_impl(s, hq, d, device)
+        if kind == "auto":
+            if dec.impl != "flash" or dec.block_q <= 0:
+                return ref.causal_attention(q, k, v)
+            kind = dec.kind
+        if block_q <= 0:
+            if dec.block_q <= 0:
+                return ref.causal_attention(q, k, v)
+            block_q = block_kv = dec.block_q
+    return flash_attention(q, k, v, kind=kind, block_q=block_q,
+                           block_kv=block_kv or block_q, device=device)

@@ -29,6 +29,7 @@ __all__ = [
     "ca2d_step",
     "ca3d_step",
     "ca_md_step",
+    "causal_attention",
 ]
 
 
@@ -164,3 +165,28 @@ def ca_md_step(state: torch.Tensor) -> torch.Tensor:
 def ca3d_step(state: torch.Tensor) -> torch.Tensor:
     """26-neighbour Game-of-Life step on T(n), free boundaries."""
     return ca_md_step(state)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float | None = None) -> torch.Tensor:
+    """Reference causal attention (GQA aware).
+
+    q: (B, Hq, S, D), k/v: (B, Hkv, S, D) with Hq % Hkv == 0.  Softmax in
+    float32 over the dense (S, S) scores; output in ``q.dtype``.
+
+    Example:
+        >>> q = torch.ones(1, 2, 3, 4)
+        >>> causal_attention(q, q[:, :1], q[:, :1]).shape
+        torch.Size([1, 2, 3, 4])
+    """
+    b, hq, s, d = q.shape
+    g = hq // k.shape[1]
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    kk = k.repeat_interleave(g, dim=1)
+    vv = v.repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kk).to(torch.float32) * scale
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(vv.dtype), vv).to(q.dtype)

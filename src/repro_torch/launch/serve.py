@@ -1,0 +1,116 @@
+"""Batched serving: prefill a batch of prompts, decode N tokens.
+
+The model is float32 with weights initialised from ``--seed``; the
+prompts come from the same seed.  Every decode step attends to the
+*fixed* prefill cache plus the new token, the JAX package's semantics
+(its ``launch/serve.py``): nothing is appended to the cache.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+
+import torch
+
+from ..configs.ALL import config
+from ..kernels.policy import resolve_device
+from ..models.model import Model
+
+__all__ = ["ServeRun", "parse_args", "run", "main"]
+
+
+@dataclass
+class ServeRun:
+    """What one serve produced.
+
+    Attributes:
+        model: The model that served.
+        prompts: ``(B, prompt_len)`` prompt token ids on the model's device.
+        prefill_logits: ``(B, 1, vocab)`` logits of the last prompt token.
+        tokens: ``(B, gen+1)`` generated token ids on the host: the
+            prefill's greedy token, then one per decode step.
+        prefill_s: Prefill wall time, synchronised, in seconds.
+        decode_s: Wall time of the decode steps, in seconds.
+    """
+
+    model: Model
+    prompts: torch.Tensor
+    prefill_logits: torch.Tensor
+    tokens: torch.Tensor
+    prefill_s: float
+    decode_s: float
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The server's command line."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--smoke", action="store_true", help="the reduced config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--device", default=None, help="default: the CUDA card")
+    return ap.parse_args(argv)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(args: argparse.Namespace) -> ServeRun:
+    """Build the model, prefill the prompts and decode ``args.gen`` tokens."""
+    cfg = config(args.arch, smoke=args.smoke).replace(act_dtype="float32",
+                                                      param_dtype="float32")
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = Model(cfg, device=device).init(gen)
+    b, s = args.batch, args.prompt_len
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=device)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, caches = model.prefill({"tokens": prompts})
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+
+    prefill_logits = logits
+    tok = logits[:, -1].argmax(-1)[:, None]
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(args.gen):
+        step = {"tokens": tok, "pos": torch.full((b,), s + i, dtype=torch.long,
+                                                 device=device)}
+        logits, _ = model.decode(caches, step)
+        if args.temperature > 0:
+            probs = torch.softmax(logits[:, -1] / args.temperature, -1)
+            tok = torch.multinomial(probs, 1, generator=gen)
+        else:
+            tok = logits[:, -1].argmax(-1)[:, None]
+        out.append(tok)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    tokens = torch.cat(out, 1).cpu()
+    return ServeRun(model, prompts, prefill_logits, tokens, prefill_s, decode_s)
+
+
+def main(argv=None) -> torch.Tensor:
+    """Serve from the command line; returns the ``(B, gen+1)`` token ids."""
+    args = parse_args(argv)
+    r = run(args)
+    b, s = args.batch, args.prompt_len
+    print(f"prefill {s} tokens x {b}: {r.prefill_s:.2f}s")
+    rate = args.gen * b / r.decode_s if r.decode_s > 0 else float("inf")
+    print(f"decoded {args.gen} tokens x {b} in {r.decode_s:.2f}s ({rate:.1f} tok/s)")
+    print("sample token ids:", r.tokens[0][:16].tolist())
+    return r.tokens
+
+
+if __name__ == "__main__":
+    main()

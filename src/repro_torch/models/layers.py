@@ -1,0 +1,150 @@
+"""Shared model layers: dense init, RMSNorm, NeoX RoPE, SwiGLU, embeddings.
+
+Each layer is a function on tensors that takes its parameters as a
+mapping (``p["w"]``), as the JAX package's ``models/layers.py`` does, plus
+a thin ``nn.Module`` that holds those parameters under the same names
+and can be indexed like the mapping, so a JAX parameter tree maps onto the port's ``state_dict`` leaf
+for leaf.  ``layernorm`` and ``mrope`` wait for the models that use them
+(ROADMAP A.8).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+__all__ = [
+    "dense_init",
+    "rmsnorm",
+    "rope",
+    "swiglu",
+    "embed",
+    "Params",
+    "RMSNorm",
+    "SwiGLU",
+    "Embed",
+]
+
+
+def dense_init(shape: Sequence[int], generator: torch.Generator, dtype=torch.float32,
+               scale: Optional[float] = None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Truncated-normal fan-in init on [-2, 2] (``shape[-2]`` is fan-in).
+
+    Args:
+        shape: Weight shape.
+        generator: Where the random numbers come from; the tensor is made
+            on the generator's device.
+        dtype: Result dtype.
+        scale: Multiplier; None means ``fan_in ** -0.5``.
+        out: Fill this tensor in place instead of allocating one.
+
+    Returns:
+        The initialised tensor.
+
+    Example:
+        >>> g = torch.Generator().manual_seed(0)
+        >>> w = dense_init((16, 4), g)
+        >>> bool(w.abs().max() <= 2 * 16 ** -0.5)
+        True
+    """
+    fan_in = shape[0] if len(shape) == 2 else shape[-2]
+    if scale is None:
+        scale = fan_in**-0.5
+    if out is None:
+        out = torch.empty(tuple(shape), dtype=dtype, device=generator.device)
+    with torch.no_grad():
+        nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        out.mul_(scale)
+    return out
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``x / rms(x) * w`` with the statistics in float32."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * p["w"].to(dt)
+
+
+def _rope_angles(positions: torch.Tensor, dim: int, theta: float):
+    """positions (..., S) -> cos/sin (..., S, dim/2), float32."""
+    half = dim // 2
+    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freq = 1.0 / (theta ** (idx / half))
+    ang = positions.to(torch.float32)[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6) -> torch.Tensor:
+    """NeoX-style rotary embedding.  x: (B, H, S, D); positions: (B, S)."""
+    d = x.shape[-1]
+    cos, sin = _rope_angles(positions, d, theta)
+    cos, sin = cos[:, None], sin[:, None]  # (B, 1, S, D/2)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    """``(silu(x w1) * (x w3)) w2``."""
+    dt = x.dtype
+    g = x @ p["w1"].to(dt)
+    u = x @ p["w3"].to(dt)
+    return (nn.functional.silu(g) * u) @ p["w2"].to(dt)
+
+
+def embed(p, tokens: torch.Tensor, act_dtype) -> torch.Tensor:
+    """Rows of the embedding table ``p["e"]`` for ``tokens``."""
+    return p["e"][tokens].to(act_dtype)
+
+
+class Params(nn.Module):
+    """A module of named parameters that can be indexed like a mapping
+    (``p["w"]``), so the layer functions take it or a dict alike."""
+
+    def __init__(self, shapes: dict, dtype, device):
+        super().__init__()
+        for name, shape in shapes.items():
+            setattr(self, name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device), requires_grad=False))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._parameters[name]
+
+
+class RMSNorm(Params):
+    """RMSNorm parameters ``{"w": (dim,)}``, initialised to ones."""
+
+    def __init__(self, dim: int, dtype, device):
+        super().__init__({"w": (dim,)}, dtype, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        """Set the scale to ones (the generator is not read)."""
+        with torch.no_grad():
+            self["w"].fill_(1.0)
+
+
+class SwiGLU(Params):
+    """SwiGLU parameters ``{"w1", "w3": (d_model, d_ff), "w2": (d_ff, d_model)}``."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device):
+        super().__init__({"w1": (d_model, d_ff), "w3": (d_model, d_ff),
+                          "w2": (d_ff, d_model)}, dtype, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        """Fan-in truncated normals, in the order w1, w3, w2."""
+        for name in ("w1", "w3", "w2"):
+            dense_init(self[name].shape, generator, out=self[name].data)
+
+
+class Embed(Params):
+    """Embedding table ``{"e": (vocab, d_model)}``, unit truncated normal."""
+
+    def __init__(self, vocab: int, d_model: int, dtype, device):
+        super().__init__({"e": (vocab, d_model)}, dtype, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        """Truncated normal on [-2, 2] with scale 1."""
+        dense_init(self["e"].shape, generator, scale=1.0, out=self["e"].data)

@@ -18,6 +18,7 @@ import torch
 
 from .core.simplex import simplex_volume
 from .core.trapezoids import SimplexPiece, pack_pieces
+from .kernels.policy import resolve_device
 
 __all__ = ["SimplexState", "load_state"]
 
@@ -46,7 +47,7 @@ def _numeric(a: np.ndarray, what: str) -> None:
 
 
 def load_state(m: int, *, domain=None, points=None, table=None, nb: Optional[int] = None,
-               pieces: Optional[Sequence] = None, device="cpu") -> SimplexState:
+               pieces: Optional[Sequence] = None, device=None) -> SimplexState:
     """Check numpy state and return it as the port's tensors on ``device``.
 
     Args:
@@ -58,19 +59,21 @@ def load_state(m: int, *, domain=None, points=None, table=None, nb: Optional[int
         nb: Block side of ``table`` (required with it).
         pieces: Composite pieces, each with ``.groups`` chains
             ``((dim, side, delta), ...)`` as ``decompose_simplex`` gives.
-        device: Where the tensors go.
+        device: Where the tensors go; None means the card.
 
     Returns:
         A ``SimplexState``.
 
     Raises:
         ValueError: on a wrong dtype or shape.
+        RuntimeError: ``device`` is None and no CUDA device is present.
 
     Example:
-        >>> s = load_state(2, domain=np.zeros((4, 4), np.int32))
+        >>> s = load_state(2, domain=np.zeros((4, 4), np.int32), device="cpu")
         >>> s.domain.shape, s.points is None
         (torch.Size([4, 4]), True)
     """
+    device = resolve_device(device)
     out = {}
     if domain is not None:
         domain = np.asarray(domain)

@@ -31,9 +31,15 @@ def test_port_has_modules():
     for want in ("repro_torch/core/schedule.py", "repro_torch/kernels/engine.py",
                  "repro_torch/kernels/ops.py", "repro_torch/kernels/policy.py",
                  "repro_torch/kernels/ref.py", "repro_torch/kernels/_build.py",
-                 "repro_torch/state.py"):
+                 "repro_torch/state.py", "repro_torch/kernels/flash_attention.py",
+                 "repro_torch/configs/base.py", "repro_torch/configs/yi_6b.py",
+                 "repro_torch/configs/ALL.py", "repro_torch/models/layers.py",
+                 "repro_torch/models/attention.py", "repro_torch/models/transformer.py",
+                 "repro_torch/models/model.py", "repro_torch/models/convert.py",
+                 "repro_torch/autotune/tuner.py", "repro_torch/launch/serve.py"):
         assert want in names
-    for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh"):
+    for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh",
+               "flash_attention.cu"):
         assert (REPO / "src/repro_torch/kernels/csrc" / cu).is_file()
 
 
@@ -46,7 +52,8 @@ def test_no_jax_or_repro_import(path):
 def test_import_loads_neither_jax_nor_repro():
     code = (
         "import sys; import repro_torch.kernels.ops, repro_torch.kernels.engine, "
-        "repro_torch.state, repro_torch.core; "
+        "repro_torch.state, repro_torch.core, repro_torch.launch.serve, "
+        "repro_torch.models.convert; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

@@ -191,10 +191,10 @@ def test_descriptor_payload_is_the_reference_state(m, n, kind):
     assert desc.header.shape == (TS.HEADER_LEN,)
     assert desc.header[:4].tolist() == [TS.MAP_CODES[kind], m, n, ref.steps]
     if kind == "table":
-        state = load_state(m, table=ref.prefetch, nb=n)
+        state = load_state(m, table=ref.prefetch, nb=n, device="cpu")
         assert torch.equal(desc.data, state.table)
     else:
-        state = load_state(m, pieces=RT.decompose_simplex(m, n))
+        state = load_state(m, pieces=RT.decompose_simplex(m, n), device="cpu")
         assert torch.equal(desc.data, state.pieces)
         assert desc.header[6] == len(RT.decompose_simplex(m, n))
 

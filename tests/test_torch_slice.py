@@ -136,18 +136,18 @@ def test_build_root_is_in_the_checkout():
 
 
 def test_load_state_checks():
-    st = TSTATE.load_state(3, domain=X3, points=P8)
+    st = TSTATE.load_state(3, domain=X3, points=P8, device="cpu")
     assert torch.equal(st.domain, torch.from_numpy(X3)) and st.points.dtype == torch.float32
     with pytest.raises(ValueError, match="m-cube"):
-        TSTATE.load_state(3, domain=X2)
+        TSTATE.load_state(3, domain=X2, device="cpu")
     with pytest.raises(ValueError, match="float"):
-        TSTATE.load_state(2, points=X2)
+        TSTATE.load_state(2, points=X2, device="cpu")
     with pytest.raises(ValueError, match="int32"):
-        TSTATE.load_state(2, table=np.zeros((10, 2), np.int64), nb=4)
+        TSTATE.load_state(2, table=np.zeros((10, 2), np.int64), nb=4, device="cpu")
     with pytest.raises(ValueError, match="nb"):
-        TSTATE.load_state(2, table=np.zeros((10, 2), np.int32))
+        TSTATE.load_state(2, table=np.zeros((10, 2), np.int32), device="cpu")
     with pytest.raises(ValueError, match=r"\[0, 4\)"):
-        TSTATE.load_state(2, table=np.full((10, 2), 4, np.int32), nb=4)
+        TSTATE.load_state(2, table=np.full((10, 2), 4, np.int32), nb=4, device="cpu")
 
 
 @pytest.mark.parametrize("mod", [engine, ops, policy, TSTATE], ids=lambda m: m.__name__)
