@@ -9,7 +9,8 @@ prompts through full-width yi-6b, whose attention runs the
 folded-simplex flash kernel, and decodes greedily.  This script
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all started together, then one link);
 3. sets every launch counter to 0, drives the public entry points of
    ``repro_torch.kernels.ops`` (MAP, ACCUM, EDM, CA at m=2 and m=3, plus
    ACCUM and MAP at m=4; ACCUM and EDM also with ``split=True``, one
@@ -18,26 +19,37 @@ folded-simplex flash kernel, and decodes greedily.  This script
    EDM within ``|k - p| <= 1e-5 + 1e-5 * max|p|`` (float32 sums run in
    another order on the card and ``sqrtf`` rounds there);
 4. reads the counters, which must be > 0 for every kernel;
-5. times each kernel (median of CUDA-event-timed runs after warm-up),
-   its plain version and, where one PyTorch call computes the same
-   function, that call (``library_ms``, a yardstick the port never
-   calls), and prints one line per (test, m, kind) with grid steps, the
-   time ratio against ``bb`` at the same side, and the bound;
-6. checks a small input against the dense oracles of ``kernels/ref.py``;
-7. serves full-width yi-6b (32 layers, d_model 4096, float32 weights
+5. legacy 2-D: sets every counter to 0 again and drives the frozen 2-D
+   originals of ``repro_torch.kernels.legacy`` (``map2d``, ``accum2d``,
+   ``edm2d``, ``ca2d`` over the paper's ``(w, h)`` grid; n = 16384,
+   rho = 16, MAP at nb = 16384) for ``hmap``, ``rb`` and ``bb``; holds
+   each against its plain version and against the engine kernel of the
+   same kind (``ops.map_table``, ``simplex_accum2d``, ``simplex_edm2d``,
+   ``simplex_ca2d``) with the tolerances of step 3; runs ``accum2d`` once
+   more at n = 65536, rho = 1, whose hmap grid is taller than the 65535
+   blocks of ``gridDim.y``, and checks the triangle exactly; reads the
+   counters, which must be > 0; times each kernel, its plain version and
+   the library call;
+6. serves full-width yi-6b (32 layers, d_model 4096, float32 weights
    from ``--seed``; batch 4, prompt 2048, 16 greedy tokens) with every
    counter at 0, and checks that prefill launched the flash kernel once
    per layer;
-8. prefills the same prompts again with ``attention_impl="chunked"``
+7. prefills the same prompts again with ``attention_impl="chunked"``
    (the reference's own executor knob) and holds the last-token logits
    of the two within ``rtol 2e-3, atol 2e-4``;
-9. holds the flash kernel against its plain version on the card, within
+8. holds the flash kernel against its plain version on the card, within
    ``|k - p| <= 2e-5 + 2e-5 * max|p|``, at the serve shape (folded and
    bb), an odd tile count, ``Hkv == Hq``, a broadcast bias and segment
    ids, and against ``_reference_attention`` on a small case;
+9. times each engine kernel (median of CUDA-event-timed runs after
+   warm-up), its plain version and, where one PyTorch call computes the
+   same function, that call (``library_ms``, a yardstick the port never
+   calls), and prints one line per (test, m, kind) with grid steps, the
+   time ratio against ``bb`` at the same side, and the bound;
 10. times the flash kernel (folded and bb), its plain version and
     ``scaled_dot_product_attention`` at the serve shape;
-11. prints the ``kernels`` JSON line, then the result line.
+11. checks a small input against the dense oracles of ``kernels/ref.py``;
+12. prints the ``kernels`` JSON line, then the result line.
 
 Any mismatch, build failure or launch error exits non-zero without the
 result line.  Run from the repository root::
@@ -70,9 +82,20 @@ REPLACES = {
     "edm": "src/repro/kernels/engine.py:503",
     "ca": "src/repro/kernels/engine.py:503",
     "flash": "src/repro/kernels/flash_attention.py:296",
+    "map2d": "src/repro/kernels/legacy.py:82",
+    "accum2d": "src/repro/kernels/legacy.py:118",
+    "edm2d": "src/repro/kernels/legacy.py:167",
+    "ca2d": "src/repro/kernels/legacy.py:232",
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in SIMPLEX}
 SOURCES["flash"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+
+# The frozen 2-D originals: each legacy kernel and the engine body it is
+# held against; the paper's m=2 size.
+LEGACY = {"map2d": "map", "accum2d": "accum", "edm2d": "edm", "ca2d": "ca"}
+LEGACY_SOURCE = "src/repro_torch/kernels/csrc/legacy2d.cu"
+LEGACY_KINDS = ("hmap", "rb", "bb")
+LEGACY_N, LEGACY_RHO, LEGACY_MAP_NB = 16384, 16, 16384
 
 # Serving: full-width yi-6b, batch 4, prompt 2048 (16 query tiles of 128).
 SERVE_ARGV = ["--arch", "yi-6b", "--batch", "4", "--prompt-len", "2048", "--gen", "16",
@@ -407,6 +430,170 @@ class Smoke:
         torch.cuda.synchronize()
 
 
+class LegacySmoke:
+    """The frozen 2-D originals on the card: each against its plain
+    version and against the engine kernel of the same kind, then timed.
+
+    Shares the simplex ``Smoke``'s generators, timer, bounds and failure
+    list.
+    """
+
+    def __init__(self, smoke: Smoke, legacy):
+        self.s, self.legacy = smoke, legacy
+        self.torch = smoke.torch
+        self.err = {k: 0.0 for k in LEGACY}
+        self.rows: list = []
+        self.data: dict = {}
+
+    def call(self, name, kind, fn, *args, **kw):
+        """One legacy entry point; it must launch its kernel exactly once."""
+        k = getattr(self.legacy, name.upper())
+        before = k.launches
+        out = fn(*args, kind=kind, **kw)
+        self.torch.cuda.synchronize()
+        if k.launches - before != 1:
+            self.s.fail(f"legacy {name} kind={kind}: {k.launches - before} launches, not 1")
+        return out
+
+    def compare(self, name, kind, what, got, want) -> None:
+        """Integers bit-equal; EDM within ``1e-5 + 1e-5 * max|want|``."""
+        if name != "edm2d":
+            if not self.torch.equal(got, want):
+                self.s.fail(f"legacy {name} kind={kind} against {what}")
+            return
+        err = (got - want).abs().max().item()
+        tol = 1e-5 + 1e-5 * want.abs().max().item()
+        _log(f"legacy check edm2d kind={kind} against {what}: max_abs_err={err:.3e} "
+             f"tol={tol:.3e}")
+        if what == "plain version":
+            self.err[name] = max(self.err[name], err)
+        if not math.isfinite(err) or err > tol:
+            self.s.fail(f"legacy edm2d kind={kind} against {what}: max_abs_err={err} > {tol}")
+
+    def path(self) -> None:
+        """Every legacy kernel at every kind through its entry point."""
+        torch, L, ops, dev = self.torch, self.legacy, self.s.ops, self.s.dev
+        n, rho, nb = LEGACY_N, LEGACY_RHO, LEGACY_MAP_NB
+        d = self.data
+        d["x"] = torch.randint(0, 100, (n, n), generator=self.s.gen(31), device=dev,
+                               dtype=torch.int32)
+        d["p"] = torch.randn((n, EDM_D), generator=self.s.gen(32), device=dev)
+        # Not masked to the triangle: the halo mask must drop live cells above it.
+        d["s"] = (torch.rand((n, n), generator=self.s.gen(33), device=dev)
+                  < CA_DENSITY[2]).to(torch.int32)
+        for kind in LEGACY_KINDS:
+            sched = L._schedule(2, nb, kind)
+            out = self.call("map2d", kind, L.map2d, nb)
+            self.compare("map2d", kind, "plain version", out, L.MAP2D.plain(sched, 128, dev))
+            self.compare("map2d", kind, "engine", out, ops.map_table(nb, kind=kind, m=2))
+            self.rows.append(dict(name="map2d", kind=kind, steps=sched.steps))
+            del out
+            sched = L._schedule(2, n // rho, kind)
+            for name, arg, engine_fn in (("accum2d", "x", ops.simplex_accum2d),
+                                         ("edm2d", "p", ops.simplex_edm2d),
+                                         ("ca2d", "s", ops.simplex_ca2d)):
+                out = self.call(name, kind, getattr(L, name), d[arg], rho=rho)
+                want = self.plain(name, sched)
+                self.compare(name, kind, "plain version", out, want)
+                del want
+                self.compare(name, kind, "engine", out, engine_fn(d[arg], rho=rho, kind=kind))
+                self.rows.append(dict(name=name, kind=kind, steps=sched.steps))
+                del out
+                torch.cuda.empty_cache()
+        self.grid_loop()
+
+    def grid_loop(self) -> None:
+        """``accum2d`` at n = 65536, rho = 1: the hmap grid is
+        (32768, 65537), taller than the 65535 blocks ``gridDim.y`` allows,
+        so blocks loop over ``wy``.  On zeros, row r must hold ones in
+        exactly columns 0..r: r+1 ones whose column indices sum to
+        r(r+1)/2, the least any r+1 distinct columns can sum to."""
+        torch, dev = self.torch, self.s.dev
+        n = 65536
+        x = torch.zeros((n, n), dtype=torch.int32, device=dev)
+        out = self.call("accum2d", "hmap", self.legacy.accum2d, x, rho=1)
+        del x
+        cols = torch.arange(n, device=dev)
+        ok = int(out.min()) == 0 and int(out.max()) == 1
+        for r0 in range(0, n, 4096):
+            blk = out[r0:r0 + 4096].to(torch.int64)
+            rows = cols[r0:r0 + 4096]
+            ok = ok and torch.equal(blk.sum(1), rows + 1) and torch.equal(
+                (blk * cols).sum(1), rows * (rows + 1) // 2)
+        _log(f"legacy check accum2d n={n} rho=1 grid (32768, 65537): triangle exact={ok}")
+        if not ok:
+            self.s.fail("legacy accum2d n=65536 rho=1: the gridDim.y loop missed cells")
+        del out, blk
+        torch.cuda.empty_cache()
+
+    def plain(self, name, sched):
+        """The plain version's output on the phase's input."""
+        k, d, rho = getattr(self.legacy, name.upper()), self.data, LEGACY_RHO
+        if name == "accum2d":
+            out = d["x"].clone()
+            k.plain_(out, sched, rho)
+        elif name == "edm2d":
+            out = self.torch.zeros((LEGACY_N, LEGACY_N), device=self.s.dev)
+            k.plain_(out, d["p"], sched, rho)
+        else:
+            out = d["s"].clone()
+            k.plain_(out, d["s"], sched, rho)
+        return out
+
+    def timings(self) -> None:
+        """Kernel, plain version and library call per (kernel, kind)."""
+        torch, L, d, rho = self.torch, self.legacy, self.data, LEGACY_RHO
+        n = LEGACY_N
+        msk = torch.ones((n, n), dtype=torch.bool, device=self.s.dev).tril_()
+        x, p, st = d["x"], d["p"], d["s"]
+        lib = {"map2d": None, "ca2d": None,
+               "accum2d": self.s.time_ms(lambda: torch.where(msk, x + 1, x)),
+               "edm2d": self.s.time_ms(lambda: torch.cdist(p, p).tril())}
+        del msk
+        for row in self.rows:
+            name, kind = row["name"], row["kind"]
+            if name == "map2d":
+                sched = L._schedule(2, LEGACY_MAP_NB, kind)
+                row["ms"] = self.s.time_ms(lambda: L.MAP2D.kernel(sched, 128, self.s.dev))
+                row["plain_ms"] = self.s.time_ms(lambda: L.MAP2D.plain(sched, 128, self.s.dev),
+                                                 runs=2, warm=0)
+                row["bound_ms"], row["bound_by"] = self.s.bound(
+                    dict(test="map", m=2, n=LEGACY_MAP_NB, kind=kind, steps=row["steps"]))
+            else:
+                sched = L._schedule(2, n // rho, kind)
+                k = getattr(L, name.upper())
+                if name == "accum2d":
+                    buf = x.clone()
+                    row["ms"] = self.s.time_ms(lambda: k.kernel_(buf, sched, rho))
+                elif name == "edm2d":
+                    buf = torch.zeros((n, n), device=self.s.dev)
+                    row["ms"] = self.s.time_ms(lambda: k.kernel_(buf, p, sched, rho))
+                else:
+                    buf = st.clone()
+                    row["ms"] = self.s.time_ms(lambda: k.kernel_(buf, st, sched, rho))
+                del buf
+                row["plain_ms"] = self.s.time_ms(lambda: self.plain(name, sched), runs=2,
+                                                 warm=0)
+                row["bound_ms"], row["bound_by"] = self.s.bound(
+                    dict(test=LEGACY[name], m=2, n=n, kind=kind, steps=row["steps"]))
+            row["library_ms"] = lib[name]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        for row in self.rows:
+            bb = next(r for r in self.rows if r["name"] == row["name"] and r["kind"] == "bb")
+            lib_ms = row["library_ms"]
+            _log(f"case test={row['name']} m=2 n={LEGACY_MAP_NB if row['name'] == 'map2d' else n} "
+                 f"rho={1 if row['name'] == 'map2d' else rho} kind={row['kind']} "
+                 f"steps={row['steps']} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                 f"bound_share={row['bound_ms'] / row['ms']:.3f} "
+                 f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+                 f"bb_ms/ms={bb['ms'] / row['ms']:.3f} "
+                 f"equal={'tol' if row['name'] == 'edm2d' else 'bit'}")
+        self.data.clear()
+        torch.cuda.empty_cache()
+
+
 class FlashSmoke:
     """The serving path and the flash kernel's checks and timings.
 
@@ -598,7 +785,7 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
-    from repro_torch.kernels import _build, engine, ops, ref
+    from repro_torch.kernels import _build, engine, legacy, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve
 
@@ -618,11 +805,14 @@ def main(argv=None) -> int:
         for name in engine.registered_bodies():
             engine.get_body(name).launches = 0
         fa.FLASH.launches = 0
+        for k in (legacy.MAP2D, legacy.ACCUM2D, legacy.EDM2D, legacy.CA2D):
+            k.launches = 0
 
     def counts():
-        return dict(engine.launch_counts(), **fa.launch_counts())
+        return dict(engine.launch_counts(), **fa.launch_counts(), **legacy.launch_counts())
 
     smoke = Smoke(torch, engine, ops, ref, args.seed)
+    old = LegacySmoke(smoke, legacy)
     flash = FlashSmoke(smoke, fa, serve)
     zero_counts()
     t0 = time.perf_counter()
@@ -633,6 +823,21 @@ def main(argv=None) -> int:
         if launches[name] <= 0:
             smoke.fail(f"kernel {name} was never launched on the main path")
     torch.cuda.empty_cache()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    old.path()
+    legacy_launches = counts()
+    _log(f"phase legacy 2-D path: {time.perf_counter() - t0:.1f} s, "
+         f"launches {legacy_launches}")
+    for name in LEGACY:
+        launches[name] = legacy_launches[name]
+        if launches[name] <= 0:
+            smoke.fail(f"kernel {name} was never launched on the legacy 2-D path")
+    t1 = time.perf_counter()
+    old.timings()
+    _log(f"phase legacy 2-D timing: {time.perf_counter() - t1:.1f} s; "
+         f"legacy 2-D in all {time.perf_counter() - t0:.1f} s")
 
     zero_counts()
     t0 = time.perf_counter()
@@ -683,6 +888,17 @@ def main(argv=None) -> int:
         "library_ms": head["library_ms"],
         "shape": f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} block_q=128 kind=folded",
     })
+    for name in LEGACY:
+        head = next(r for r in old.rows if r["name"] == name and r["kind"] == "hmap")
+        kernels.append({
+            "name": name, "route": "cuda", "source": LEGACY_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": old.err[name], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": (f"m=2 nb={LEGACY_MAP_NB} kind=hmap" if name == "map2d" else
+                      f"m=2 n={LEGACY_N} rho={LEGACY_RHO} kind=hmap"),
+        })
     st = flash.stats
     _log(f"serve summary: prefill_s={st['prefill_s']:.4f} "
          f"decode_tok_s={st['decode_tok_s']:.2f} peak_gib={st['peak_gib']:.3f} "

@@ -2,6 +2,7 @@
 
 from . import general_m, hmap, maps_baseline, schedule, simplex, trapezoids
 from .schedule import (
+    Schedule2D,
     SimplexSchedule,
     folded_causal_pairs,
     grid_steps,
@@ -17,6 +18,7 @@ __all__ = [
     "schedule",
     "simplex",
     "trapezoids",
+    "Schedule2D",
     "SimplexSchedule",
     "folded_causal_pairs",
     "grid_steps",

@@ -31,6 +31,7 @@ have yet: ``resolve_kind`` raises ``NotImplementedError`` for it.
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -45,6 +46,7 @@ from .trapezoids import composite_map, decompose_simplex, pack_pieces, piece_map
 
 __all__ = [
     "SimplexSchedule",
+    "Schedule2D",
     "DeviceDescriptor",
     "register_schedule",
     "registered_kinds",
@@ -586,6 +588,63 @@ def _build_md_bb(m: int, n: int) -> _Spec:
 
     return _Spec((n**m,), fn, simplex_volume(n, m), "bbmd",
                  alpha=math.factorial(m) - 1.0)
+
+
+# ---------------------------------------------------------------------------
+# deprecated 2D shim
+# ---------------------------------------------------------------------------
+
+
+class Schedule2D:
+    """Deprecated thin shim over ``SimplexSchedule(2, n, kind)``.
+
+    kind='hmap':  zero-waste (n/2, n+1) grid, paper Eq. 14-16 + the
+                  diagonal rows; tile = (col, row) with col <= row.
+    kind='rb':    zero-waste (n/2, n+1) grid, RB fold [37].
+    kind='bb':    (n, n) bounding box + validity predicate (the baseline).
+
+    Example:
+        >>> import warnings
+        >>> with warnings.catch_warnings():
+        ...     warnings.simplefilter("ignore", DeprecationWarning)
+        ...     s = Schedule2D(4, "hmap")
+        >>> s.grid, s.steps, s.useful
+        ((2, 5), 10, 10)
+    """
+
+    def __init__(self, n: int, kind: str = "hmap"):
+        warnings.warn(
+            "Schedule2D is deprecated; use SimplexSchedule(2, n, kind)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        assert kind in ("hmap", "rb", "bb")
+        self.n = n
+        self.kind = kind
+        self._s = SimplexSchedule(2, n, kind)
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """(width, height) of the delegated ``SimplexSchedule(2, ...)``."""
+        return self._s.grid
+
+    @property
+    def steps(self) -> int:
+        """Total grid steps of the delegated schedule."""
+        return self._s.steps
+
+    @property
+    def useful(self) -> int:
+        """Lower-triangle tiles to cover, ``tri(n)``."""
+        return self._s.useful
+
+    def map(self, wx, wy):
+        """Delegate to ``SimplexSchedule.map``: (wx, wy) -> (x, y, valid)."""
+        return self._s.map(wx, wy)
+
+    def table(self) -> np.ndarray:
+        """Delegate to ``SimplexSchedule.table()``."""
+        return self._s.table()
 
 
 # ---------------------------------------------------------------------------

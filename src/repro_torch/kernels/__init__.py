@@ -2,6 +2,8 @@
 
 ``engine`` launches the MAP/ACCUM/EDM/CA bodies over any schedule,
 ``ops`` holds the public entry points, ``ref`` the dense oracles,
+``legacy`` the frozen 2-D originals (the engine's independent
+differential baseline), ``simplex_kernels`` the deprecated shims,
 ``policy`` the device policy and ``_build`` the nvcc build.  Importing
 the package builds nothing: the kernels are compiled on first use.
 """

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # out, header, data, threads, stream
     "simplex_map_launch": (_P, _P, _P, _I, _P),
@@ -50,6 +51,15 @@ _SIGNATURES = {
     # folded, scale, stream
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P),
+    # the frozen 2-D originals (legacy2d.cu); kind 0 hmap, 1 rb, 2 bb
+    # out, kind, nb, chunk, rows, stream
+    "legacy_map2d_launch": (_P, _I, _I, _I, _L, _P),
+    # x, dtype, kind, nb, n, rho, stream
+    "legacy_accum2d_launch": (_P, _I, _I, _I, _I, _I, _P),
+    # out, points, d, kind, nb, n, rho, stream
+    "legacy_edm2d_launch": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # out, in, kind, nb, n, rho, stream
+    "legacy_ca2d_launch": (_P, _P, _I, _I, _I, _I, _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -36,7 +36,7 @@ import torch
 
 from ..core.schedule import SimplexSchedule, resolve_kind
 from . import _build
-from .policy import check_tile, on_card, resolve_device
+from .policy import card_operand, check_tile, on_card, resolve_device
 
 __all__ = [
     "SimplexKernel",
@@ -248,17 +248,6 @@ def check_operand(name: str, sched, rho: int, cube: torch.Tensor,
     check_tile(name, sched.m, n, rho, smem_bytes)
 
 
-def _card_operand(t: torch.Tensor, name: str, dtypes) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} kernel takes CUDA tensors, got one on {t.device}")
-    if t.dtype not in dtypes:
-        raise ValueError(
-            f"{name} kernel takes {sorted(map(str, dtypes))}, got {t.dtype}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} kernel needs a contiguous tensor")
-
-
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -398,7 +387,7 @@ class AccumBody(KernelBody):
     def kernel_(self, buf: torch.Tensor, sched, rho: int) -> None:
         """+1 on the domain tiles ``sched`` visits, in place (``accum.cu``)."""
         check_operand(self.name, sched, rho, buf)
-        _card_operand(buf, self.name, _ACCUM_DTYPES)
+        card_operand(buf, self.name, _ACCUM_DTYPES)
         desc = sched.device_descriptor(buf.device)
         lib = _build.library()
         with torch.cuda.device(buf.device):
@@ -471,8 +460,8 @@ class EDMBody(KernelBody):
         """Write the domain cells of the tiles ``sched`` visits (``edm.cu``)."""
         check_operand(self.name, sched, rho, out, points=p,
                       smem_bytes=self.smem_bytes(sched.m, rho, p.shape[-1]))
-        _card_operand(out, self.name, (torch.float32,))
-        _card_operand(p, self.name, (torch.float32,))
+        card_operand(out, self.name, (torch.float32,))
+        card_operand(p, self.name, (torch.float32,))
         if p.device != out.device:
             raise ValueError(f"{self.name}: points on {p.device}, output on {out.device}")
         desc = sched.device_descriptor(out.device)
@@ -563,8 +552,8 @@ class CABody(KernelBody):
         if out.shape != inp.shape:
             raise ValueError(f"ca: output {tuple(out.shape)} and input "
                              f"{tuple(inp.shape)} differ")
-        _card_operand(out, self.name, (torch.int32,))
-        _card_operand(inp, self.name, (torch.int32,))
+        card_operand(out, self.name, (torch.int32,))
+        card_operand(inp, self.name, (torch.int32,))
         if out.data_ptr() == inp.data_ptr():
             raise ValueError("ca: the kernel reads one buffer and writes another")
         desc = sched.device_descriptor(inp.device)

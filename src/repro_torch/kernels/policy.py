@@ -10,6 +10,9 @@
 * ``check_tile`` is the launch contract these kernels have: ``rho``
   divides ``n``, the tile fits one block's threads by looping, and its
   shared-memory footprint fits what a Hopper block may use.
+* ``card_operand`` is what a kernel wrapper holds each tensor to before
+  any build or launch: on the card, of a dtype the kernel takes,
+  contiguous.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ __all__ = [
     "resolve_device",
     "on_card",
     "check_tile",
+    "card_operand",
 ]
 
 # Shared memory one block may use on sm_90 (227 KB, opt-in above 48 KB).
@@ -102,3 +106,25 @@ def check_tile(name: str, m: int, n: int, rho: Optional[int],
             f"{name}: a tile needs {smem_bytes} bytes of shared memory, more "
             f"than the {SMEM_LIMIT} a Hopper block may use; lower rho"
         )
+
+
+def card_operand(t: torch.Tensor, name: str, dtypes) -> None:
+    """Refuse a tensor a CUDA kernel cannot take.
+
+    Args:
+        t: The operand.
+        name: Kernel name, for messages.
+        dtypes: The dtypes the kernel is built for.
+
+    Raises:
+        ValueError: ``t`` is not on a CUDA device, not of one of
+            ``dtypes``, or not contiguous.
+    """
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} kernel takes CUDA tensors, got one on {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(
+            f"{name} kernel takes {sorted(map(str, dtypes))}, got {t.dtype}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} kernel needs a contiguous tensor")
