@@ -6,11 +6,16 @@ The first main path is the paper's own: a schedule kind's map walks an
 m-simplex domain and a kernel does one tile of work per step.  The
 second is serving: ``repro_torch.launch.serve`` prefills a batch of
 prompts through full-width yi-6b, whose attention runs the
-folded-simplex flash kernel, and decodes greedily.  This script
+folded-simplex flash kernel, and decodes greedily.  The frozen
+originals of ``kernels/legacy.py`` check the engine independently, and
+the paper's §7.1 tensor-core map turns grid coordinates into element
+origins.  This script
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together, then one link);
+   ``nvcc`` per source, all started together, then one link) and logs
+   what ptxas reports per kernel (registers, stack, spills, shared
+   memory);
 3. sets every launch counter to 0, drives the public entry points of
    ``repro_torch.kernels.ops`` (MAP, ACCUM, EDM, CA at m=2 and m=3, plus
    ACCUM and MAP at m=4; ACCUM and EDM also with ``split=True``, one
@@ -30,26 +35,43 @@ folded-simplex flash kernel, and decodes greedily.  This script
    blocks of ``gridDim.y``, and checks the triangle exactly; reads the
    counters, which must be > 0; times each kernel, its plain version and
    the library call;
-6. serves full-width yi-6b (32 layers, d_model 4096, float32 weights
+6. legacy m >= 3: sets every counter to 0 and drives ``accum3d``,
+   ``accum_md`` and ``ca3d`` at m=3 (n = 1024, rho = 8; hmap, octant,
+   table, bb; composite and bb at n = 960) and ``accum_md`` at m=4
+   (n = 64, rho = 4; hmap, bb; composite and bb at n = 60), each composite
+   ACCUM also with ``split=True``; CA on a state of density 0.35 over the
+   whole cube.  Checks the launches of each call against its plan, holds
+   each output bit for bit against its plain version and against the
+   engine kernel of the same kind and split (``ops.simplex_accum3d``,
+   ``simplex_accum_md``, ``simplex_ca3d``), reads the counters, which
+   must be > 0, and times each kernel beside its engine twin, its plain
+   version and a dense ``torch.where``;
+7. tensor-core map: sets every counter to 0 and maps the whole hmap2 grid
+   of nb = 16384 (134,209,536 blocks, rho = 16) through
+   ``hmap_mxu.hmap2_coords_mxu``; holds it bit for bit against its plain
+   version and against ``rho * hmap2(wx, wy)`` in int64, and a case with
+   outputs above 2^24 (where float32 rounds) against int64 arithmetic;
+   reads the counter and times the kernel and its plain version;
+8. serves full-width yi-6b (32 layers, d_model 4096, float32 weights
    from ``--seed``; batch 4, prompt 2048, 16 greedy tokens) with every
    counter at 0, and checks that prefill launched the flash kernel once
    per layer;
-7. prefills the same prompts again with ``attention_impl="chunked"``
+9. prefills the same prompts again with ``attention_impl="chunked"``
    (the reference's own executor knob) and holds the last-token logits
    of the two within ``rtol 2e-3, atol 2e-4``;
-8. holds the flash kernel against its plain version on the card, within
+10. holds the flash kernel against its plain version on the card, within
    ``|k - p| <= 2e-5 + 2e-5 * max|p|``, at the serve shape (folded and
    bb), an odd tile count, ``Hkv == Hq``, a broadcast bias and segment
    ids, and against ``_reference_attention`` on a small case;
-9. times each engine kernel (median of CUDA-event-timed runs after
+11. times each engine kernel (median of CUDA-event-timed runs after
    warm-up), its plain version and, where one PyTorch call computes the
    same function, that call (``library_ms``, a yardstick the port never
    calls), and prints one line per (test, m, kind) with grid steps, the
    time ratio against ``bb`` at the same side, and the bound;
-10. times the flash kernel (folded and bb), its plain version and
+12. times the flash kernel (folded and bb), its plain version and
     ``scaled_dot_product_attention`` at the serve shape;
-11. checks a small input against the dense oracles of ``kernels/ref.py``;
-12. prints the ``kernels`` JSON line, then the result line.
+13. checks a small input against the dense oracles of ``kernels/ref.py``;
+14. prints the ``kernels`` JSON line, then the result line.
 
 Any mismatch, build failure or launch error exits non-zero without the
 result line.  Run from the repository root::
@@ -86,9 +108,14 @@ REPLACES = {
     "accum2d": "src/repro/kernels/legacy.py:118",
     "edm2d": "src/repro/kernels/legacy.py:167",
     "ca2d": "src/repro/kernels/legacy.py:232",
+    "hmap_mxu": "src/repro/kernels/hmap_mxu.py:39",
+    "accum3d": "src/repro/kernels/legacy.py:360",
+    "ca3d": "src/repro/kernels/legacy.py:436",
+    "accum_md": "src/repro/kernels/legacy.py:546",
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in SIMPLEX}
 SOURCES["flash"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCES["hmap_mxu"] = "src/repro_torch/kernels/csrc/hmap_mxu.cu"
 
 # The frozen 2-D originals: each legacy kernel and the engine body it is
 # held against; the paper's m=2 size.
@@ -96,6 +123,21 @@ LEGACY = {"map2d": "map", "accum2d": "accum", "edm2d": "edm", "ca2d": "ca"}
 LEGACY_SOURCE = "src/repro_torch/kernels/csrc/legacy2d.cu"
 LEGACY_KINDS = ("hmap", "rb", "bb")
 LEGACY_N, LEGACY_RHO, LEGACY_MAP_NB = 16384, 16, 16384
+
+# The frozen m >= 3 originals: each legacy kernel and the engine entry
+# point of the same kind and split it is held against; the engine's
+# m >= 3 sizes of DOMAIN_CASES, with hmap beside octant at m=3.
+LEGACY_MD = {"accum3d": "simplex_accum3d", "ca3d": "simplex_ca3d",
+             "accum_md": "simplex_accum_md"}
+LEGACY_MD_SOURCE = "src/repro_torch/kernels/csrc/legacy_md.cu"
+LEGACY_MD_CASES = {
+    3: [(1024, 8, ("hmap", "octant", "table", "bb")), (960, 8, ("composite", "bb"))],
+    4: [(64, 4, ("hmap", "bb")), (60, 4, ("composite", "bb"))],
+}
+
+# The tensor-core H map: the whole hmap2 grid of nb tiles a side,
+# (wx, wy) for wx < nb/2 and 1 <= wy < nb, in elements of rho.
+MXU_NB, MXU_RHO = 16384, 16
 
 # Serving: full-width yi-6b, batch 4, prompt 2048 (16 query tiles of 128).
 SERVE_ARGV = ["--arch", "yi-6b", "--batch", "4", "--prompt-len", "2048", "--gen", "16",
@@ -122,6 +164,53 @@ CA_DENSITY = {2: 0.4, 3: 0.35}
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_summary(log: str, cufilt: pathlib.Path) -> list:
+    """One line per kernel and resource footprint from ``-Xptxas -v``:
+    registers, stack frame, spill stores/loads and static shared memory.
+    Instantiations of one kernel with the same footprint share a line,
+    their template arguments joined by ``;`` (names demangled with
+    ``cufilt`` where it exists)."""
+    groups: dict = {}
+    src = name = props = None
+    info: dict = {}
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif "Compiling entry function" in line:
+            name, info, props = line.split("'")[1], {}, None
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[1].strip()
+        elif "bytes stack frame" in line and name and props in (None, name):
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            info.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif "Used" in line and "registers" in line and name:
+            words = line.replace(",", " ").split()
+            info["registers"] = int(words[words.index("Used") + 1])
+            info["smem"] = int(words[words.index("smem") - 2]) if "smem" in words else 0
+            groups.setdefault((src, tuple(sorted(info.items()))), []).append(name)
+            name = None
+    names = sorted({n for ns in groups.values() for n in ns})
+    readable = dict(zip(names, names))
+    if cufilt.exists() and names:
+        out = subprocess.run([str(cufilt)], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            # "void k<(int)3, float>(float *, int)": drop the parameter list
+            readable = {n: d[:d.rindex("(")].replace("void ", "").replace("(int)", "")
+                        if d.endswith(")") else d for n, d in zip(names, out)}
+    lines = []
+    for (src, info), ns in sorted(groups.items()):
+        bases: dict = {}
+        for n in ns:
+            base, _, args = readable[n].partition("<")
+            bases.setdefault(base, []).append(args.rstrip(">").replace(" ", ""))
+        what = " ".join(b + (f"<{';'.join(sorted(a))}>" if any(a) else "")
+                        for b, a in sorted(bases.items()))
+        stats = " ".join(f"{k}={v}" for k, v in info)
+        lines.append(f"ptxas {src} {what}: {stats}")
+    return lines
 
 
 def _card_line() -> str:
@@ -594,6 +683,248 @@ class LegacySmoke:
         torch.cuda.empty_cache()
 
 
+class LegacyMdSmoke:
+    """The frozen m >= 3 originals on the card: each against its plain
+    version and against the engine kernel of the same kind and split,
+    then timed beside that engine twin.
+
+    Shares the simplex ``Smoke``'s generators, timer, bounds and failure
+    list.
+    """
+
+    def __init__(self, smoke: Smoke, legacy):
+        self.s, self.legacy = smoke, legacy
+        self.torch = smoke.torch
+        self.rows: list = []
+
+    def kernel(self, name):
+        """The legacy kernel object of ``name`` (its counter, kernel_, plain_)."""
+        return getattr(self.legacy, name.upper())
+
+    def variants(self, name, kinds):
+        """``(kind, split)`` per case: every kind fused, the composite kind
+        also one launch per piece (never for ``ca3d``)."""
+        out = [(kind, False) for kind in kinds]
+        if "composite" in kinds and name != "ca3d":
+            out.append(("composite", True))
+        return out
+
+    def data(self, m, n):
+        """The inputs at ``(m, n)``: an int32 cube, and at m=3 a 0/1 state
+        of density ``CA_DENSITY[3]`` over the whole cube (not masked:
+        live cells above the tetrahedron must not count)."""
+        torch, dev = self.torch, self.s.dev
+        d = {"x": torch.randint(0, 100, (n,) * m, generator=self.s.gen(50 + m),
+                                device=dev, dtype=torch.int32)}
+        if m == 3:
+            d["s"] = (torch.rand((n,) * m, generator=self.s.gen(53), device=dev)
+                      < CA_DENSITY[3]).to(torch.int32)
+        return d
+
+    def plain(self, name, d, plan, rho):
+        """The plain version's output over every schedule of the plan."""
+        k = self.kernel(name)
+        if name == "ca3d":
+            out = d["s"].clone()
+            for sched in plan:
+                k.plain_(out, d["s"], sched, rho)
+        else:
+            out = d["x"].clone()
+            for sched in plan:
+                k.plain_(out, sched, rho)
+        return out
+
+    def path(self) -> None:
+        """Every legacy m >= 3 kernel at every kind and size through its
+        entry point."""
+        torch, L, ops = self.torch, self.legacy, self.s.ops
+        for m, cases in LEGACY_MD_CASES.items():
+            names = ("accum3d", "accum_md", "ca3d") if m == 3 else ("accum_md",)
+            for n, rho, kinds in cases:
+                d = self.data(m, n)
+                for name in names:
+                    for kind, split in self.variants(name, kinds):
+                        self.case(name, m, n, rho, kind, split, d, getattr(ops, LEGACY_MD[name]))
+                        torch.cuda.empty_cache()
+                del d
+                torch.cuda.empty_cache()
+
+    def case(self, name, m, n, rho, kind, split, d, engine_fn) -> None:
+        """One entry-point call: launches per the plan, then bit-equal to
+        the plain version and to the engine twin."""
+        torch, L = self.torch, self.legacy
+        k = self.kernel(name)
+        plan = L._launch_plan(m, n // rho, kind, split) if name != "ca3d" else [
+            L._schedule(m, n // rho, kind)]
+        kw = {} if name == "ca3d" else {"split": split}
+        arg = d["s"] if name == "ca3d" else d["x"]
+        before = k.launches
+        out = getattr(L, name)(arg, rho=rho, kind=kind, **kw)
+        torch.cuda.synchronize()
+        what = f"legacy {name} m={m} n={n} kind={kind} split={split}"
+        if k.launches - before != len(plan) or (split and len(plan) < 2):
+            self.s.fail(f"{what}: {k.launches - before} launches for a plan of "
+                        f"{len(plan)} schedules")
+        want = self.plain(name, d, plan, rho)
+        if not torch.equal(out, want):
+            self.s.fail(f"{what} against the plain version")
+        del want
+        if not torch.equal(out, engine_fn(arg, rho=rho, kind=kind, **kw)):
+            self.s.fail(f"{what} against the engine")
+        del out
+        self.rows.append(dict(name=name, m=m, n=n, rho=rho, kind=kind, split=split,
+                              steps=sum(s.steps for s in plan)))
+
+    def timings(self) -> None:
+        """Kernel, engine twin, plain version and library call per case."""
+        torch, L, E, ref = self.torch, self.legacy, self.s.engine, self.s.ref
+        data, lib = {}, {}
+        for row in self.rows:
+            name, m, n, rho, kind, split = (row[k] for k in
+                                            ("name", "m", "n", "rho", "kind", "split"))
+            if (m, n) not in data:
+                data.clear()
+                torch.cuda.empty_cache()
+                data[(m, n)] = self.data(m, n)
+                msk = ref.simplex_mask(m, n, torch.bool, self.s.dev)
+                x = data[(m, n)]["x"]
+                lib[(m, n)] = self.s.time_ms(lambda: torch.where(msk, x + 1, x))
+                del msk, x
+            d = data[(m, n)]
+            k = self.kernel(name)
+            test = "ca" if name == "ca3d" else "accum"
+            body = E.get_body(test)
+            if name == "ca3d":
+                plan = [L._schedule(m, n // rho, kind)]
+                eplan = E.launch_plan(m, n // rho, kind, None, False)
+                st = d["s"]
+                buf = st.clone()
+                row["ms"] = self.s.time_ms(lambda: [k.kernel_(buf, st, s, rho) for s in plan])
+                row["engine_ms"] = self.s.time_ms(
+                    lambda: [body.kernel_(buf, st, s, rho) for s in eplan])
+                row["plain_ms"] = self.s.time_ms(lambda: self.plain(name, d, plan, rho),
+                                                 runs=1, warm=0)
+                row["library_ms"] = None
+            else:
+                plan = L._launch_plan(m, n // rho, kind, split)
+                eplan = E.launch_plan(m, n // rho, kind, split, True)
+                buf = d["x"].clone()
+                row["ms"] = self.s.time_ms(lambda: [k.kernel_(buf, s, rho) for s in plan])
+                row["engine_ms"] = self.s.time_ms(
+                    lambda: [body.kernel_(buf, s, rho) for s in eplan])
+                row["plain_ms"] = self.s.time_ms(lambda: self.plain(name, d, plan, rho),
+                                                 runs=3, warm=1)
+                row["library_ms"] = lib[(m, n)]
+            del buf
+            torch.cuda.synchronize()
+            row["bound_ms"], row["bound_by"] = self.s.bound(
+                dict(test=test, m=m, n=n, kind=kind, steps=row["steps"]))
+        data.clear()
+        torch.cuda.empty_cache()
+        for row in self.rows:
+            bb = next(r for r in self.rows if r["name"] == row["name"] and r["m"] == row["m"]
+                      and r["n"] == row["n"] and r["kind"] == "bb")
+            lib_ms = row["library_ms"]
+            _log(f"case test={row['name']} m={row['m']} n={row['n']} rho={row['rho']} "
+                 f"kind={row['kind']} split={row['split']} steps={row['steps']} "
+                 f"ms={row['ms']:.4f} engine_ms={row['engine_ms']:.4f} "
+                 f"engine/legacy={row['engine_ms'] / row['ms']:.3f} "
+                 f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                 f"({row['bound_by']}) bound_share={row['bound_ms'] / row['ms']:.3f} "
+                 f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+                 f"bb_ms/ms={bb['ms'] / row['ms']:.3f} equal=bit")
+
+
+class MxuSmoke:
+    """The tensor-core H map on the card: the whole hmap2 grid of
+    ``MXU_NB`` tiles a side against the plain version and against
+    ``rho * hmap2(wx, wy)`` in int64, a case above 2^24 against int64
+    arithmetic, then timed.
+
+    Shares the simplex ``Smoke``'s generators, timer and failure list.
+    """
+
+    def __init__(self, smoke: Smoke, mxu, hmap):
+        self.s, self.mxu, self.hmap = smoke, mxu, hmap
+        self.torch = smoke.torch
+        self.row: dict = {}
+
+    def grid(self):
+        """``(T, 2)`` int32 ``(wx, wy)``: wx < nb/2, 1 <= wy < nb."""
+        torch, dev, nb = self.torch, self.s.dev, MXU_NB
+        wy, wx = torch.meshgrid(torch.arange(1, nb, device=dev),
+                                torch.arange(nb // 2, device=dev), indexing="ij")
+        return torch.stack([wx.reshape(-1), wy.reshape(-1)], 1).to(torch.int32)
+
+    def int64(self, wxy, rho):
+        """The map in int64 arithmetic, ``b`` at ``max(wy, 1)``."""
+        torch = self.torch
+        wx, wy = wxy[:, 0].to(torch.int64), wxy[:, 1].to(torch.int64)
+        b = self.hmap.pow2_floor(wy.clamp(min=1))
+        qb = (wx // b) * b
+        return torch.stack([rho * (wx + qb), rho * (wy + 2 * qb)], 1)
+
+    def call(self, what, wxy, rho):
+        """One entry-point call; it must launch its kernel exactly once."""
+        k = self.mxu.HMAP_MXU
+        before = k.launches
+        out = self.mxu.hmap2_coords_mxu(wxy, rho=rho)
+        self.torch.cuda.synchronize()
+        if k.launches - before != 1:
+            self.s.fail(f"hmap_mxu {what}: {k.launches - before} launches, not 1")
+        return out
+
+    def path(self) -> None:
+        """The full grid and the case above 2^24."""
+        torch, rho = self.torch, MXU_RHO
+        wxy = self.grid()
+        out = self.call("full grid", wxy, rho)
+        if not torch.equal(out, self.mxu.HMAP_MXU.plain(wxy, rho)):
+            self.s.fail(f"hmap_mxu nb={MXU_NB} against the plain version")
+        wx, wy = wxy[:, 0].to(torch.int64), wxy[:, 1].to(torch.int64)
+        x, y = self.hmap.hmap2(wx, wy)
+        del wx, wy
+        ok = torch.equal(out[:, 0].to(torch.int64), rho * x) and torch.equal(
+            out[:, 1].to(torch.int64), rho * y)
+        del x, y
+        _log(f"mxu check nb={MXU_NB} T={len(wxy)} rho={rho}: equal to rho*hmap2 in "
+             f"int64={ok}, max x={int(out[:, 0].max())} max y={int(out[:, 1].max())}")
+        if not ok:
+            self.s.fail(f"hmap_mxu nb={MXU_NB} against rho*hmap2(wx, wy) in int64")
+        self.row = dict(steps=len(wxy))
+        del out, wxy
+        torch.cuda.empty_cache()
+        # Outputs between 2^24 and 2^31, where float32 rounds; some rows of wy = 0.
+        g = self.s.gen(90)
+        big = torch.randint(1 << 24, 1 << 29, (4096, 2), generator=g, device=self.s.dev,
+                            dtype=torch.int32)
+        big[::5, 1] = 0
+        out = self.call("above 2^24", big, 1)
+        ok = torch.equal(out.to(torch.int64), self.int64(big, 1))
+        _log(f"mxu check above 2^24: T=4096 max output {int(out.max())}, equal to int64 "
+             f"arithmetic={ok}")
+        if not ok:
+            self.s.fail("hmap_mxu above 2^24 against int64 arithmetic")
+
+    def timings(self) -> None:
+        """Kernel and plain version on the full grid; the bound is 16 bytes
+        a block (8 read, 8 written)."""
+        torch, rho = self.torch, MXU_RHO
+        wxy = self.grid()
+        k = self.mxu.HMAP_MXU
+        self.row["ms"] = self.s.time_ms(lambda: k.kernel(wxy, rho))
+        self.row["plain_ms"] = self.s.time_ms(lambda: k.plain(wxy, rho), runs=3, warm=1)
+        self.row["bound_ms"] = len(wxy) * 16 / HBM_BYTES_PER_S * 1e3
+        self.row["bound_by"] = "bytes"
+        self.row["library_ms"] = None  # no one PyTorch call computes qb and the product
+        del wxy
+        torch.cuda.empty_cache()
+        r = self.row
+        _log(f"case test=hmap_mxu nb={MXU_NB} rho={rho} steps={r['steps']} ms={r['ms']:.4f} "
+             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} (bytes) "
+             f"bound_share={r['bound_ms'] / r['ms']:.3f} library_ms=null equal=bit")
+
+
 class FlashSmoke:
     """The serving path and the flash kernel's checks and timings.
 
@@ -785,8 +1116,10 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
+    from repro_torch.core import hmap
     from repro_torch.kernels import _build, engine, legacy, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hmap_mxu
     from repro_torch.launch import serve
 
     t_all = time.perf_counter()
@@ -800,19 +1133,25 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.library()
     _log(f"phase build: {time.perf_counter() - t0:.1f} s")
+    for line in ptxas_summary(_build.build_log(), _build.CUDA_HOME / "bin" / "cu++filt"):
+        _log(line)
 
     def zero_counts():
         for name in engine.registered_bodies():
             engine.get_body(name).launches = 0
         fa.FLASH.launches = 0
-        for k in (legacy.MAP2D, legacy.ACCUM2D, legacy.EDM2D, legacy.CA2D):
+        for k in (legacy.MAP2D, legacy.ACCUM2D, legacy.EDM2D, legacy.CA2D,
+                  legacy.ACCUM3D, legacy.CA3D, legacy.ACCUM_MD, hmap_mxu.HMAP_MXU):
             k.launches = 0
 
     def counts():
-        return dict(engine.launch_counts(), **fa.launch_counts(), **legacy.launch_counts())
+        return dict(engine.launch_counts(), **fa.launch_counts(), **legacy.launch_counts(),
+                    **hmap_mxu.launch_counts())
 
     smoke = Smoke(torch, engine, ops, ref, args.seed)
     old = LegacySmoke(smoke, legacy)
+    old_md = LegacyMdSmoke(smoke, legacy)
+    mxu = MxuSmoke(smoke, hmap_mxu, hmap)
     flash = FlashSmoke(smoke, fa, serve)
     zero_counts()
     t0 = time.perf_counter()
@@ -838,6 +1177,35 @@ def main(argv=None) -> int:
     old.timings()
     _log(f"phase legacy 2-D timing: {time.perf_counter() - t1:.1f} s; "
          f"legacy 2-D in all {time.perf_counter() - t0:.1f} s")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    old_md.path()
+    md_launches = counts()
+    _log(f"phase legacy m>=3 path: {time.perf_counter() - t0:.1f} s, launches {md_launches}")
+    for name in LEGACY_MD:
+        launches[name] = md_launches[name]
+        if launches[name] <= 0:
+            smoke.fail(f"kernel {name} was never launched on the legacy m>=3 path")
+    t1 = time.perf_counter()
+    old_md.timings()
+    _log(f"phase legacy m>=3 timing: {time.perf_counter() - t1:.1f} s; "
+         f"legacy m>=3 in all {time.perf_counter() - t0:.1f} s")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    mxu.path()
+    mxu_launches = counts()
+    _log(f"phase tensor-core map path: {time.perf_counter() - t0:.1f} s, "
+         f"launches {mxu_launches}")
+    launches["hmap_mxu"] = mxu_launches["hmap_mxu"]
+    if launches["hmap_mxu"] <= 0:
+        smoke.fail("kernel hmap_mxu was never launched on the tensor-core map path")
+    t1 = time.perf_counter()
+    mxu.timings()
+    _log(f"phase tensor-core map timing: {time.perf_counter() - t1:.1f} s; "
+         f"tensor-core map in all {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     zero_counts()
     t0 = time.perf_counter()
@@ -898,6 +1266,25 @@ def main(argv=None) -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": (f"m=2 nb={LEGACY_MAP_NB} kind=hmap" if name == "map2d" else
                       f"m=2 n={LEGACY_N} rho={LEGACY_RHO} kind=hmap"),
+        })
+    r = mxu.row
+    kernels.append({
+        "name": "hmap_mxu", "route": "cuda", "source": SOURCES["hmap_mxu"],
+        "replaces": REPLACES["hmap_mxu"], "launches": launches["hmap_mxu"],
+        "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        "shape": f"hmap2 grid nb={MXU_NB} T={r['steps']} rho={MXU_RHO}",
+    })
+    for name in LEGACY_MD:
+        head = next(r for r in old_md.rows if r["name"] == name and r["m"] == 3
+                    and r["kind"] == "hmap")
+        kernels.append({
+            "name": name, "route": "cuda", "source": LEGACY_MD_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "engine_ms": head["engine_ms"],
+            "shape": f"m=3 n={head['n']} rho={head['rho']} kind=hmap",
         })
     st = flash.stats
     _log(f"serve summary: prefill_s={st['prefill_s']:.4f} "

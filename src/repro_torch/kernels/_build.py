@@ -10,7 +10,9 @@ runs at import time: hosts without ``nvcc`` import the package and use
 the plain PyTorch versions on CPU tensors.
 
 Every C entry returns ``cudaGetLastError()`` after its launch;
-``check`` raises on anything but 0.
+``check`` raises on anything but 0.  Each object is compiled with
+``-Xptxas -v``; what ptxas reports (registers, spills and shared memory
+per kernel) is kept beside the library and read with ``build_log``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import subprocess
 import tempfile
 from typing import Optional
 
-__all__ = ["CSRC", "BUILD_ROOT", "CUDA_HOME", "NVCC_FLAGS", "library", "check", "nvcc_path"]
+__all__ = ["CSRC", "BUILD_ROOT", "CUDA_HOME", "NVCC_FLAGS", "library", "check", "nvcc_path",
+           "build_log"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -33,6 +36,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
+# Compile-only: ptxas prints each kernel's registers, spills and shared memory.
+PTXAS_FLAGS = ("-Xptxas", "-v")
+_LOG_NAME = "ptxas.log"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +66,14 @@ _SIGNATURES = {
     "legacy_edm2d_launch": (_P, _P, _I, _I, _I, _I, _I, _P),
     # out, in, kind, nb, n, rho, stream
     "legacy_ca2d_launch": (_P, _P, _I, _I, _I, _I, _P),
+    # the frozen m >= 3 originals (legacy_md.cu)
+    # x, dtype, header, data, n, rho, stream
+    "legacy_accum3d_launch": (_P, _I, _P, _P, _I, _I, _P),
+    "legacy_accum_md_launch": (_P, _I, _P, _P, _I, _I, _P),
+    # out, in, header, data, n, rho, stream
+    "legacy_ca3d_launch": (_P, _P, _P, _P, _I, _I, _P),
+    # the tensor-core H map (hmap_mxu.cu): out, wxy, t, rho, stream
+    "hmap2_coords_mxu_launch": (_P, _P, _L, _I, _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -84,7 +98,7 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_FLAGS).encode())
     cus, cuhs = _sources()
     for path in cus + cuhs:
         h.update(path.name.encode())
@@ -100,18 +114,20 @@ def _build(target: pathlib.Path) -> None:
         objs = [pathlib.Path(tmp) / (cu.stem + ".o") for cu in cus]
         procs = [
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-c", str(cu), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for cu, obj in zip(cus, objs)
         ]
-        failed = []
+        failed, log = [], []
         for cu, proc in zip(cus, procs):
             out, _ = proc.communicate()
+            log.append(f"== {cu.name}\n{out}")
             if proc.returncode != 0:
                 failed.append(f"{cu.name}:\n{out}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        (target.parent / _LOG_NAME).write_text("".join(log))
         lib = pathlib.Path(tmp) / target.name
         link = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(lib)],
@@ -140,6 +156,18 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def build_log() -> str:
+    """What nvcc and ptxas printed when the library was built.
+
+    One ``== <source>.cu`` line per object, then its compiler output:
+    for each kernel ptxas's ``Compiling entry function``, stack and
+    spill line and ``Used N registers`` line.  Builds the library first
+    if it is not built yet.
+    """
+    library()
+    return (BUILD_ROOT / _digest() / _LOG_NAME).read_text()
 
 
 def check(code: int, what: str) -> None:

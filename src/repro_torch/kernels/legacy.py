@@ -1,36 +1,40 @@
-"""Frozen 2-D originals — the differential baseline of the engine.
+"""Frozen originals — the differential baseline of the engine.
 
 These are the port of the JAX package's ``kernels/legacy.py``: the
 original per-(body, dimension) kernels that predate the
 dimension-generic ``SimplexKernel`` engine (``kernels/engine.py``,
-DESIGN.md §2.3).  Each launches the paper's two-dimensional ``(w, h)``
-grid: block ``(wx, wy)`` goes through the schedule's map H: Z^2 -> Z^2
-to its ``(column, row)`` tile, and the tile's rule runs there.
+DESIGN.md §2.3).  The 2-D ones (``map2d``, ``accum2d``, ``edm2d``,
+``ca2d``) launch the paper's two-dimensional ``(w, h)`` grid: block
+``(wx, wy)`` goes through the schedule's map H: Z^2 -> Z^2 to its
+``(column, row)`` tile, and the tile's rule runs there.  The m >= 3 ones
+(``accum3d``, ``ca3d``, ``accum_md``) launch a linear grid: step ``i``
+goes through ``SimplexSchedule(m, nb, kind).map`` to its math-order
+block ``(x_0, ..., x_{m-1})``, and array axis j holds ``x_{m-1-j}``.
 
 They stay independent of the engine on purpose: ``chip_smoke.py`` and
 the tests hold the engine against them, so if they shared its code the
 comparison would hold the engine against itself.  They share only the
-schedule subsystem (``core/schedule.py`` and the m=2 map functions of
-``csrc/simplex_maps.cuh``) and the device policy.  Do not add kernels
-here and do not make these share code with the engine.
+schedule subsystem (``core/schedule.py``, and ``SimplexMap`` with its map
+functions in ``csrc/simplex_maps.cuh``) and the device policy.  Do not
+add kernels here and do not make these share code with the engine.
 
 Each kernel has two versions of its work on one schedule:
 
-* ``kernel*`` — the CUDA kernel of ``csrc/legacy2d.cu`` for CUDA
-  tensors; it checks its operands, launches on the current stream and
-  adds one to its ``launches`` counter;
-* ``plain*`` — a plain PyTorch version that walks every ``(wx, wy)`` of
-  the grid through the torch backend of the schedule's map and applies
-  the tile's rule with tensor ops.  CPU tensors take it; on the card it
-  is the kernel's reference and nothing else.
+* ``kernel*`` — the CUDA kernel of ``csrc/legacy2d.cu`` or
+  ``csrc/legacy_md.cu`` for CUDA tensors; it checks its operands,
+  launches on the current stream and adds one to its ``launches``
+  counter;
+* ``plain*`` — a plain PyTorch version that walks every grid step
+  through the torch backend of the schedule's map and applies the tile's
+  rule with tensor ops on tile views.  CPU tensors take it; on the card
+  it is the kernel's reference and nothing else.
 
 The write discipline is the reference's: ACCUM and CA keep their input
 off the domain, EDM keeps its zeros seed.  The TPU kernels flushed every
-grid step back through input/output aliasing; here an invalid ``bb``
-step writes nothing, and CA writes a second buffer because blocks run
-in no order.  ``kind='auto'`` needs the autotuner, which is not ported
-yet, so the default kind is ``'hmap'``.  The m >= 3 originals
-(``accum3d``, ``ca3d``, ``accum_md``) are not ported yet and raise.
+grid step back through input/output aliasing, parking invalid steps on a
+trash tile; here an invalid step writes nothing, and CA writes a second
+buffer because blocks run in no order.  ``kind='auto'`` needs the
+autotuner, which is not ported yet, so the default kind is ``'hmap'``.
 """
 
 from __future__ import annotations
@@ -57,6 +61,9 @@ __all__ = [
     "ACCUM2D",
     "EDM2D",
     "CA2D",
+    "ACCUM3D",
+    "CA3D",
+    "ACCUM_MD",
     "launch_counts",
 ]
 
@@ -485,33 +492,307 @@ def ca2d(state, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the m >= 3 originals: not ported yet
+# the m >= 3 originals: a linear grid of schedule steps
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"legacy.{name} (the frozen m >= 3 original) is not ported yet: it is "
-        "ROADMAP queue B, the next slice of the port; the engine serves m >= 3 "
-        "(kernels.engine.accum / ca / accum_md)"
-    )
+def _launch_plan(m: int, nb: int, kind: str, split: Optional[bool] = None) -> list:
+    """Schedules to launch, one kernel launch each.
+
+    The schedule carries what the reference's ``_sched_linear`` returned
+    (its steps, its map and, for the ``table`` kind, the table, on the
+    card as ``device_descriptor().data``).  A composite schedule splits
+    into one launch per piece when ``split`` is true; pieces cover
+    disjoint tiles, so the launches chain on one buffer exactly.
+    ``split=None`` launches the fused walk: the reference asks the
+    autotuner here, which is not ported yet, and the outputs are
+    bit-equal either way.
+    """
+    sched = _schedule(m, nb, kind)
+    if sched.kind == "composite" and split:
+        subs = sched.split_pieces()
+        if len(subs) > 1:
+            return list(subs)
+    return [sched]
+
+
+def _linear_blocks(sched, device, per: int):
+    """Per chunk of the linear grid: int64 ``(S, m)`` array-axis blocks
+    of its valid steps, ``per`` elements of work per step."""
+    step = max(1, _CHUNK_ELEMS // per)
+    tab = sched.prefetch
+    tab = None if tab is None else torch.from_numpy(tab).to(device)
+    for s0 in range(0, sched.steps, step):
+        lin = torch.arange(s0, min(sched.steps, s0 + step), dtype=torch.int64,
+                           device=device)
+        out = sched.map(lin) if tab is None else sched.map(lin, tab)
+        v = torch.as_tensor(out[-1], device=device).to(torch.bool).expand(lin.shape)
+        # math order (x_0, ..., x_{m-1}) -> array axes (x_{m-1}, ..., x_0)
+        yield torch.stack([torch.as_tensor(c, device=device).to(torch.int64)[v]
+                           for c in out[-2::-1]], dim=1)
+
+
+def _cube_tiles(a: torch.Tensor, rho: int) -> torch.Tensor:
+    """``(nb,)*m + (rho,)*m`` view of an ``(n,)*m`` array: block
+    coordinates, then the tile, writable through index assignment."""
+    m, nb = a.ndim, a.shape[0] // rho
+    v = a.view(sum(((nb, rho) for _ in range(m)), ()))
+    return v.permute(*range(0, 2 * m, 2), *range(1, 2 * m, 2))
+
+
+def _simplex_tiles(blocks: torch.Tensor, rho: int, n: int) -> torch.Tensor:
+    """``(S,) + (rho,)*m`` mask of ``sum of coordinates < n`` over the
+    tiles of array-axis ``blocks``."""
+    s, m = blocks.shape
+    r = torch.arange(rho, device=blocks.device)
+    total = torch.zeros((s,) + (1,) * m, dtype=torch.int64, device=blocks.device)
+    for j in range(m):
+        shape = [s] + [1] * m
+        shape[1 + j] = rho
+        total = total + (blocks[:, j, None] * rho + r).reshape(shape)
+    return total < n
+
+
+def _check_cube(name: str, a: torch.Tensor, m: int, rho: int, smem_bytes: int = 0) -> int:
+    n = a.shape[0] if a.ndim else 0
+    if a.ndim != m or tuple(a.shape) != (n,) * m:
+        raise ValueError(f"{name}: expected an m-cube operand of shape (n,)*{m}, got "
+                         f"{tuple(a.shape)}")
+    check_tile(name, m, n, rho, smem_bytes)
+    return n
+
+
+def _check_linear_launch(name: str, sched, rho: int, a: torch.Tensor, dtypes,
+                         smem_bytes: int = 0) -> None:
+    """The m >= 3 kernels' contract, checked before any build or launch."""
+    if sched.m < 3:
+        raise ValueError(f"{name}: the linear grid serves m >= 3, got m={sched.m}")
+    n = _check_cube(name, a, sched.m, rho, smem_bytes)
+    if n != sched.n * rho:
+        raise ValueError(
+            f"{name}: schedule (m={sched.m}, nb={sched.n}) at rho={rho} needs a "
+            f"{(sched.n * rho,) * sched.m} operand, got {tuple(a.shape)}"
+        )
+    card_operand(a, name, dtypes)
+
+
+def _desc_args(sched, device) -> tuple:
+    """The schedule's header and device payload as the C entries take them."""
+    desc = sched.device_descriptor(device)
+    return desc.header.ctypes.data, None if desc.data is None else desc.data.data_ptr()
+
+
+class _LinearAccum(_Legacy):
+    """ACCUM over a linear grid: +1 where the coordinates sum below n.
+
+    Attributes:
+        m: The dimension the kernel serves (0: any m >= 3).
+        entry: The C entry of ``legacy_md.cu``.
+    """
+
+    m = 0
+    entry = ""
+
+    def plain_(self, buf: torch.Tensor, sched, rho: int) -> None:
+        """+1 on the simplex cells of each visited tile of ``buf``, in place."""
+        n = buf.shape[0]
+        tiles = _cube_tiles(buf, rho)
+        for blk in _linear_blocks(sched, buf.device, rho ** buf.ndim):
+            idx = tuple(blk.unbind(1))
+            t = tiles[idx]
+            tiles[idx] = torch.where(_simplex_tiles(blk, rho, n), t + 1, t)
+
+    def kernel_(self, buf: torch.Tensor, sched, rho: int) -> None:
+        """+1 on the simplex cells of each visited tile of ``buf``, in
+        place (``legacy_md.cu``)."""
+        if self.m and sched.m != self.m:
+            raise ValueError(f"{self.name}: serves m={self.m}, got a schedule of m={sched.m}")
+        _check_linear_launch(self.name, sched, rho, buf, _ACCUM_DTYPES)
+        self._launch(self.entry, buf.device, buf.data_ptr(), _ACCUM_DTYPES[buf.dtype],
+                     *_desc_args(sched, buf.device), buf.shape[0], rho)
+
+    def run(self, x, m: int, rho: int, kind: str, split: Optional[bool],
+            device: torch.device) -> torch.Tensor:
+        """A copy of ``x`` through every launch of the plan."""
+        buf = torch.as_tensor(x, device=device).contiguous().clone()
+        n = _check_cube(self.name, buf, m, rho)
+        card = on_card(buf, self.name)
+        for sched in _launch_plan(m, n // rho, kind, split):
+            if card:
+                self.kernel_(buf, sched, rho)
+            else:
+                self.plain_(buf, sched, rho)
+        return buf
+
+
+class Accum3DKernel(_LinearAccum):
+    """ACCUM3D: +1 on T(n) = {x+y+z < n} of an ``(n, n, n)`` array,
+    axes ``(z, y, x)``."""
+
+    name = "accum3d"
+    m = 3
+    entry = "legacy_accum3d_launch"
+
+
+class AccumMDKernel(_LinearAccum):
+    """ACCUM_MD: +1 on {sum of coordinates < n} of an ``(n,)*m`` array,
+    any m >= 3 (the kernel is templated on m)."""
+
+    name = "accum_md"
+    entry = "legacy_accum_md_launch"
+
+
+ACCUM3D = Accum3DKernel()
+ACCUM_MD = AccumMDKernel()
 
 
 def accum3d(x, rho: int = 4, kind: str = "hmap", split: Optional[bool] = None,
             device=None) -> torch.Tensor:
-    """+1 on T(n) = {x+y+z < n}; not ported yet (raises)."""
-    _not_ported("accum3d")
+    """+1 on T(n) = {x+y+z < n}; axes (z, y, x); rho | n.
 
+    Args:
+        x: ``(n, n, n)`` array or tensor (int32, int64, float32 or
+            float64 on the card).
+        rho: Tile side.
+        kind: ``'hmap'``, ``'octant'``, ``'bb'``, ``'table'`` or
+            ``'composite'`` (``'hmap'`` resolves to ``'composite'`` at a
+            non-power-of-two tile count).
+        split: True launches a composite schedule one piece at a time.
+        device: None for the card, ``'cpu'`` for the plain version.
 
-def ca3d(state, rho: int = 4, kind: str = "hmap", device=None) -> torch.Tensor:
-    """One 26-neighbour Game-of-Life step on T(n); not ported yet (raises)."""
-    _not_ported("ca3d")
+    Returns:
+        A new tensor: ``x`` with +1 on T(n), its input elsewhere; ``x``
+        itself is not changed.
+
+    Example:
+        >>> accum3d(torch.zeros(4, 4, 4, dtype=torch.int32), rho=2, device="cpu").sum().item()
+        20
+    """
+    return ACCUM3D.run(x, 3, rho, kind, split, resolve_device(device))
 
 
 def accum_md(x, rho: int = 2, kind: str = "hmap", split: Optional[bool] = None,
              device=None) -> torch.Tensor:
-    """+1 on T(n) for an (n,)*m input, m >= 3; not ported yet (raises)."""
-    _not_ported("accum_md")
+    """+1 on T(n) = {sum(coords) < n} for an m-cube input of shape (n,)*m.
+
+    m is ``x.ndim`` (any m >= 3); array axis j holds ``x_{m-1-j}``, as in
+    ``accum3d``'s ``(z, y, x)`` layout.
+
+    Args:
+        x: ``(n,)*m`` array or tensor (dtypes as ``accum3d``).
+        rho: Tile side.
+        kind: ``'hmap'``, ``'bb'``, ``'table'`` or ``'composite'``.
+        split: True launches a composite schedule one piece at a time.
+        device: None for the card, ``'cpu'`` for the plain version.
+
+    Returns:
+        A new tensor: ``x`` with +1 on the simplex, its input elsewhere.
+
+    Raises:
+        ValueError: ``x`` has fewer than three dimensions.
+
+    Example:
+        >>> accum_md(torch.zeros((4,) * 4, dtype=torch.int32), rho=2, device="cpu").sum().item()
+        35
+    """
+    device = resolve_device(device)
+    m = torch.as_tensor(x).ndim
+    if m < 3:
+        raise ValueError("use accum2d for the 2-simplex (its grid is (w, h))")
+    return ACCUM_MD.run(x, m, rho, kind, split, device)
+
+
+class CA3DKernel(_Legacy):
+    """CA3D: one B3/S23 step over 26 neighbours on T(n), free boundaries.
+
+    Each tile reads its ``(rho+2)^3`` halo; a neighbour counts only if
+    its true coordinate lies in ``[0, n)^3`` and in the tetrahedron.
+    Cells off the domain keep their input.  One launch, never split: a
+    piece would read neighbours another piece had already stepped.
+    """
+
+    name = "ca3d"
+
+    @staticmethod
+    def smem_bytes(rho: int) -> int:
+        """Shared memory of one block: the ``(rho+2)^3`` int32 halo."""
+        return 4 * (rho + 2) ** 3
+
+    def plain_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
+        """Step the domain cells of each visited tile from ``inp`` into ``out``."""
+        n = inp.shape[0]
+        src, dst = _cube_tiles(inp, rho), _cube_tiles(out, rho)
+        h = torch.arange(-1, rho + 1, device=inp.device)
+        for blk in _linear_blocks(sched, inp.device, (rho + 2) ** 3):
+            gz = (blk[:, 0, None] * rho + h)[:, :, None, None]
+            gy = (blk[:, 1, None] * rho + h)[:, None, :, None]
+            gx = (blk[:, 2, None] * rho + h)[:, None, None, :]
+            ok = ((gz >= 0) & (gy >= 0) & (gx >= 0) & (gz < n) & (gy < n) & (gx < n)
+                  & (gz + gy + gx < n))
+            halo = torch.where(ok, inp[gz.clamp(0, n - 1), gy.clamp(0, n - 1),
+                                       gx.clamp(0, n - 1)], 0)  # (S, rho+2, rho+2, rho+2)
+            centre = halo[:, 1:-1, 1:-1, 1:-1]
+            neigh = -centre
+            for dz in range(3):
+                for dy in range(3):
+                    for dx in range(3):
+                        neigh = neigh + halo[:, dz:dz + rho, dy:dy + rho, dx:dx + rho]
+            alive = ((centre == 0) & (neigh == 3)) | (
+                (centre == 1) & ((neigh == 2) | (neigh == 3)))
+            idx = tuple(blk.unbind(1))
+            dst[idx] = torch.where(_simplex_tiles(blk, rho, n), alive.to(out.dtype),
+                                   src[idx])
+
+    def kernel_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
+        """Step the domain cells of each visited tile from ``inp`` into
+        ``out`` (``legacy_md.cu``); ``out`` must not alias ``inp``."""
+        if sched.m != 3:
+            raise ValueError(f"{self.name}: serves m=3, got a schedule of m={sched.m}")
+        _check_linear_launch(self.name, sched, rho, inp, (torch.int32,),
+                             self.smem_bytes(rho))
+        if out.shape != inp.shape:
+            raise ValueError(f"{self.name}: output {tuple(out.shape)} and input "
+                             f"{tuple(inp.shape)} differ")
+        card_operand(out, self.name, (torch.int32,))
+        if out.device != inp.device or out.data_ptr() == inp.data_ptr():
+            raise ValueError(f"{self.name}: the kernel reads one buffer and writes "
+                             "another on the same device")
+        self._launch("legacy_ca3d_launch", inp.device, out.data_ptr(), inp.data_ptr(),
+                     *_desc_args(sched, inp.device), inp.shape[0], rho)
+
+
+CA3D = CA3DKernel()
+
+
+def ca3d(state, rho: int = 4, kind: str = "hmap", device=None) -> torch.Tensor:
+    """One 26-neighbour Game-of-Life step on T(n), free boundaries.
+
+    Args:
+        state: ``(n, n, n)`` 0/1 array (int32 on the card); cells off
+            T(n) are dead as neighbours whatever they hold.
+        rho: Tile side.
+        kind: ``'hmap'``, ``'octant'``, ``'bb'``, ``'table'`` or
+            ``'composite'``.
+        device: None for the card, ``'cpu'`` for the plain version.
+
+    Returns:
+        The stepped state; cells off T(n) keep their input.
+
+    Example:
+        >>> s = torch.zeros(4, 4, 4, dtype=torch.int32)
+        >>> s[0, 0, 1] = s[0, 1, 0] = s[1, 0, 0] = 1  # three corners of the origin
+        >>> ca3d(s, rho=2, device="cpu")[0, 0, 0].item()  # born with 3 neighbours
+        1
+    """
+    inp = torch.as_tensor(state, device=resolve_device(device)).contiguous()
+    n = _check_cube(CA3D.name, inp, 3, rho, CA3D.smem_bytes(rho))
+    sched = _schedule(3, n // rho, kind)
+    out = inp.clone()
+    if on_card(inp, CA3D.name):
+        CA3D.kernel_(out, inp, sched, rho)
+    else:
+        CA3D.plain_(out, inp, sched, rho)
+    return out
 
 
 def launch_counts() -> dict:
@@ -519,6 +800,7 @@ def launch_counts() -> dict:
 
     Example:
         >>> sorted(launch_counts())
-        ['accum2d', 'ca2d', 'edm2d', 'map2d']
+        ['accum2d', 'accum3d', 'accum_md', 'ca2d', 'ca3d', 'edm2d', 'map2d']
     """
-    return {k.name: k.launches for k in (MAP2D, ACCUM2D, EDM2D, CA2D)}
+    return {k.name: k.launches
+            for k in (MAP2D, ACCUM2D, EDM2D, CA2D, ACCUM3D, CA3D, ACCUM_MD)}

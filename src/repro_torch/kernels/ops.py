@@ -17,6 +17,7 @@ import torch
 from ..autotune.tuner import choose_attn_impl
 from . import engine, ref
 from .flash_attention import flash_attention
+from .hmap_mxu import hmap2_coords_mxu
 from .policy import resolve_device
 
 __all__ = [
@@ -30,6 +31,7 @@ __all__ = [
     "simplex_edm_md",
     "simplex_ca_md",
     "map_table",
+    "hmap_coords_mxu",
     "causal_flash_attention",
 ]
 
@@ -94,6 +96,18 @@ def map_table(nb: int, kind: str = "hmap", m: int = 2, device=None) -> torch.Ten
         (3, 3)
     """
     return engine.map_table(nb, m=m, kind=kind, device=device)
+
+
+def hmap_coords_mxu(wxy, rho: int = 1, device=None) -> torch.Tensor:
+    """Tensor-core H map: ``(T, 2)`` int32 grid coords ``(wx, wy)`` ->
+    element origins ``(x, y)`` (``hmap_mxu.hmap2_coords_mxu``, paper §7.1).
+
+    Example:
+        >>> w = torch.ones((128, 2), dtype=torch.int32)
+        >>> hmap_coords_mxu(w, rho=8, device="cpu")[0].tolist()
+        [16, 24]
+    """
+    return hmap2_coords_mxu(wxy, rho=rho, device=device)
 
 
 def causal_flash_attention(q, k, v, kind: str = "auto", block_q: int = 0,

@@ -37,10 +37,11 @@ def test_port_has_modules():
                  "repro_torch/models/attention.py", "repro_torch/models/transformer.py",
                  "repro_torch/models/model.py", "repro_torch/models/convert.py",
                  "repro_torch/autotune/tuner.py", "repro_torch/launch/serve.py",
-                 "repro_torch/kernels/legacy.py", "repro_torch/kernels/simplex_kernels.py"):
+                 "repro_torch/kernels/legacy.py", "repro_torch/kernels/simplex_kernels.py",
+                 "repro_torch/kernels/hmap_mxu.py"):
         assert want in names
     for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh",
-               "flash_attention.cu", "legacy2d.cu"):
+               "flash_attention.cu", "legacy2d.cu", "legacy_md.cu", "hmap_mxu.cu"):
         assert (REPO / "src/repro_torch/kernels/csrc" / cu).is_file()
 
 
@@ -55,7 +56,7 @@ def test_import_loads_neither_jax_nor_repro():
         "import sys; import repro_torch.kernels.ops, repro_torch.kernels.engine, "
         "repro_torch.state, repro_torch.core, repro_torch.launch.serve, "
         "repro_torch.models.convert, repro_torch.kernels.legacy, "
-        "repro_torch.kernels.simplex_kernels; "
+        "repro_torch.kernels.simplex_kernels, repro_torch.kernels.hmap_mxu; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

@@ -121,11 +121,9 @@ def test_kind_errors():
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match="autotuner"):
             call()
-    x3 = np.zeros((8, 8, 8), np.int32)
-    for call in (lambda: TL.accum3d(x3, device="cpu"), lambda: TL.ca3d(x3, device="cpu"),
-                 lambda: TL.accum_md(np.zeros((4,) * 4, np.int32), device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
-            call()
+    # accum_md serves m >= 3 (the reference asserts); the 2-simplex is accum2d's.
+    with pytest.raises(ValueError, match=r"use accum2d for the 2-simplex"):
+        TL.accum_md(_x(16, np.int32), rho=RHO, device="cpu")
 
 
 def test_grid_steps_vs_jax():
@@ -235,13 +233,14 @@ def test_device_none_without_cuda_raises(name, monkeypatch):
 
 
 def test_cpu_never_touches_launch_counters():
-    for k in (TL.MAP2D, TL.ACCUM2D, TL.EDM2D, TL.CA2D):
+    for k in (TL.MAP2D, TL.ACCUM2D, TL.EDM2D, TL.CA2D, TL.ACCUM3D, TL.CA3D, TL.ACCUM_MD):
         k.launches = 0
     TL.map2d(4, device="cpu")
     TL.accum2d(X2, rho=RHO, device="cpu")
     TL.edm2d(P2, rho=RHO, device="cpu")
     TL.ca2d(S2, rho=RHO, device="cpu")
-    assert TL.launch_counts() == {"map2d": 0, "accum2d": 0, "edm2d": 0, "ca2d": 0}
+    assert TL.launch_counts() == {"map2d": 0, "accum2d": 0, "edm2d": 0, "ca2d": 0,
+                                  "accum3d": 0, "ca3d": 0, "accum_md": 0}
 
 
 def test_legacy_doctests():
