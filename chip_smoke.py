@@ -22,7 +22,9 @@ origins.  This script
    launch per composite piece) at the paper's sizes, and holds each output
    against the body's plain version on the same card: integers bit-equal,
    EDM within ``|k - p| <= 1e-5 + 1e-5 * max|p|`` (float32 sums run in
-   another order on the card and ``sqrtf`` rounds there);
+   another order on the card, the kernel takes the Gram form on the
+   tensor cores, and ``sqrtf`` rounds there), also on points with exact
+   and near duplicates at m=2 and m=3, where the Gram form cancels;
 4. reads the counters, which must be > 0 for every kernel;
 5. legacy 2-D: sets every counter to 0 again and drives the frozen 2-D
    originals of ``repro_torch.kernels.legacy`` (``map2d``, ``accum2d``,
@@ -67,7 +69,11 @@ origins.  This script
    warm-up), its plain version and, where one PyTorch call computes the
    same function, that call (``library_ms``, a yardstick the port never
    calls), and prints one line per (test, m, kind) with grid steps, the
-   time ratio against ``bb`` at the same side, and the bound;
+   time ratio against ``bb`` at the same side, and the bound: bytes at
+   3.35 TB/s against operations, float32-accurate dot products (EDM,
+   flash) at the 3xTF32 tensor-core rate of 495/3 TFLOP/s, beside which
+   their lines keep the float32 CUDA-core bound (``bound_f32_ms``,
+   67 TFLOP/s);
 12. times the flash kernel (folded and bb), its plain version and
     ``scaled_dot_product_attention`` at the serve shape;
 13. checks a small input against the dense oracles of ``kernels/ref.py``;
@@ -94,6 +100,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
+# Float32-accurate products on the tensor cores: 3xTF32, three TF32 MMAs
+# per product at the published dense 495 TFLOP/s.
+TF32X3_FLOPS = 495e12 / 3
 EDM_D = 64
 TIMED_RUNS = 10
 
@@ -157,6 +166,8 @@ MAP_CASES = {
     3: [(512, ("octant", "bb")), (128, ("table", "bb")), (480, ("composite", "bb"))],
     4: [(16, ("hmap", "bb")), (15, ("composite", "bb"))],
 }
+# EDM on points with exact and near duplicates: (m, n, rho, kind).
+EDM_DUPLICATE_CASES = ((2, 16384, 16, "hmap"), (3, 1024, 8, "octant"))
 # (test, m) whose composite cases also run split=True: one launch per piece.
 SPLIT = {("accum", 3), ("edm", 3), ("accum", 4)}
 CA_DENSITY = {2: 0.4, 3: 0.35}
@@ -211,6 +222,13 @@ def ptxas_summary(log: str, cufilt: pathlib.Path) -> list:
         stats = " ".join(f"{k}={v}" for k, v in info)
         lines.append(f"ptxas {src} {what}: {stats}")
     return lines
+
+
+def _f32(row) -> str:
+    """The float32 CUDA-core bound of a row that has one, for its case line."""
+    if row.get("bound_f32_ms") is None:
+        return ""
+    return f"bound_f32_ms={row['bound_f32_ms']:.4f} "
 
 
 def _card_line() -> str:
@@ -291,6 +309,7 @@ class Smoke:
                     self._edm_cases(m, n, rho, kinds)
                     self._ca_cases(m, n, rho, kinds)
                 torch.cuda.empty_cache()
+        self._edm_duplicates()
 
     def variants(self, test, m, kinds):
         """``(kind, split)`` per case: every kind fused, and the composite
@@ -363,6 +382,34 @@ class Smoke:
                 self.fail(f"edm m={m} n={n} kind={kind} split={split} max_abs_err={err}")
             del out, want
 
+    def _edm_duplicates(self) -> None:
+        """EDM where the Gram form cancels: every fourth point repeats its
+        neighbour exactly and the next one within 1e-4, at the main path's
+        m=2 and m=3 sides, held to the gate of ``_edm_cases``."""
+        torch, ops, engine = self.torch, self.ops, self.engine
+        body = engine.get_body("edm")
+        for m, n, rho, kind in EDM_DUPLICATE_CASES:
+            p = torch.randn((n, EDM_D), generator=self.gen(15 + m), device=self.dev)
+            p[1::4] = p[0::4]
+            p[2::4] = p[0::4] + 1e-4 * torch.randn((n // 4, EDM_D), generator=self.gen(17 + m),
+                                                   device=self.dev)
+            before = body.launches
+            out = (ops.simplex_edm2d(p, rho=rho, kind=kind) if m == 2 else
+                   ops.simplex_edm_md(p, m, rho=rho, kind=kind))
+            torch.cuda.synchronize()
+            if body.launches - before != 1:
+                self.fail(f"edm duplicates m={m}: {body.launches - before} launches, not 1")
+            want = torch.zeros_like(out)
+            body.plain_(want, p, engine.schedule_for(m, n // rho, kind), rho)
+            err = (out - want).abs().max().item()
+            tol = 1e-5 + 1e-5 * want.abs().max().item()
+            self.err["edm"] = max(self.err["edm"], err)
+            _log(f"edm check duplicates m={m} n={n} rho={rho} kind={kind}: "
+                 f"max_abs_err={err:.3e} tol={tol:.3e}")
+            if not math.isfinite(err) or err > tol:
+                self.fail(f"edm duplicates m={m} n={n} kind={kind} max_abs_err={err}")
+            del p, out, want
+
     def _ca_cases(self, m, n, rho, kinds):
         torch, ops, engine, ref = self.torch, self.ops, self.engine, self.ref
         msk = ref.simplex_mask(m, n, torch.int32, self.dev)
@@ -380,9 +427,12 @@ class Smoke:
 
     # -- timing ---------------------------------------------------------
 
-    def bound(self, row) -> tuple:
+    def bound(self, row, flops_per_s: float = TF32X3_FLOPS) -> tuple:
         """``(bound_ms, bound_by)``: the least time the card could take
-        for the case's work, from its bytes and float32 operations."""
+        for the case's work, from its bytes and its operations at
+        ``flops_per_s``: the 3xTF32 tensor-core rate by default, since
+        EDM's float32-accurate dot products run there whatever implements
+        them; ``F32_FLOPS`` gives the float32 CUDA-core bound."""
         test, m, n, kind = row["test"], row["m"], row["n"], row["kind"]
         if test == "map":
             nbytes = row["steps"] * (m + 1) * 4
@@ -404,7 +454,7 @@ class Smoke:
         else:
             pairs = sum(max(0, n - 1 - 2 * i) for i in range(n))
         flops = n * 2 * EDM_D + pairs * (2 * EDM_D + 3) + v * (m * (m - 1) // 2 - 1)
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
         return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
     def timings(self) -> None:
@@ -461,6 +511,8 @@ class Smoke:
                     del out
             torch.cuda.synchronize()
             row["bound_ms"], row["bound_by"] = self.bound(row)
+            if test == "edm":
+                row["bound_f32_ms"] = self.bound(row, F32_FLOPS)[0]
         for row in self.rows:
             bb = next(r for r in self.rows if r["test"] == row["test"] and r["m"] == row["m"]
                       and r["n"] == row["n"] and r["kind"] == "bb")
@@ -471,7 +523,7 @@ class Smoke:
                 f"kind={row['kind']} split={row['split']} steps={row['steps']} ms={row['ms']:.4f} "
                 f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
                 f"({row['bound_by']}) bound_share={row['bound_ms'] / row['ms']:.3f} "
-                f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
+                f"{_f32(row)}library_ms={'null' if lib is None else f'{lib:.4f}'} "
                 f"bb_ms/ms={row['bb_over_kind']:.3f} "
                 f"equal={'tol' if row['test'] == 'edm' else 'bit'}"
             )
@@ -663,8 +715,10 @@ class LegacySmoke:
                 del buf
                 row["plain_ms"] = self.s.time_ms(lambda: self.plain(name, sched), runs=2,
                                                  warm=0)
-                row["bound_ms"], row["bound_by"] = self.s.bound(
-                    dict(test=LEGACY[name], m=2, n=n, kind=kind, steps=row["steps"]))
+                case = dict(test=LEGACY[name], m=2, n=n, kind=kind, steps=row["steps"])
+                row["bound_ms"], row["bound_by"] = self.s.bound(case)
+                if name == "edm2d":
+                    row["bound_f32_ms"] = self.s.bound(case, F32_FLOPS)[0]
             row["library_ms"] = lib[name]
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -675,7 +729,7 @@ class LegacySmoke:
                  f"rho={1 if row['name'] == 'map2d' else rho} kind={row['kind']} "
                  f"steps={row['steps']} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                  f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-                 f"bound_share={row['bound_ms'] / row['ms']:.3f} "
+                 f"bound_share={row['bound_ms'] / row['ms']:.3f} {_f32(row)}"
                  f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
                  f"bb_ms/ms={bb['ms'] / row['ms']:.3f} "
                  f"equal={'tol' if row['name'] == 'edm2d' else 'bit'}")
@@ -1055,15 +1109,16 @@ class FlashSmoke:
     # -- timing -----------------------------------------------------------
 
     @staticmethod
-    def bound(b, hq, hkv, s, d) -> tuple:
+    def bound(b, hq, hkv, s, d, flops_per_s: float = TF32X3_FLOPS) -> tuple:
         """``(bound_ms, bound_by)`` of one causal attention call: q, k, v
-        read once and the output written once, against float32
-        operations 4 * B * Hq * D * S(S+1)/2 (QK^T and PV, 2*D each per
-        visible (query, key) pair; the softmax's exp and sums are not
-        counted)."""
+        read once and the output written once, against the operations
+        4 * B * Hq * D * S(S+1)/2 (QK^T and PV, 2*D each per visible
+        (query, key) pair; the softmax's exp and sums are not counted) at
+        ``flops_per_s``: float32-accurate products on the tensor cores
+        (3xTF32) by default, ``F32_FLOPS`` on the CUDA cores."""
         nbytes = 4 * d * s * (2 * b * hq + 2 * b * hkv)
         flops = 4 * b * hq * d * s * (s + 1) // 2
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
         return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
     def timings(self) -> None:
@@ -1080,11 +1135,13 @@ class FlashSmoke:
                    - FL.plain("folded", 128, scale, q, k, v)).abs().max().item()
         _log(f"library scaled_dot_product_attention vs plain: max_abs_err={lib_err:.3e}")
         bound_ms, bound_by = self.bound(b, hq, hkv, s, d)
+        bound_f32_ms = self.bound(b, hq, hkv, s, d, F32_FLOPS)[0]
         for kind in ("folded", "bb"):
             ms = self.s.time_ms(lambda: FL.kernel(kind, 128, scale, q, k, v))
             plain = self.s.time_ms(lambda: FL.plain(kind, 128, scale, q, k, v), runs=3, warm=1)
             self.rows.append(dict(kind=kind, ms=ms, plain_ms=plain, library_ms=lib,
                                   bound_ms=bound_ms, bound_by=bound_by,
+                                  bound_f32_ms=bound_f32_ms,
                                   steps=b * hq * self.fa.flash_grid_steps(s // 128, kind)))
         bb = next(r for r in self.rows if r["kind"] == "bb")
         for row in self.rows:
@@ -1092,7 +1149,8 @@ class FlashSmoke:
                  f"block_q=128 steps={row['steps']} ms={row['ms']:.4f} "
                  f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
                  f"({row['bound_by']}) bound_share={row['bound_ms'] / row['ms']:.3f} "
-                 f"library_ms={row['library_ms']:.4f} bb_ms/ms={bb['ms'] / row['ms']:.3f} "
+                 f"{_f32(row)}library_ms={row['library_ms']:.4f} "
+                 f"bb_ms/ms={bb['ms'] / row['ms']:.3f} "
                  f"equal=tol")
         del q, k, v, kx, vx
         torch.cuda.empty_cache()
@@ -1245,6 +1303,7 @@ def main(argv=None) -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": f"m=2 n={head['n']} rho={head['rho']} kind=hmap",
+            **({"bound_f32_ms": head["bound_f32_ms"]} if name == "edm" else {}),
         })
     head = next(r for r in flash.rows if r["kind"] == "folded")
     b, hq, hkv, s, d = SERVE_SHAPE
@@ -1253,7 +1312,7 @@ def main(argv=None) -> int:
         "replaces": REPLACES["flash"], "launches": launches["flash"],
         "max_abs_err": flash.err, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
+        "library_ms": head["library_ms"], "bound_f32_ms": head["bound_f32_ms"],
         "shape": f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} block_q=128 kind=folded",
     })
     for name in LEGACY:
@@ -1266,6 +1325,7 @@ def main(argv=None) -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": (f"m=2 nb={LEGACY_MAP_NB} kind=hmap" if name == "map2d" else
                       f"m=2 n={LEGACY_N} rho={LEGACY_RHO} kind=hmap"),
+            **({"bound_f32_ms": head["bound_f32_ms"]} if name == "edm2d" else {}),
         })
     r = mxu.row
     kernels.append({

@@ -36,7 +36,7 @@ import torch
 
 from ..core.schedule import SimplexSchedule, resolve_kind
 from . import _build
-from .policy import card_operand, check_tile, on_card, resolve_device
+from .policy import SMEM_LIMIT, card_operand, check_tile, on_card, resolve_device
 
 __all__ = [
     "SimplexKernel",
@@ -424,7 +424,11 @@ class EDMBody(KernelBody):
     """EDM: sum of pairwise point distances per simplex cell.
 
     ``out[c] = sum_{a < b} ||p[c_a] - p[c_b]||`` over the cell's
-    coordinates, in float32; 0 off the domain (the zeros seed).
+    coordinates, in float32; 0 off the domain (the zeros seed).  The
+    kernel runs one warp per schedule step, not one block, and takes the
+    distances in the Gram form on the tensor cores (3xTF32 ``mma.sync``)
+    with the difference form below its cancellation guard; the plain
+    version keeps the difference form.
     """
 
     name = "edm"
@@ -475,10 +479,35 @@ class EDMBody(KernelBody):
         self.launches += 1
 
     @staticmethod
+    def _warp_floats(m: int, rho: int, ld: int) -> int:
+        f = m * rho * ld + (m * (m - 1) // 2 * rho * rho if m > 2 else 0)
+        return (f + 3) & ~3
+
+    @staticmethod
+    def row_stride(m: int, rho: int, d: int) -> int:
+        """Floats per staged point row in ``edm.cu``: the least ``ld >= d``
+        with ``ld % 8 == 4`` (conflict-free ``mma.sync`` fragment loads),
+        or ``d`` when that layout would not fit one warp's slice.
+
+        Example:
+            >>> EDMBody.row_stride(2, 16, 64), EDMBody.row_stride(3, 8, 5)
+            (68, 12)
+        """
+        ld = d + (12 - d % 8) % 8
+        return ld if 4 * EDMBody._warp_floats(m, rho, ld) <= SMEM_LIMIT else d
+
+    @staticmethod
     def smem_bytes(m: int, rho: int, d: int) -> int:
-        """Shared memory of one ``edm.cu`` block: point rows padded to
-        d+1 floats, then the pair distance matrices."""
-        return 4 * (m * rho * (d + 1) + m * (m - 1) // 2 * rho * rho)
+        """Shared memory of one warp of ``edm.cu``, the least a block
+        needs: its point rows at ``row_stride`` floats, then at m >= 3 the
+        pair distance matrices, rounded up to 16 bytes.  A block holds as
+        many such slices (up to 4 warps) as fit.
+
+        Example:
+            >>> EDMBody.smem_bytes(2, 16, 64)
+            8704
+        """
+        return 4 * EDMBody._warp_floats(m, rho, EDMBody.row_stride(m, rho, d))
 
     def launch(self, kernel: "SimplexKernel", p, device: torch.device):
         """The ``(n,)*m`` distance field of points ``p`` on ``device``."""

@@ -18,7 +18,8 @@ Two versions of the forward compute the same function:
 
 * the CUDA kernel ``kernels/csrc/flash_attention.cu`` for CUDA tensors,
   one thread block per ``(b*Hq, pair)`` (folded) or ``(b*Hq, q tile)``
-  (bb) that walks its tile steps in order;
+  (bb) that walks its tile steps in order, its products on the tensor
+  cores to float32 accuracy (3xTF32 ``mma.sync``);
 * a plain PyTorch version that walks the same schedule over one batch of
   ``b*Hq`` slabs with the same running max, denominator, resets and
   flushes, for CPU tensors and as the kernel's reference on the card.
@@ -133,16 +134,19 @@ def _bias_index(bias_shape, b: int, hq: int):
 
 
 def flash_smem_bytes(block_q: int, d: int) -> int:
-    """Shared memory of one ``flash_attention.cu`` block: Q^T padded to
-    ``block_q+4`` columns, one K^T sub-chunk padded to ``bc+4``, one V
-    sub-chunk and the P sub-tile, ``bc = min(32, block_q)`` keys each.
+    """Shared memory of one ``flash_attention.cu`` block: the scaled Q
+    rows of its warps (16 each, so ``max(block_q, 16)``) padded to
+    ``d+4`` floats, then two K sub-chunks padded to ``d+4`` and two V
+    sub-chunks padded to ``d+8`` (the ``cp.async`` double buffer),
+    ``bc = min(16, block_q)`` keys each.  At the serve shape two blocks
+    fit an SM.
 
     Example:
         >>> flash_smem_bytes(128, 128)
-        118784
+        101888
     """
-    bc = min(32, block_q)
-    return 4 * (d * (block_q + 4) + d * (bc + 4) + bc * d + bc * block_q)
+    bc = min(16, block_q)
+    return 4 * (max(block_q, 16) * (d + 4) + 2 * bc * (d + 4) + 2 * bc * (d + 8))
 
 
 def kernel_fits(block_q: int, d: int) -> bool:

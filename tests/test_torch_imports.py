@@ -41,7 +41,8 @@ def test_port_has_modules():
                  "repro_torch/kernels/hmap_mxu.py"):
         assert want in names
     for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh",
-               "flash_attention.cu", "legacy2d.cu", "legacy_md.cu", "hmap_mxu.cu"):
+               "flash_attention.cu", "legacy2d.cu", "legacy_md.cu", "hmap_mxu.cu",
+               "mma_tf32.cuh"):
         assert (REPO / "src/repro_torch/kernels/csrc" / cu).is_file()
 
 
