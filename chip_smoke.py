@@ -6,25 +6,26 @@ The first main path is the paper's own: a schedule kind's map walks an
 m-simplex domain and a kernel does one tile of work per step.  The
 second is serving: ``repro_torch.launch.serve`` prefills a batch of
 prompts through full-width yi-6b, whose attention runs the
-folded-simplex flash kernel, and decodes greedily.  The frozen
-originals of ``kernels/legacy.py`` check the engine independently, and
-the paper's §7.1 tensor-core map turns grid coordinates into element
-origins.  This script
+folded-simplex flash kernel, and decodes greedily; the same model at its
+config's own bfloat16 activations prefills through the 16-bit flash
+route.  The frozen originals of ``kernels/legacy.py`` check the engine
+independently, and the paper's §7.1 tensor-core map turns grid
+coordinates into element origins.  This script
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together, then one link) and logs
-   what ptxas reports per kernel (registers, stack, spills, shared
-   memory);
+   each source's compile time and what ptxas reports per kernel
+   (registers, stack, spills, shared memory);
 3. sets every launch counter to 0, drives the public entry points of
    ``repro_torch.kernels.ops`` (MAP, ACCUM, EDM, CA at m=2 and m=3, plus
-   ACCUM and MAP at m=4; ACCUM and EDM also with ``split=True``, one
-   launch per composite piece) at the paper's sizes, and holds each output
-   against the body's plain version on the same card: integers bit-equal,
-   EDM within ``|k - p| <= 1e-5 + 1e-5 * max|p|`` (float32 sums run in
-   another order on the card, the kernel takes the Gram form on the
-   tensor cores, and ``sqrtf`` rounds there), also on points with exact
-   and near duplicates at m=2 and m=3, where the Gram form cancels;
+   ACCUM, EDM and MAP at m=4; ACCUM and EDM also with ``split=True``,
+   one launch per composite piece) at the paper's sizes, and holds each
+   output against the body's plain version on the same card: integers
+   bit-equal, EDM within ``|k - p| <= 1e-5 + 1e-5 * max|p|`` (float32
+   sums run in another order on the card, the kernel takes the Gram form
+   on the tensor cores, and ``sqrtf`` rounds there), also on points with
+   exact and near duplicates at m=2 and m=3, where the Gram form cancels;
 4. reads the counters, which must be > 0 for every kernel;
 5. legacy 2-D: sets every counter to 0 again and drives the frozen 2-D
    originals of ``repro_torch.kernels.legacy`` (``map2d``, ``accum2d``,
@@ -54,18 +55,44 @@ origins.  This script
    version and against ``rho * hmap2(wx, wy)`` in int64, and a case with
    outputs above 2^24 (where float32 rounds) against int64 arithmetic;
    reads the counter and times the kernel and its plain version;
-8. serves full-width yi-6b (32 layers, d_model 4096, float32 weights
+8. dtypes: sets every counter to 0 and drives ACCUM (int8, uint8, int16,
+   bfloat16, float16, with values at each type's edge: integers wrap,
+   16-bit floats round), CA (int8, uint8, int16, int64, bfloat16,
+   float16, float32 0/1 states) and EDM (float16, bfloat16, float64
+   points) through the engine's entry points at m=2 (n = 1024) and m=3
+   (n = 64) and through the originals (``accum_md`` at m=4), ACCUM and
+   CA bit-equal to their plain versions, EDM within step 3's gate plus
+   one ulp of a 16-bit output; a dtype no kernel takes must raise
+   ``ValueError``;
+9. the flash tile sweep: sets every counter to 0 and runs every
+   ``(block_q, D)`` the kernels are built for (5 x 4) in float32,
+   bfloat16 and float16 through ``flash_attention`` at small S, both
+   kinds, odd and even tile counts, some with a bias or segment ids;
+   float32 within ``2e-5 + 2e-5 * max|p|`` of the plain version, 16-bit
+   within one ulp of its type plus ``2^-15 * max|v|``; each kernel
+   (``flash``, ``flash16``, ``flash_wgmma``) launched once per case of
+   its route;
+10. serves full-width yi-6b (32 layers, d_model 4096, float32 weights
    from ``--seed``; batch 4, prompt 2048, 16 greedy tokens) with every
-   counter at 0, and checks that prefill launched the flash kernel once
-   per layer;
-9. prefills the same prompts again with ``attention_impl="chunked"``
+   counter at 0, and checks that prefill launched ``flash_wgmma`` once
+   per layer and no other flash kernel;
+11. prefills the same prompts again with ``attention_impl="chunked"``
    (the reference's own executor knob) and holds the last-token logits
    of the two within ``rtol 2e-3, atol 2e-4``;
-10. holds the flash kernel against its plain version on the card, within
-   ``|k - p| <= 2e-5 + 2e-5 * max|p|``, at the serve shape (folded and
+12. frees that model, builds yi-6b at its config's own dtypes (bfloat16
+   activations, float32 weights from ``--seed``), prefills batch 4,
+   prompt 2048 with every counter at 0, checks that it launched
+   ``flash16`` once per layer, and holds its last-token logits against
+   the same model's chunked prefill within ``LOGIT16_TOL * max|logit|``
+   with every row's argmax equal, then prefills it twice more with a
+   wrong attention in the kernel's place (a mask one key too wide, which
+   must fail that gate, and P rounded once to bfloat16, reported);
+13. holds the flash kernels against their plain version on the card at
+   the serve shape (float32 folded and bb, bfloat16 and float16
+   folded), at a 2080-token prompt with 32-row tiles (float32 folded and
    bb), an odd tile count, ``Hkv == Hq``, a broadcast bias and segment
    ids, and against ``_reference_attention`` on a small case;
-11. times each engine kernel (median of CUDA-event-timed runs after
+14. times each engine kernel (median of CUDA-event-timed runs after
    warm-up), its plain version and, where one PyTorch call computes the
    same function, that call (``library_ms``, a yardstick the port never
    calls), and prints one line per (test, m, kind) with grid steps, the
@@ -74,10 +101,14 @@ origins.  This script
    flash) at the 3xTF32 tensor-core rate of 495/3 TFLOP/s, beside which
    their lines keep the float32 CUDA-core bound (``bound_f32_ms``,
    67 TFLOP/s);
-12. times the flash kernel (folded and bb), its plain version and
-    ``scaled_dot_product_attention`` at the serve shape;
-13. checks a small input against the dense oracles of ``kernels/ref.py``;
-14. prints the ``kernels`` JSON line, then the result line.
+15. times each flash kernel, its plain version and
+    ``scaled_dot_product_attention`` in the same dtype: ``flash_wgmma``
+    (folded and bb) at the serve shape, ``flash16`` in bfloat16 at the
+    serve shape (bound at the bf16 rate, 989 TFLOP/s), ``flash`` at a
+    2080-token prompt (32-row tiles); each timed output is held against
+    the plain version's on the same inputs (``equal=`` on its line);
+16. checks a small input against the dense oracles of ``kernels/ref.py``;
+17. prints the ``kernels`` JSON line, then the result line.
 
 Any mismatch, build failure or launch error exits non-zero without the
 result line.  Run from the repository root::
@@ -103,6 +134,7 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
 # Float32-accurate products on the tensor cores: 3xTF32, three TF32 MMAs
 # per product at the published dense 495 TFLOP/s.
 TF32X3_FLOPS = 495e12 / 3
+BF16_FLOPS = 989e12  # H100 SXM dense bf16/fp16 tensor cores, published
 EDM_D = 64
 TIMED_RUNS = 10
 
@@ -113,6 +145,8 @@ REPLACES = {
     "edm": "src/repro/kernels/engine.py:503",
     "ca": "src/repro/kernels/engine.py:503",
     "flash": "src/repro/kernels/flash_attention.py:296",
+    "flash16": "src/repro/kernels/flash_attention.py:296",
+    "flash_wgmma": "src/repro/kernels/flash_attention.py:296",
     "map2d": "src/repro/kernels/legacy.py:82",
     "accum2d": "src/repro/kernels/legacy.py:118",
     "edm2d": "src/repro/kernels/legacy.py:167",
@@ -124,6 +158,8 @@ REPLACES = {
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in SIMPLEX}
 SOURCES["flash"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCES["flash16"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCES["flash_wgmma"] = "src/repro_torch/kernels/csrc/flash_wgmma.cu"
 SOURCES["hmap_mxu"] = "src/repro_torch/kernels/csrc/hmap_mxu.cu"
 
 # The frozen 2-D originals: each legacy kernel and the engine body it is
@@ -153,6 +189,25 @@ SERVE_ARGV = ["--arch", "yi-6b", "--batch", "4", "--prompt-len", "2048", "--gen"
               "--temperature", "0"]
 SERVE_SHAPE = (4, 32, 4, 2048, 128)  # (B, Hq, Hkv, S, D) of one attention call
 LOGIT_TOL = dict(rtol=2e-3, atol=2e-4)
+# The 16-bit prefill: yi-6b at its config's own dtypes (bfloat16
+# activations, float32 weights), the serve batch and prompt.  Its
+# last-token logits are held against the same model's chunked prefill
+# within LOGIT16_TOL * max|logit|: the chunked executor (the reference's
+# own) computes its scores as bfloat16 products rounded to bfloat16
+# (2^-9 relative), which moves a probability by up to |score| * 2^-9, about
+# 1 % at the scores' scale here, and the difference compounds over 32
+# layers; the flash kernel keeps the scores and P float32-accurate.  The
+# argmax of every row must agree too.  Two wrong attentions put in the
+# kernel's place show what the gate sees: a mask that lets each query see
+# the key after it must fail it, and P rounded once to bfloat16 (what the
+# chunked executor itself does) is only reported, since the reference
+# rounds the same way; the kernel-level gate of ``FlashSmoke.compare``
+# holds P.
+PREFILL16_BATCH, PREFILL16_LEN = 4, 2048
+LOGIT16_TOL = 0.05
+# A prompt length the tuner maps with 32-row tiles (2080 = 65 * 32): the
+# float32 mma.sync kernel's shape on the prefill path, checked and timed.
+SMALL_TILE_S = 2080
 
 # (m, n, rho, kinds) per domain test; each composite side gets its own bb.
 DOMAIN_CASES = {
@@ -169,7 +224,7 @@ MAP_CASES = {
 # EDM on points with exact and near duplicates: (m, n, rho, kind).
 EDM_DUPLICATE_CASES = ((2, 16384, 16, "hmap"), (3, 1024, 8, "octant"))
 # (test, m) whose composite cases also run split=True: one launch per piece.
-SPLIT = {("accum", 3), ("edm", 3), ("accum", 4)}
+SPLIT = {("accum", 3), ("edm", 3), ("accum", 4), ("edm", 4)}
 CA_DENSITY = {2: 0.4, 3: 0.35}
 
 
@@ -188,7 +243,7 @@ def ptxas_summary(log: str, cufilt: pathlib.Path) -> list:
     info: dict = {}
     for line in log.splitlines():
         if line.startswith("== "):
-            src = line[3:].strip()
+            src = line[3:].split()[0]
         elif "Compiling entry function" in line:
             name, info, props = line.split("'")[1], {}, None
         elif "Function properties for" in line:
@@ -305,8 +360,8 @@ class Smoke:
         for m, cases in DOMAIN_CASES.items():
             for n, rho, kinds in cases:
                 self._accum_cases(m, n, rho, kinds)
+                self._edm_cases(m, n, rho, kinds)
                 if m <= 3:
-                    self._edm_cases(m, n, rho, kinds)
                     self._ca_cases(m, n, rho, kinds)
                 torch.cuda.empty_cache()
         self._edm_duplicates()
@@ -979,16 +1034,182 @@ class MxuSmoke:
              f"bound_share={r['bound_ms'] / r['ms']:.3f} library_ms=null equal=bit")
 
 
+# The element types each simplex family takes on the card besides the
+# ones the other phases run (ACCUM int32, int64, float32 and float64; CA
+# int32; EDM float32).
+DTYPE_ACCUM = ("int8", "uint8", "int16", "bfloat16", "float16")
+DTYPE_CA = ("int8", "uint8", "int16", "int64", "bfloat16", "float16", "float32")
+DTYPE_EDM = ("float16", "bfloat16", "float64")
+# Values where +1 leaves the easy range: integers at their top (they
+# wrap), bfloat16 around 256 and float16 around 2048 (the sum rounds).
+DTYPE_EDGES = {"int8": (127, 126, -128), "uint8": (255, 254, 0), "int16": (32767, 32766, -1),
+               "bfloat16": (255, 256, 258), "float16": (2047, 2048, 2050)}
+# (m, n, rho, kind) of the engine's dtype cases; the originals run at the
+# same sides (accum_md at m=4).
+DTYPE_ENGINE = ((2, 1024, 16, "hmap"), (3, 64, 4, "octant"))
+
+
+def ulp16(torch, t, dtype):
+    """The spacing of a 16-bit float type at |t| (its subnormal spacing
+    below the normal range), as a float32 tensor."""
+    bits, emin = (7, -126) if dtype == torch.bfloat16 else (10, -14)
+    _, e = torch.frexp(t.to(torch.float32).abs())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), (e - 1).clamp(min=emin) - bits)
+
+
+class DtypeSmoke:
+    """The simplex kernels at the element types the reference takes:
+    ACCUM in int8, uint8, int16, bfloat16 and float16, CA in int8, uint8,
+    int16, int64, bfloat16, float16 and float32, EDM storing float16,
+    bfloat16 and float64, each through the engine's entry points and the
+    originals', held against the plain version on the same input.
+
+    ACCUM and CA are bit-equal.  EDM stores float64 within the existing
+    gate ``1e-5 + 1e-5 * max|p|``; a 16-bit EDM output may also differ by
+    one ulp of its type where the float32 distance (Gram form on the card,
+    difference form in the plain version) lies within that gate of a
+    16-bit rounding boundary.  A dtype no kernel takes (flash attention's
+    too) must raise ``ValueError`` before any launch.
+
+    Shares the simplex ``Smoke``'s generators and failure list.
+    """
+
+    def __init__(self, smoke: Smoke, legacy, fa):
+        self.s, self.legacy, self.fa = smoke, legacy, fa
+        self.torch = smoke.torch
+        self.cases = 0
+
+    def data(self, shape, dtype, salt, kind):
+        """An integer-valued input (``kind='accum'``, edges included) or a
+        0/1 state (``'ca'``) of ``dtype`` on the card."""
+        torch, dev = self.torch, self.s.dev
+        if kind == "ca":
+            return (torch.rand(shape, generator=self.s.gen(salt), device=dev) < 0.4).to(dtype)
+        x = torch.randint(0, 100, shape, generator=self.s.gen(salt), device=dev,
+                          dtype=torch.int64)
+        edges = torch.tensor(DTYPE_EDGES[str(dtype).split(".")[-1]], device=dev)
+        flat = x.view(-1)
+        flat[::3] = edges[torch.arange(flat[::3].numel(), device=dev) % len(edges)]
+        return x.to(dtype)
+
+    def equal(self, what, got, want) -> None:
+        """ACCUM and CA: the kernel's output bit-equal to the plain one."""
+        self.cases += 1
+        if got.dtype != want.dtype or not self.torch.equal(got, want):
+            self.s.fail(f"dtype {what}")
+
+    def path(self) -> None:
+        """Every new dtype of every family through its entry points."""
+        torch, ops, E, L = self.torch, self.s.ops, self.s.engine, self.legacy
+        for name in DTYPE_ACCUM:
+            dt = getattr(torch, name)
+            for m, n, rho, kind in DTYPE_ENGINE:
+                x = self.data((n,) * m, dt, 100 + m, "accum")
+                fn = ops.simplex_accum2d if m == 2 else ops.simplex_accum3d
+                want = x.clone()
+                E.get_body("accum").plain_(want, E.schedule_for(m, n // rho, kind), rho)
+                self.equal(f"accum {name} m={m}", fn(x, rho=rho, kind=kind), want)
+                old = L.accum2d if m == 2 else L.accum3d
+                sched = L._schedule(m, n // rho, "hmap")
+                want = x.clone()
+                (L.ACCUM2D if m == 2 else L.ACCUM3D).plain_(want, sched, rho)
+                self.equal(f"legacy accum {name} m={m}", old(x, rho=rho), want)
+            x = self.data((16,) * 4, dt, 104, "accum")
+            want = x.clone()
+            L.ACCUM_MD.plain_(want, L._schedule(4, 8, "hmap"), 2)
+            self.equal(f"legacy accum_md {name} m=4", L.accum_md(x, rho=2), want)
+        for name in DTYPE_CA:
+            dt = getattr(torch, name)
+            for m, n, rho, kind in DTYPE_ENGINE:
+                st = self.data((n,) * m, dt, 110 + m, "ca")
+                fn = ops.simplex_ca2d if m == 2 else ops.simplex_ca3d
+                want = st.clone()
+                E.get_body("ca").plain_(want, st, E.schedule_for(m, n // rho, kind), rho)
+                self.equal(f"ca {name} m={m}", fn(st, rho=rho, kind=kind), want)
+                sched = L._schedule(m, n // rho, "hmap")
+                want = st.clone()
+                (L.CA2D if m == 2 else L.CA3D).plain_(want, st, sched, rho)
+                self.equal(f"legacy ca {name} m={m}", (L.ca2d if m == 2 else L.ca3d)(st, rho=rho),
+                           want)
+        for name in DTYPE_EDM:
+            dt = getattr(torch, name)
+            for m, n, rho, kind in DTYPE_ENGINE:
+                p = torch.randn((n, EDM_D), generator=self.s.gen(120 + m), device=self.s.dev)
+                p = p.to(dt)
+                got = (ops.simplex_edm2d(p, rho=rho, kind=kind) if m == 2 else
+                       ops.simplex_edm_md(p, m, rho=rho, kind=kind))
+                want = torch.zeros_like(got)
+                E.get_body("edm").plain_(want, p, E.schedule_for(m, n // rho, kind), rho)
+                self.edm(f"edm {name} m={m}", got, want)
+                if m == 2:
+                    old = L.edm2d(p, rho=rho)
+                    want = torch.zeros_like(old)
+                    L.EDM2D.plain_(want, p, L._schedule(2, n // rho, "hmap"), rho)
+                    self.edm(f"legacy edm2d {name}", old, want)
+        self.refusals()
+        torch.cuda.synchronize()
+        _log(f"dtype check: {self.cases} cases, ACCUM {DTYPE_ACCUM}, CA {DTYPE_CA}, "
+             f"EDM {DTYPE_EDM}")
+
+    def edm(self, what, got, want) -> None:
+        """EDM within ``1e-5 + 1e-5 * max|p|``, plus one ulp of a 16-bit
+        output."""
+        torch = self.torch
+        self.cases += 1
+        if got.dtype != want.dtype:
+            self.s.fail(f"dtype {what}: {got.dtype}, plain {want.dtype}")
+            return
+        g, w = got.to(torch.float64), want.to(torch.float64)
+        tol = 1e-5 + 1e-5 * w.abs().max().item()
+        if got.dtype in (torch.float16, torch.bfloat16):
+            tol = tol + ulp16(torch, torch.maximum(g.abs(), w.abs()), got.dtype).double()
+        err = (g - w).abs()
+        ok = bool(torch.isfinite(err).all()) and bool((err <= tol).all())
+        _log(f"dtype check {what}: max_abs_err={err.max().item():.3e} gate "
+             f"1e-5 + 1e-5*max|p|{' + 1 ulp' if got.dtype != torch.float64 else ''} ok={ok}")
+        if not ok:
+            self.s.fail(f"dtype {what}: max_abs_err={err.max().item()}")
+
+    def refusals(self) -> None:
+        """Each family refuses a dtype it does not take, before a launch."""
+        torch, ops, L = self.torch, self.s.ops, self.legacy
+        dev = self.s.dev
+        cases = (
+            ("accum bool", lambda: ops.simplex_accum2d(
+                torch.zeros((64, 64), dtype=torch.bool, device=dev), rho=16)),
+            ("ca float64", lambda: ops.simplex_ca2d(
+                torch.zeros((64, 64), dtype=torch.float64, device=dev), rho=16)),
+            ("edm int32", lambda: ops.simplex_edm2d(
+                torch.zeros((64, 8), dtype=torch.int32, device=dev), rho=16)),
+            ("legacy ca3d float64", lambda: L.ca3d(
+                torch.zeros((16,) * 3, dtype=torch.float64, device=dev), rho=4)),
+            ("legacy accum2d bool", lambda: L.accum2d(
+                torch.zeros((64, 64), dtype=torch.bool, device=dev), rho=16)),
+            ("legacy edm2d int32", lambda: L.edm2d(
+                torch.zeros((64, 8), dtype=torch.int32, device=dev), rho=16)),
+            ("flash float64", lambda: self.fa.flash_attention(
+                *(torch.zeros((1, 2, 128, 64), dtype=torch.float64, device=dev),) * 3,
+                block_q=64, block_kv=64)),
+        )
+        for what, fn in cases:
+            try:
+                fn()
+            except ValueError:
+                continue
+            self.s.fail(f"dtype {what}: no ValueError")
+
+
 class FlashSmoke:
     """The serving path and the flash kernel's checks and timings.
 
     Shares the simplex ``Smoke``'s generators, timer and failure list.
     """
 
-    def __init__(self, smoke: Smoke, fa, serve):
+    def __init__(self, smoke: Smoke, fa, serve, configs, model_cls):
         self.s, self.fa, self.serve = smoke, fa, serve
+        self.configs, self.model_cls = configs, model_cls
         self.torch = smoke.torch
-        self.err = 0.0
+        self.err = dict.fromkeys(fa.ROUTES, 0.0)
         self.rows: list = []
         self.stats: dict = {}
 
@@ -1025,7 +1246,7 @@ class FlashSmoke:
         must agree with the flash path's."""
         torch = self.torch
         model = r.model
-        before = self.fa.FLASH.launches
+        before = dict(self.fa.FLASH.launches)
         model.cfg = model.cfg.replace(attention_impl="chunked")
         try:
             t0 = time.perf_counter()
@@ -1035,7 +1256,7 @@ class FlashSmoke:
         finally:
             model.cfg = model.cfg.replace(attention_impl="auto")
         if self.fa.FLASH.launches != before:
-            self.s.fail("hold: the chunked prefill launched the flash kernel")
+            self.s.fail("hold: the chunked prefill launched a flash kernel")
         flash = r.prefill_logits
         err = (flash - chunked).abs().max().item()
         self.stats["logit_err"] = err
@@ -1065,14 +1286,34 @@ class FlashSmoke:
         seg[-1, (2 * s) // 3 + 5:] = 2
         return seg
 
-    def compare(self, what, got, want) -> None:
-        """Hold ``got`` within ``2e-5 + 2e-5 * max|want|`` of ``want``."""
-        err = (got - want).abs().max().item()
-        self.err = max(self.err, err)
-        tol = 2e-5 + 2e-5 * want.abs().max().item()
-        _log(f"flash check {what}: max_abs_err={err:.3e} tol={tol:.3e}")
-        if not math.isfinite(err) or err > tol:
-            self.s.fail(f"flash {what}: max_abs_err={err} > {tol}")
+    def compare(self, what, route, got, want, v) -> bool:
+        """Hold a float32 ``got`` within ``2e-5 + 2e-5 * max|want|`` of
+        ``want``; a 16-bit one within one ulp of its type (of the larger
+        of the two values) plus ``2^-15 * max|v|``: both sides compute
+        float32 values that differ by the order of float32 sums and, in
+        the kernel, by P's two-part split, then round once
+        (tests/test_torch_flash16.py derives it).  Returns whether it held."""
+        torch = self.torch
+        if got.dtype != want.dtype:
+            self.s.fail(f"flash {what}: {got.dtype} against {want.dtype}")
+            return False
+        g, w = got.to(torch.float32), want.to(torch.float32)
+        diff = (g - w).abs()
+        err = diff.max().item()
+        if got.dtype == torch.float32:
+            tol = 2e-5 + 2e-5 * w.abs().max().item()
+            ok = math.isfinite(err) and err <= tol
+            gate = f"tol={tol:.3e}"
+        else:
+            one = ulp16(torch, torch.maximum(g.abs(), w.abs()), got.dtype)
+            extra = 2.0**-15 * v.abs().max().item()
+            ok = bool(torch.isfinite(diff).all()) and bool((diff <= one + extra).all())
+            gate = f"max_ulps={(diff / one).max().item():.2f} gate 1 ulp + {extra:.2e}"
+        self.err[route] = max(self.err[route], err)
+        _log(f"flash check {route} {what}: max_abs_err={err:.3e} {gate} ok={ok}")
+        if not ok:
+            self.s.fail(f"flash {route} {what}: max_abs_err={err}")
+        return ok
 
     def kernel_cases(self) -> None:
         """Every case through the kernel and its plain version."""
@@ -1080,6 +1321,7 @@ class FlashSmoke:
         b, hq, hkv, s, d = SERVE_SHAPE
         cases = [  # (what, (b, hq, hkv, s, d), block_q, kinds, bias lead dims, segments)
             ("serve shape", (b, hq, hkv, s, d), 128, ("folded", "bb"), None, False),
+            ("32-row tiles", (b, hq, hkv, SMALL_TILE_S, d), 32, ("folded", "bb"), None, False),
             ("odd nq=15", (1, hq, hkv, 1920, d), 128, ("folded", "bb"), None, False),
             ("Hkv == Hq", (1, hq, hq, 1024, d), 128, ("folded",), None, False),
             ("bias (1,Hq)", (2, 8, 2, 512, d), 128, ("folded", "bb"), (1, 8), False),
@@ -1095,65 +1337,249 @@ class FlashSmoke:
                 scale = shape[4] ** -0.5
                 got = FL.kernel(kind, bq, scale, q, k, v, bias, seg)
                 torch.cuda.synchronize()
-                self.compare(f"{what} {kind} shape={shape} block_q={bq}", got,
-                             FL.plain(kind, bq, scale, q, k, v, bias, seg))
+                self.compare(f"{what} {kind} shape={shape} block_q={bq}",
+                             self.fa.flash_route(bq, q.dtype), got,
+                             FL.plain(kind, bq, scale, q, k, v, bias, seg), v)
             del q, k, v, bias, seg
+        for dtype in (torch.bfloat16, torch.float16):  # the 16-bit route at the serve shape
+            q, k, v = (t.to(dtype) for t in self.qkv(b, hq, hkv, s, d, salt=46))
+            got = FL.kernel("folded", 128, d**-0.5, q, k, v)
+            torch.cuda.synchronize()
+            self.compare(f"serve shape {str(dtype)[6:]} folded shape={SERVE_SHAPE} block_q=128",
+                         "flash16", got, FL.plain("folded", 128, d**-0.5, q, k, v), v)
+            del q, k, v
         q, k, v = self.qkv(1, 4, 2, 256, 64, salt=70)
         bias = torch.randn((1, 4, 256, 256), generator=self.s.gen(71), device=self.s.dev)
         seg = self.segments(1, 256)
         got = FL.kernel("folded", 64, 0.125, q, k, v, bias, seg)
-        self.compare("folded vs _reference_attention shape=(1, 4, 2, 256, 64)", got,
-                     self.fa._reference_attention(q, k, v, bias, seg, 0.125))
+        self.compare("folded vs _reference_attention shape=(1, 4, 2, 256, 64)", "flash_wgmma",
+                     got, self.fa._reference_attention(q, k, v, bias, seg, 0.125), v)
         torch.cuda.empty_cache()
+
+    def tile_sweep(self) -> dict:
+        """Every tile the kernels are built for, at small S: each
+        ``(block_q, D)`` of ``KERNEL_BLOCKS x KERNEL_HEAD_DIMS`` in
+        float32, bfloat16 and float16 through ``flash_attention``, odd and
+        even tile counts, both kinds, a bias on every fourth case and
+        segment ids on every fourth (``block_q = 8`` has its own padded
+        rows), each held against the plain version.
+
+        Returns:
+            The launches each route should have made.
+        """
+        torch, fa = self.torch, self.fa
+        want_launches = dict.fromkeys(fa.ROUTES, 0)
+        i = 0
+        for name in ("float32", "bfloat16", "float16"):
+            dtype = getattr(torch, name)
+            for bq in fa.KERNEL_BLOCKS:
+                for d in fa.KERNEL_HEAD_DIMS:
+                    i += 1
+                    s = (3 if i % 2 else 4) * bq
+                    kind = "bb" if i % 3 == 0 else "folded"
+                    q, k, v = (t.to(dtype) for t in self.qkv(1, 4, 2, s, d, salt=200 + i))
+                    bias = (torch.randn((1, 4, s, s), generator=self.s.gen(400 + i),
+                                        device=self.s.dev) if i % 4 == 1 else None)
+                    seg = self.segments(1, s) if i % 4 == 2 else None
+                    got = fa.flash_attention(q, k, v, bias=bias, segment_ids=seg, kind=kind,
+                                             block_q=bq, block_kv=bq)
+                    route = fa.flash_route(bq, dtype)
+                    want_launches[route] += 1
+                    self.compare(f"sweep {name} block_q={bq} D={d} S={s} {kind} "
+                                 f"bias={bias is not None} segments={seg is not None}", route,
+                                 got, fa.FLASH.plain(kind, bq, d**-0.5, q, k, v, bias, seg), v)
+        torch.cuda.synchronize()
+        _log(f"flash sweep: {i} cases, launches wanted {want_launches}")
+        return want_launches
+
+    def prefill16(self):
+        """Full-width yi-6b at its config's own dtypes (bfloat16
+        activations, float32 weights from ``--seed``): one prefill of the
+        serve batch.  Returns ``(model, prompts, last-token logits)``."""
+        torch = self.torch
+        cfg = self.configs.config("yi-6b")
+        gen = torch.Generator(device=self.s.dev).manual_seed(self.s.seed)
+        model = self.model_cls(cfg, device=self.s.dev).init(gen)
+        prompts = torch.randint(0, cfg.vocab, (PREFILL16_BATCH, PREFILL16_LEN), generator=gen,
+                                device=self.s.dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+        self.stats["prefill16_s"] = time.perf_counter() - t0
+        self.stats["peak16_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        _log(f"prefill16 {cfg.name}: act_dtype {cfg.act_dtype} param_dtype "
+             f"{cfg.param_dtype}, batch {PREFILL16_BATCH}, prompt {PREFILL16_LEN}: "
+             f"prefill_s={self.stats['prefill16_s']:.4f} "
+             f"peak_gib={self.stats['peak16_gib']:.3f} logits {tuple(logits.shape)} "
+             f"{logits.dtype}")
+        if (logits.dtype != torch.bfloat16 or tuple(logits.shape) != (PREFILL16_BATCH, 1, cfg.vocab)
+                or not torch.isfinite(logits).all()):
+            self.s.fail(f"prefill16: logits {tuple(logits.shape)} {logits.dtype} not finite "
+                        "or misshapen")
+        return model, prompts, logits
+
+    def hold16(self, model, prompts, logits) -> None:
+        """The same 16-bit prefill with the chunked executor; last-token
+        logits within ``LOGIT16_TOL * max|logit|`` with every row's argmax
+        equal (see its note), then the gate's two controls."""
+        torch = self.torch
+        before = dict(self.fa.FLASH.launches)
+        model.cfg = model.cfg.replace(attention_impl="chunked")
+        try:
+            t0 = time.perf_counter()
+            chunked, _ = model.prefill({"tokens": prompts})
+            torch.cuda.synchronize()
+            self.stats["chunked16_s"] = time.perf_counter() - t0
+        finally:
+            model.cfg = model.cfg.replace(attention_impl="auto")
+        if self.fa.FLASH.launches != before:
+            self.s.fail("hold16: the chunked prefill launched a flash kernel")
+        ref = chunked.float()
+        scale = ref.abs().max().item()
+        top2 = ref.topk(2, dim=-1).values
+        gap = (top2[..., 0] - top2[..., 1]).min().item()
+        ok, err, agree = self.gate16(logits, ref, scale)
+        self.stats["logit16_err"] = err
+        self.stats["logit16_rel"] = err / scale
+        _log(f"hold16 flash16 vs chunked prefill: max_abs_err={err:.3e} max|logit|={scale:.3f} "
+             f"rel={err / scale:.3e} gate {LOGIT16_TOL} * max|logit| and argmax_agree == 1 "
+             f"chunked_prefill_s={self.stats['chunked16_s']:.4f} argmax_agree={agree:.3f} "
+             f"min_top2_gap={gap:.3e} ok={ok}")
+        if not ok:
+            self.s.fail(f"hold16: flash16 and chunked logits differ by {err} (max|logit| {scale}),"
+                        f" argmax agreeing on {agree}")
+        from repro_torch.models import attention as attn
+        real = attn.flash_attention
+        for name, round_p, see_next in (("mask sees next key", False, True),
+                                        ("P rounded once", True, False)):
+            calls = []
+            attn.flash_attention = self.wrong16(round_p, see_next, calls)
+            try:
+                wrong, _ = model.prefill({"tokens": prompts})
+                torch.cuda.synchronize()
+            finally:
+                attn.flash_attention = real
+            held, werr, wagree = self.gate16(wrong, ref, scale)
+            self.stats[f"control16 {name}"] = werr / scale
+            _log(f"control16 {name}: max_abs_err={werr:.3e} rel={werr / scale:.3e} "
+                 f"argmax_agree={wagree:.3f} calls={len(calls)} passes_gate={held}")
+            if len(calls) != model.cfg.n_layers:
+                self.s.fail(f"control16 {name}: the wrong attention ran {len(calls)} times")
+            if see_next and held:
+                self.s.fail(f"control16 {name}: the 16-bit logit gate does not see it")
+        if self.fa.FLASH.launches != before:
+            self.s.fail("hold16: a control prefill launched a flash kernel")
+
+    @staticmethod
+    def gate16(got, ref, scale) -> tuple:
+        """``(held, max_abs_err, argmax agreement)`` of 16-bit logits
+        ``got`` against the float32 view of the chunked ones."""
+        g = got.float()
+        err = (g - ref).abs().max().item()
+        agree = (g.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        return math.isfinite(err) and err <= LOGIT16_TOL * scale and agree == 1.0, err, agree
+
+    def wrong16(self, round_p: bool, see_next: bool, calls: list):
+        """A wrong attention with ``flash_attention``'s signature for the
+        16-bit gate's controls: dense causal attention from q's dtype in
+        float32, with P rounded once to q's dtype before P V
+        (``round_p``) or each query also seeing the key after it
+        (``see_next``).  Appends to ``calls`` at each call."""
+        torch = self.torch
+
+        def attend(q, k, v, *, kind=None, block_q=None, block_kv=None, scale=None,
+                   device=None):
+            calls.append(kind)
+            b, hq, s, d = q.shape
+            g = hq // k.shape[1]
+            scale = d**-0.5 if scale is None else scale
+            keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril(int(see_next))
+            out = torch.empty_like(q)
+            for i in range(b):  # one sequence at a time: 0.5 GiB of scores
+                sc = (q[i].float() @ k[i].repeat_interleave(g, 0).float().transpose(1, 2))
+                sc = (sc * scale).masked_fill(~keep, float("-inf"))
+                pr = torch.exp(sc - sc.amax(-1, keepdim=True))
+                l = pr.sum(-1, keepdim=True)
+                if round_p:
+                    pr = pr.to(q.dtype).float()
+                out[i] = ((pr @ v[i].repeat_interleave(g, 0).float()) / l).to(q.dtype)
+                del sc, pr
+            return out
+
+        return attend
 
     # -- timing -----------------------------------------------------------
 
     @staticmethod
-    def bound(b, hq, hkv, s, d, flops_per_s: float = TF32X3_FLOPS) -> tuple:
+    def bound(b, hq, hkv, s, d, flops_per_s: float = TF32X3_FLOPS, itemsize: int = 4) -> tuple:
         """``(bound_ms, bound_by)`` of one causal attention call: q, k, v
-        read once and the output written once, against the operations
-        4 * B * Hq * D * S(S+1)/2 (QK^T and PV, 2*D each per visible
-        (query, key) pair; the softmax's exp and sums are not counted) at
-        ``flops_per_s``: float32-accurate products on the tensor cores
-        (3xTF32) by default, ``F32_FLOPS`` on the CUDA cores."""
-        nbytes = 4 * d * s * (2 * b * hq + 2 * b * hkv)
+        read once and the output written once (``itemsize`` bytes an
+        element), against the operations 4 * B * Hq * D * S(S+1)/2 (QK^T
+        and PV, 2*D each per visible (query, key) pair; the softmax's exp
+        and sums are not counted) at ``flops_per_s``: float32-accurate
+        products on the tensor cores (3xTF32) by default, ``F32_FLOPS`` on
+        the CUDA cores, ``BF16_FLOPS`` for 16-bit inputs."""
+        nbytes = itemsize * d * s * (2 * b * hq + 2 * b * hkv)
         flops = 4 * b * hq * d * s * (s + 1) // 2
         t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
         return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
     def timings(self) -> None:
-        """Kernel (folded, bb), plain version and SDPA at the serve shape."""
+        """Each flash kernel, its plain version and SDPA at the shapes the
+        paths give it: ``flash_wgmma`` (folded and bb) at the serve shape
+        in float32, ``flash16`` at the serve shape in bfloat16 (the 16-bit
+        prefill's), and ``flash`` at a prompt of 2080 tokens, where the
+        tuner picks 32-row tiles."""
         torch, FL = self.torch, self.fa.FLASH
         b, hq, hkv, s, d = SERVE_SHAPE
-        q, k, v = self.qkv(b, hq, hkv, s, d, salt=80)
-        scale = d**-0.5
-        kx = k.repeat_interleave(hq // hkv, dim=1)
-        vx = v.repeat_interleave(hq // hkv, dim=1)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = self.s.time_ms(lambda: sdpa(q, kx, vx, is_causal=True, scale=scale))
-        lib_err = (sdpa(q, kx, vx, is_causal=True, scale=scale)
-                   - FL.plain("folded", 128, scale, q, k, v)).abs().max().item()
-        _log(f"library scaled_dot_product_attention vs plain: max_abs_err={lib_err:.3e}")
-        bound_ms, bound_by = self.bound(b, hq, hkv, s, d)
-        bound_f32_ms = self.bound(b, hq, hkv, s, d, F32_FLOPS)[0]
-        for kind in ("folded", "bb"):
-            ms = self.s.time_ms(lambda: FL.kernel(kind, 128, scale, q, k, v))
-            plain = self.s.time_ms(lambda: FL.plain(kind, 128, scale, q, k, v), runs=3, warm=1)
-            self.rows.append(dict(kind=kind, ms=ms, plain_ms=plain, library_ms=lib,
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  bound_f32_ms=bound_f32_ms,
-                                  steps=b * hq * self.fa.flash_grid_steps(s // 128, kind)))
-        bb = next(r for r in self.rows if r["kind"] == "bb")
+        for route, dtype, seq, bq, kinds in (("flash_wgmma", torch.float32, s, 128,
+                                              ("folded", "bb")),
+                                             ("flash16", torch.bfloat16, s, 128, ("folded",)),
+                                             ("flash", torch.float32, SMALL_TILE_S, 32,
+                                              ("folded",))):
+            q, k, v = (t.to(dtype) for t in self.qkv(b, hq, hkv, seq, d, salt=80))
+            scale = d**-0.5
+            kx = k.repeat_interleave(hq // hkv, dim=1)
+            vx = v.repeat_interleave(hq // hkv, dim=1)
+            lib = self.s.time_ms(lambda: sdpa(q, kx, vx, is_causal=True, scale=scale))
+            lib_err = (sdpa(q, kx, vx, is_causal=True, scale=scale).float()
+                       - FL.plain("folded", bq, scale, q, k, v).float()).abs().max().item()
+            _log(f"library scaled_dot_product_attention {str(dtype)[6:]} S={seq} vs plain: "
+                 f"max_abs_err={lib_err:.3e}")
+            rate = TF32X3_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            bound_ms, bound_by = self.bound(b, hq, hkv, seq, d, rate, dtype.itemsize)
+            bound_f32_ms = self.bound(b, hq, hkv, seq, d, F32_FLOPS, dtype.itemsize)[0]
+            for kind in kinds:
+                got = FL.kernel(kind, bq, scale, q, k, v)
+                torch.cuda.synchronize()
+                equal = self.compare(f"timed {kind} shape={(b, hq, hkv, seq, d)} block_q={bq}",
+                                     route, got, FL.plain(kind, bq, scale, q, k, v), v)
+                del got
+                ms = self.s.time_ms(lambda: FL.kernel(kind, bq, scale, q, k, v))
+                plain = self.s.time_ms(lambda: FL.plain(kind, bq, scale, q, k, v), runs=3,
+                                       warm=1)
+                self.rows.append(dict(route=route, dtype=str(dtype)[6:], s=seq, block_q=bq,
+                                      kind=kind, ms=ms, plain_ms=plain, library_ms=lib,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      bound_f32_ms=bound_f32_ms, equal=equal,
+                                      steps=b * hq * self.fa.flash_grid_steps(seq // bq, kind)))
+            del q, k, v, kx, vx
+            torch.cuda.empty_cache()
         for row in self.rows:
-            _log(f"case test=flash kind={row['kind']} B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
-                 f"block_q=128 steps={row['steps']} ms={row['ms']:.4f} "
+            bb = next((r for r in self.rows if r["route"] == row["route"] and r["kind"] == "bb"),
+                      None)
+            _log(f"case test={row['route']} dtype={row['dtype']} kind={row['kind']} B={b} "
+                 f"Hq={hq} Hkv={hkv} S={row['s']} D={d} block_q={row['block_q']} "
+                 f"steps={row['steps']} ms={row['ms']:.4f} "
                  f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
                  f"({row['bound_by']}) bound_share={row['bound_ms'] / row['ms']:.3f} "
                  f"{_f32(row)}library_ms={row['library_ms']:.4f} "
-                 f"bb_ms/ms={bb['ms'] / row['ms']:.3f} "
-                 f"equal=tol")
-        del q, k, v, kx, vx
-        torch.cuda.empty_cache()
+                 f"library/ms={row['library_ms'] / row['ms']:.3f} "
+                 + (f"bb_ms/ms={bb['ms'] / row['ms']:.3f} " if bb else "")
+                 + f"equal={row['equal']}")
 
 
 def main(argv=None) -> int:
@@ -1174,11 +1600,13 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
+    from repro_torch.configs import ALL as configs
     from repro_torch.core import hmap
     from repro_torch.kernels import _build, engine, legacy, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hmap_mxu
     from repro_torch.launch import serve
+    from repro_torch.models.model import Model
 
     t_all = time.perf_counter()
     card = _card_line()
@@ -1191,13 +1619,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.library()
     _log(f"phase build: {time.perf_counter() - t0:.1f} s")
+    for line in _build.build_log().splitlines():
+        if line.startswith("== "):
+            _log(f"build {line[3:]}")
     for line in ptxas_summary(_build.build_log(), _build.CUDA_HOME / "bin" / "cu++filt"):
         _log(line)
 
     def zero_counts():
         for name in engine.registered_bodies():
             engine.get_body(name).launches = 0
-        fa.FLASH.launches = 0
+        fa.FLASH.launches = dict.fromkeys(fa.ROUTES, 0)
         for k in (legacy.MAP2D, legacy.ACCUM2D, legacy.EDM2D, legacy.CA2D,
                   legacy.ACCUM3D, legacy.CA3D, legacy.ACCUM_MD, hmap_mxu.HMAP_MXU):
             k.launches = 0
@@ -1210,7 +1641,8 @@ def main(argv=None) -> int:
     old = LegacySmoke(smoke, legacy)
     old_md = LegacyMdSmoke(smoke, legacy)
     mxu = MxuSmoke(smoke, hmap_mxu, hmap)
-    flash = FlashSmoke(smoke, fa, serve)
+    dtypes = DtypeSmoke(smoke, legacy, fa)
+    flash = FlashSmoke(smoke, fa, serve, configs, Model)
     zero_counts()
     t0 = time.perf_counter()
     smoke.main_path()
@@ -1267,19 +1699,63 @@ def main(argv=None) -> int:
 
     zero_counts()
     t0 = time.perf_counter()
+    dtypes.path()
+    dtype_launches = counts()
+    _log(f"phase dtype path: {time.perf_counter() - t0:.1f} s, launches {dtype_launches}")
+    for name in ("accum", "ca", "edm", "accum2d", "edm2d", "ca2d", "accum3d", "ca3d",
+                 "accum_md"):
+        if dtype_launches[name] <= 0:
+            smoke.fail(f"kernel {name} was never launched on the dtype path")
+    torch.cuda.empty_cache()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    want = flash.tile_sweep()
+    sweep_launches = counts()
+    _log(f"phase flash tile sweep: {time.perf_counter() - t0:.1f} s, "
+         f"launches {sweep_launches}")
+    launches["flash"] = sweep_launches["flash"]
+    for route in fa.ROUTES:
+        if sweep_launches[route] != want[route] or want[route] <= 0:
+            smoke.fail(f"flash sweep: {route} launched {sweep_launches[route]} times, "
+                       f"not {want[route]}")
+    torch.cuda.empty_cache()
+
+    zero_counts()
+    t0 = time.perf_counter()
     run = flash.serve_path()
     serve_launches = counts()
     _log(f"phase serve path: {time.perf_counter() - t0:.1f} s, launches {serve_launches}")
-    launches["flash"] = serve_launches["flash"]
+    launches["flash_wgmma"] = serve_launches["flash_wgmma"]
     n_layers = run.model.cfg.n_layers
-    if serve_launches["flash"] != n_layers:
-        smoke.fail(f"serve: prefill launched the flash kernel {serve_launches['flash']} "
-                   f"times, not once per layer ({n_layers})")
+    if (serve_launches["flash_wgmma"] != n_layers or serve_launches["flash"]
+            or serve_launches["flash16"]):
+        smoke.fail(f"serve: prefill launched the flash kernels {serve_launches}, not "
+                   f"flash_wgmma once per layer ({n_layers})")
     t0 = time.perf_counter()
     flash.hold(run)
     _log(f"phase hold: {time.perf_counter() - t0:.1f} s")
     del run
     torch.cuda.empty_cache()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    model16, prompts16, logits16 = flash.prefill16()
+    p16_launches = counts()
+    _log(f"phase 16-bit prefill path: {time.perf_counter() - t0:.1f} s, "
+         f"launches {p16_launches}")
+    launches["flash16"] = p16_launches["flash16"]
+    n_layers = model16.cfg.n_layers
+    if (p16_launches["flash16"] != n_layers or p16_launches["flash"]
+            or p16_launches["flash_wgmma"]):
+        smoke.fail(f"prefill16: launched the flash kernels {p16_launches}, not flash16 "
+                   f"once per layer ({n_layers})")
+    t0 = time.perf_counter()
+    flash.hold16(model16, prompts16, logits16)
+    _log(f"phase hold16: {time.perf_counter() - t0:.1f} s")
+    del model16, prompts16, logits16
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     flash.kernel_cases()
     _log(f"phase flash checks: {time.perf_counter() - t0:.1f} s")
@@ -1305,16 +1781,18 @@ def main(argv=None) -> int:
             "shape": f"m=2 n={head['n']} rho={head['rho']} kind=hmap",
             **({"bound_f32_ms": head["bound_f32_ms"]} if name == "edm" else {}),
         })
-    head = next(r for r in flash.rows if r["kind"] == "folded")
     b, hq, hkv, s, d = SERVE_SHAPE
-    kernels.append({
-        "name": "flash", "route": "cuda", "source": SOURCES["flash"],
-        "replaces": REPLACES["flash"], "launches": launches["flash"],
-        "max_abs_err": flash.err, "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "bound_f32_ms": head["bound_f32_ms"],
-        "shape": f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} block_q=128 kind=folded",
-    })
+    for route in fa.ROUTES:
+        head = next(r for r in flash.rows if r["route"] == route and r["kind"] == "folded")
+        kernels.append({
+            "name": route, "route": "cuda", "source": SOURCES[route],
+            "replaces": REPLACES[route], "launches": launches[route],
+            "max_abs_err": flash.err[route], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "bound_f32_ms": head["bound_f32_ms"],
+            "shape": (f"{head['dtype']} B={b} Hq={hq} Hkv={hkv} S={head['s']} D={d} "
+                      f"block_q={head['block_q']} kind=folded"),
+        })
     for name in LEGACY:
         head = next(r for r in old.rows if r["name"] == name and r["kind"] == "hmap")
         kernels.append({
@@ -1349,7 +1827,8 @@ def main(argv=None) -> int:
     st = flash.stats
     _log(f"serve summary: prefill_s={st['prefill_s']:.4f} "
          f"decode_tok_s={st['decode_tok_s']:.2f} peak_gib={st['peak_gib']:.3f} "
-         f"logit_err={st['logit_err']:.3e}")
+         f"logit_err={st['logit_err']:.3e} prefill16_s={st['prefill16_s']:.4f} "
+         f"peak16_gib={st['peak16_gib']:.3f} logit16_rel={st['logit16_rel']:.3e}")
     _log(f"phase total: {time.perf_counter() - t_all:.1f} s")
     if smoke.failures:
         print(f"{len(smoke.failures)} failures: {smoke.failures}", file=sys.stderr)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from ..kernels.flash_attention import kernel_fits
 from ..kernels.policy import resolve_device
 
@@ -50,18 +52,21 @@ class AttnDecision:
     source: str
 
 
-def attn_block_q(seq: int, head_dim: int, device=None) -> int:
+def attn_block_q(seq: int, head_dim: int, device=None, dtype=torch.float32) -> int:
     """Square attention tile side for a sequence length (0 if none fits).
 
     On the CPU: the largest of (128, 64, 32, 16, 8) dividing ``seq`` that
     still gives at least two query tiles (else the largest divisor), the
-    JAX package's interpret rule.  On the card: the largest divisor the
-    CUDA kernel is built for whose block fits ``policy.SMEM_LIMIT``.
+    JAX package's interpret rule.  On the card: the largest divisor a
+    CUDA kernel is built for whose block, for ``dtype``, fits
+    ``policy.SMEM_LIMIT``.
 
     Args:
         seq: Sequence length.
         head_dim: Attention head dimension.
         device: Device the kernel runs on; None means the card.
+        dtype: The activations' dtype (the kernel and its shared memory
+            depend on it on the card).
 
     Example:
         >>> attn_block_q(64, 16, device="cpu")   # two tiles: the fold runs
@@ -72,7 +77,7 @@ def attn_block_q(seq: int, head_dim: int, device=None) -> int:
     dev = resolve_device(device)
     divisors = [bq for bq in _ATTN_BLOCKS if bq <= seq and seq % bq == 0]
     if dev.type == "cuda":
-        divisors = [bq for bq in divisors if kernel_fits(bq, head_dim)]
+        divisors = [bq for bq in divisors if kernel_fits(bq, head_dim, dtype)]
         return divisors[0] if divisors else 0
     for bq in divisors:
         if seq // bq >= 2:
@@ -80,7 +85,8 @@ def attn_block_q(seq: int, head_dim: int, device=None) -> int:
     return divisors[0] if divisors else 0
 
 
-def choose_attn_impl(seq: int, heads: int, head_dim: int, device=None) -> AttnDecision:
+def choose_attn_impl(seq: int, heads: int, head_dim: int, device=None,
+                     dtype=torch.float32) -> AttnDecision:
     """Pick the causal-attention executor for ``(seq, heads, head_dim)``.
 
     The structural guard of the reference: no tile maps the shape, so
@@ -94,7 +100,7 @@ def choose_attn_impl(seq: int, heads: int, head_dim: int, device=None) -> AttnDe
         ('flash', 'folded', 32)
     """
     dev = resolve_device(device)
-    block = attn_block_q(seq, head_dim, dev)
+    block = attn_block_q(seq, head_dim, dev, dtype)
     if not block:
         return AttnDecision(seq, heads, head_dim, dev.type, "chunked", "chunked", 0,
                             "fallback")

@@ -24,6 +24,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 from typing import Optional
 
 __all__ = ["CSRC", "BUILD_ROOT", "CUDA_HOME", "NVCC_FLAGS", "library", "check", "nvcc_path",
@@ -47,31 +48,35 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # out, header, data, threads, stream
     "simplex_map_launch": (_P, _P, _P, _I, _P),
+    # dtype: a code of policy.DTYPE_CODES (csrc/dtypes.cuh)
     # x, dtype, header, data, n, rho, stream
     "simplex_accum_launch": (_P, _I, _P, _P, _I, _I, _P),
-    # out, points, d, header, data, n, rho, stream
-    "simplex_edm_launch": (_P, _P, _I, _P, _P, _I, _I, _P),
-    # out, in, periodic, header, data, n, rho, stream
-    "simplex_ca_launch": (_P, _P, _I, _P, _P, _I, _I, _P),
+    # out, out dtype, float32 points, d, header, data, n, rho, stream
+    "simplex_edm_launch": (_P, _I, _P, _I, _P, _P, _I, _I, _P),
+    # out, in, dtype, periodic, header, data, n, rho, stream
+    "simplex_ca_launch": (_P, _P, _I, _I, _P, _P, _I, _I, _P),
     # o, q, k, v, bias, bias_b, bias_h, seg, b, hq, hkv, s, d, block_q,
-    # folded, scale, stream
+    # folded, scale, dtype (0 float32, 1 bfloat16, 2 float16), stream
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _P),
+                               _I, _F, _I, _P),
+    # the float32 wgmma kernel (flash_wgmma.cu): as above without dtype
+    "flash_wgmma_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _P),
     # the frozen 2-D originals (legacy2d.cu); kind 0 hmap, 1 rb, 2 bb
     # out, kind, nb, chunk, rows, stream
     "legacy_map2d_launch": (_P, _I, _I, _I, _L, _P),
     # x, dtype, kind, nb, n, rho, stream
     "legacy_accum2d_launch": (_P, _I, _I, _I, _I, _I, _P),
-    # out, points, d, kind, nb, n, rho, stream
-    "legacy_edm2d_launch": (_P, _P, _I, _I, _I, _I, _I, _P),
-    # out, in, kind, nb, n, rho, stream
-    "legacy_ca2d_launch": (_P, _P, _I, _I, _I, _I, _P),
+    # out, out dtype, float32 points, d, kind, nb, n, rho, stream
+    "legacy_edm2d_launch": (_P, _I, _P, _I, _I, _I, _I, _I, _P),
+    # out, in, dtype, kind, nb, n, rho, stream
+    "legacy_ca2d_launch": (_P, _P, _I, _I, _I, _I, _I, _P),
     # the frozen m >= 3 originals (legacy_md.cu)
     # x, dtype, header, data, n, rho, stream
     "legacy_accum3d_launch": (_P, _I, _P, _P, _I, _I, _P),
     "legacy_accum_md_launch": (_P, _I, _P, _P, _I, _I, _P),
-    # out, in, header, data, n, rho, stream
-    "legacy_ca3d_launch": (_P, _P, _P, _P, _I, _I, _P),
+    # out, in, dtype, header, data, n, rho, stream
+    "legacy_ca3d_launch": (_P, _P, _I, _P, _P, _I, _I, _P),
     # the tensor-core H map (hmap_mxu.cu): out, wxy, t, rho, stream
     "hmap2_coords_mxu_launch": (_P, _P, _L, _I, _P),
 }
@@ -112,19 +117,26 @@ def _build(target: pathlib.Path) -> None:
     target.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
         objs = [pathlib.Path(tmp) / (cu.stem + ".o") for cu in cus]
-        procs = [
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-c", str(cu), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-            for cu, obj in zip(cus, objs)
-        ]
+        outs = [pathlib.Path(tmp) / (cu.stem + ".log") for cu in cus]
+        t0 = time.monotonic()
+        procs = []
+        for cu, obj, out in zip(cus, objs, outs):
+            with open(out, "w") as fh:
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-c", str(cu), "-o", str(obj)],
+                    stdout=fh, stderr=subprocess.STDOUT))
+        seconds = [0.0] * len(procs)
+        while any(sec == 0.0 for sec in seconds):  # each object's own compile time
+            for i, proc in enumerate(procs):
+                if seconds[i] == 0.0 and proc.poll() is not None:
+                    seconds[i] = max(time.monotonic() - t0, 1e-3)
+            time.sleep(0.05)
         failed, log = [], []
-        for cu, proc in zip(cus, procs):
-            out, _ = proc.communicate()
-            log.append(f"== {cu.name}\n{out}")
+        for cu, proc, out, sec in zip(cus, procs, outs, seconds):
+            text = out.read_text()
+            log.append(f"== {cu.name} ({sec:.1f} s)\n{text}")
             if proc.returncode != 0:
-                failed.append(f"{cu.name}:\n{out}")
+                failed.append(f"{cu.name}:\n{text}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         (target.parent / _LOG_NAME).write_text("".join(log))
@@ -161,7 +173,9 @@ def library() -> ctypes.CDLL:
 def build_log() -> str:
     """What nvcc and ptxas printed when the library was built.
 
-    One ``== <source>.cu`` line per object, then its compiler output:
+    One ``== <source>.cu (<seconds> s)`` line per object, with the
+    seconds from the start of the build to the end of its compile (all
+    compile at once), then its compiler output:
     for each kernel ptxas's ``Compiling entry function``, stack and
     spill line and ``Used N registers`` line.  Builds the library first
     if it is not built yet.

@@ -1,6 +1,7 @@
-// CA: one B3/S23 Game-of-Life step with 3^m - 1 neighbours on int32 0/1
-// state, from an input buffer into a separate output buffer that starts
-// as a copy of the input (off-domain cells keep their input).
+// CA: one B3/S23 Game-of-Life step with 3^m - 1 neighbours on a 0/1
+// state of any dtype CA takes (dtypes.cuh), from an input buffer into a
+// separate output buffer that starts as a copy of the input (off-domain
+// cells keep their input).
 //
 // Replaces: the TPU kernel of repro/kernels/engine.py _launch_domain
 // with CABody and _assemble_halo (kernel table row 4), which fetched 3^m
@@ -10,35 +11,51 @@
 // input and writes only the output.
 //
 // Bound on the card: memory — each domain cell read once and written
-// once, 2 * V * 4 bytes at 3.35 TB/s; the halo re-reads (rho+2)^m/rho^m
+// once, 2 * V * sizeof(T) bytes at 3.35 TB/s; the halo re-reads (rho+2)^m/rho^m
 // of the input, mostly from L2.  Design: one block per schedule step;
 // thread 0 evaluates the map and the block shares it; the block stages
 // a (rho+2)^m halo from the input in shared memory, each halo
 // cell masked as _assemble_halo masks it (m=2: periodic, wrapped mod n
 // and masked by the domain of its wrapped position; m >= 3: free, 0
 // outside [0, n)^m or off the domain), then each tile cell sums its
-// neighbours from shared memory through a table of the 3^m stencil's
-// halo offsets, built once per block, and writes if it lies in the
-// domain.  Templated on m, so the index loops unroll into registers.
+// neighbours from shared memory through a table of the 3^m - 1 stencil
+// offsets (the centre left out), built once per block, and writes if it
+// lies in the domain.  The neighbour count runs in the state's own type,
+// as the reference's does (Dt<T>: integers wrap, 16-bit floats round
+// after each add), so a state of any values gives the reference's
+// answer, and a 0/1 state gives exact counts in every type.  The kernel
+// is templated on m, so the index loops unroll into registers, and the
+// tile's work on the element type, chosen by a run-time code after the
+// block's map (one kernel per m, not per (m, type): the inlined general
+// map is what makes a kernel slow to compile).
+#include "dtypes.cuh"
 #include "simplex_maps.cuh"
 
-template <int M>
-__global__ void simplex_ca_kernel(int* __restrict__ out, const int* __restrict__ in,
-                                  SimplexMap map, int n, int rho, int shift, int periodic) {
-  extern __shared__ int smem_ca[];
-  __shared__ int s_blk[SIMPLEX_MAX_M + 1];
-  if (!simplex_block_shared(map, s_blk)) return;
-  int blk[M];
-#pragma unroll
-  for (int j = 0; j < M; ++j) blk[j] = s_blk[j];
+// Shared memory: the (rho+2)^m halo of the state's type, rounded up to 4
+// bytes, then the int stencil offsets.
+static __host__ __device__ __forceinline__ size_t simplex_ca_halo_bytes(size_t hsize,
+                                                                       size_t elem) {
+  return (hsize * elem + 3) & ~(size_t)3;
+}
+
+// One tile of block blk in the state's type T: stage the halo, count each
+// domain cell's neighbours in T, write the rule's 0/1 in T.
+template <int M, typename T>
+static __device__ __forceinline__ void simplex_ca_tile(T* __restrict__ out,
+                                                       const T* __restrict__ in,
+                                                       const int* blk, int n, int rho,
+                                                       int shift, int periodic,
+                                                       unsigned char* smem) {
   const int H = rho + 2;
   const int hsize = simplex_ipow<M>(H);
-  constexpr int nstencil = M == 2 ? 9 : M == 3 ? 27 : M == 4 ? 81 : M == 5 ? 243
-                         : M == 6 ? 729 : M == 7 ? 2187 : 6561;
-  int* halo = smem_ca;               // [(rho+2)^M]
-  int* stencil = smem_ca + hsize;    // [3^M] halo offsets of the neighbours
+  constexpr int nstencil = (M == 2 ? 9 : M == 3 ? 27 : M == 4 ? 81 : M == 5 ? 243
+                            : M == 6 ? 729 : M == 7 ? 2187 : 6561) - 1;
+  T* halo = reinterpret_cast<T*>(smem);  // [(rho+2)^M]
+  int* stencil =                         // [3^M - 1] neighbour offsets
+      reinterpret_cast<int*>(smem + simplex_ca_halo_bytes(hsize, sizeof(T)));
   for (int t = threadIdx.x; t < nstencil; t += blockDim.x) {
-    int q = t, off = 0, stride = 1;
+    int q = t < nstencil / 2 ? t : t + 1;  // skip the centre, index (3^M - 1) / 2
+    int off = 0, stride = 1;
 #pragma unroll
     for (int j = M - 1; j >= 0; --j) {
       off += (q % 3 - 1) * stride;
@@ -47,6 +64,7 @@ __global__ void simplex_ca_kernel(int* __restrict__ out, const int* __restrict__
     }
     stencil[t] = off;
   }
+  const T zero = Dt<T>::from_float(0.f);
   for (int e = threadIdx.x; e < hsize; e += blockDim.x) {
     int g[M];
     int r = e;
@@ -60,7 +78,7 @@ __global__ void simplex_ca_kernel(int* __restrict__ out, const int* __restrict__
       g[j] = v;
     }
     ok = ok && simplex_in_domain<M>(g, n);
-    halo[e] = ok ? in[simplex_offset<M>(g, n)] : 0;
+    halo[e] = ok ? in[simplex_offset<M>(g, n)] : zero;
   }
   __syncthreads();
   const int tile = simplex_ipow<M>(rho);
@@ -75,20 +93,40 @@ __global__ void simplex_ca_kernel(int* __restrict__ out, const int* __restrict__
       stride *= H;
     }
     if (!simplex_in_domain<M>(g, n)) continue;
-    int neigh = 0;
-    for (int t = 0; t < nstencil; ++t) neigh += halo[centre + stencil[t]];
-    const int c = halo[centre];
-    neigh -= c;  // the stencil includes the centre
-    int alive = (c == 0 && neigh == 3) || (c == 1 && (neigh == 2 || neigh == 3));
-    out[simplex_offset<M>(g, n)] = alive;
+    T neigh = zero;
+    for (int t = 0; t < nstencil; ++t) neigh = Dt<T>::add(neigh, halo[centre + stencil[t]]);
+    const T c = halo[centre];
+    const bool three = Dt<T>::eq(neigh, 3);
+    const bool alive = (Dt<T>::eq(c, 0) && three) ||
+                       (Dt<T>::eq(c, 1) && (Dt<T>::eq(neigh, 2) || three));
+    out[simplex_offset<M>(g, n)] = Dt<T>::from_float(alive ? 1.f : 0.f);
   }
 }
 
-extern "C" int simplex_ca_launch(void* out, const void* in, int periodic,
+template <int M>
+__global__ void simplex_ca_kernel(void* __restrict__ out, const void* __restrict__ in,
+                                  int dtype, SimplexMap map, int n, int rho, int shift,
+                                  int periodic) {
+  extern __shared__ __align__(16) unsigned char smem_ca[];
+  __shared__ int s_blk[SIMPLEX_MAX_M + 1];
+  if (!simplex_block_shared(map, s_blk)) return;
+  int blk[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) blk[j] = s_blk[j];
+#define SIMPLEX_CA_TILE(T)                                                                \
+  simplex_ca_tile<M, T>(static_cast<T*>(out), static_cast<const T*>(in), blk, n, rho, shift, \
+                        periodic, smem_ca)
+  SIMPLEX_SWITCH_CA_DTYPE(dtype, SIMPLEX_CA_TILE)
+#undef SIMPLEX_CA_TILE
+}
+
+// dtype: a code of dtypes.cuh that CA takes (kernels/policy.py DTYPE_CODES).
+extern "C" int simplex_ca_launch(void* out, const void* in, int dtype, int periodic,
                                  const long long* header, const void* data, int n,
                                  int rho, void* stream) {
   SimplexMap M = simplex_map_from_header(header, (const int*)data);
-  if (!simplex_map_ok(M) || rho < 1 || n % rho) return (int)cudaErrorInvalidValue;
+  if (!simplex_map_ok(M) || rho < 1 || n % rho || !dt_ca_ok(dtype))
+    return (int)cudaErrorInvalidValue;
   if (M.steps == 0) return 0;
   size_t hsize = 1, nstencil = 1;
   int tile = 1;
@@ -97,7 +135,8 @@ extern "C" int simplex_ca_launch(void* out, const void* in, int periodic,
     nstencil *= 3;
     tile *= rho;
   }
-  const size_t smem = sizeof(int) * (hsize + nstencil);
+  const size_t smem = simplex_ca_halo_bytes(hsize, dt_bytes(dtype)) +
+                      sizeof(int) * (nstencil - 1);
   int threads = tile < 1024 ? tile : 1024;
   if (threads < 32) threads = 32;
   const int shift = simplex_rho_shift(rho);
@@ -110,8 +149,8 @@ extern "C" int simplex_ca_launch(void* out, const void* in, int periodic,
           (int)smem);                                                            \
       if (err != cudaSuccess) return (int)err;                                   \
     }                                                                            \
-    simplex_ca_kernel<MM><<<M.steps, threads, smem, s>>>(                        \
-        (int*)out, (const int*)in, M, n, rho, shift, periodic);                  \
+    simplex_ca_kernel<MM><<<M.steps, threads, smem, s>>>(out, in, dtype, M, n, rho, \
+                                                         shift, periodic);      \
   } while (0)
   SIMPLEX_DISPATCH_M(M.m, SIMPLEX_CA)
 #undef SIMPLEX_CA

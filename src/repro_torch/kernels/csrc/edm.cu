@@ -1,6 +1,11 @@
 // EDM: out[c] = sum_{a<b} ||p[c_a] - p[c_b]|| on the domain of an
-// (n,)*m float32 array from (n, d) float32 points; the rest of the
-// output stays the zeros it was allocated with.
+// (n,)*m array from (n, d) float32 points; the rest of the output stays
+// the zeros it was allocated with.  As in the reference, the arithmetic
+// is float32 whatever the points' type (the wrapper stages them as
+// float32) and each cell is stored once in the output's type (float16,
+// bfloat16, float32 or float64, a run-time code; dtypes.cuh's
+// dt_store_float), rounded to nearest even, so a 16-bit output costs
+// no second pass over the array.
 //
 // Replaces: the TPU kernel of repro/kernels/engine.py _launch_domain
 // with EDMBody (kernel table row 3), which fetched the m (rho, d) point
@@ -52,6 +57,7 @@
 // b > a).  Only domain cells are written.  Sums run in float32 in
 // another order than the plain version's and sqrtf rounds on the card,
 // so results agree with it to a tolerance, not bit for bit.
+#include "dtypes.cuh"
 #include "mma_tf32.cuh"
 #include "simplex_maps.cuh"
 
@@ -146,8 +152,8 @@ static __device__ __forceinline__ float edm_distance(float s, float nr, float nc
 
 template <int M>
 __global__ void __launch_bounds__(EDM_WARPS * 32)
-simplex_edm_kernel(float* __restrict__ out, const float* __restrict__ p, SimplexMap map, int n,
-                   int rho, int shift, int d, int ld, int warp_floats) {
+simplex_edm_kernel(void* __restrict__ out, int out_dtype, const float* __restrict__ p,
+                   SimplexMap map, int n, int rho, int shift, int d, int ld, int warp_floats) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -231,7 +237,7 @@ simplex_edm_kernel(float* __restrict__ out, const float* __restrict__ p, Simplex
                                               ld, d, r, c);
                 if (M == 2) {  // rows: axis 0 (x_1 = b), columns: axis 1 (x_0 = a)
                   const int g0 = blk[0] * rho + r, g1 = blk[1] * rho + c;
-                  if (g1 <= g0) out[(long long)g0 * n + g1] = dd;
+                  if (g1 <= g0) dt_store_float(out, (long long)g0 * n + g1, out_dtype, dd);
                 } else {
                   dist[pr * rr + r * rho + c] = dd;
                 }
@@ -259,15 +265,19 @@ simplex_edm_kernel(float* __restrict__ out, const float* __restrict__ p, Simplex
 #pragma unroll
         for (int b = a + 1; b < M; ++b, ++q)
           total += dist[q * rr + l[M - 1 - b] * rho + l[M - 1 - a]];
-      out[simplex_offset<M>(gg, n)] = total;
+      dt_store_float(out, simplex_offset<M>(gg, n), out_dtype, total);
     }
   }
 }
 
-extern "C" int simplex_edm_launch(void* out, const void* p, int d, const long long* header,
-                                  const void* data, int n, int rho, void* stream) {
+// out_dtype: the floating code of dtypes.cuh the output is stored in
+// (kernels/policy.py DTYPE_CODES); the points are float32.
+extern "C" int simplex_edm_launch(void* out, int out_dtype, const void* p, int d,
+                                  const long long* header, const void* data, int n, int rho,
+                                  void* stream) {
   SimplexMap M = simplex_map_from_header(header, (const int*)data);
-  if (!simplex_map_ok(M) || rho < 1 || n % rho || d < 1) return (int)cudaErrorInvalidValue;
+  if (!simplex_map_ok(M) || rho < 1 || n % rho || d < 1 || !dt_float_ok(out_dtype))
+    return (int)cudaErrorInvalidValue;
   if (M.steps == 0) return 0;
   const int ld = simplex_edm_ld(M.m, rho, d);
   const size_t warp_floats = simplex_edm_warp_floats(M.m, rho, ld);
@@ -287,7 +297,7 @@ extern "C" int simplex_edm_launch(void* out, const void* p, int d, const long lo
       if (err != cudaSuccess) return (int)err;                                        \
     }                                                                                 \
     simplex_edm_kernel<MM><<<grid, warps * 32, smem, s>>>(                            \
-        (float*)out, (const float*)p, M, n, rho, shift, d, ld, (int)warp_floats);     \
+        out, out_dtype, (const float*)p, M, n, rho, shift, d, ld, (int)warp_floats);  \
   } while (0)
   SIMPLEX_DISPATCH_M(M.m, SIMPLEX_EDM)
 #undef SIMPLEX_EDM

@@ -1,22 +1,18 @@
 // Causal flash attention forward on the 2-simplex of (q tile, kv tile)
-// pairs: float32 in and out, float32 online softmax, GQA without a
-// repeated K/V tensor, optional additive bias and segment ids.
+// pairs on mma.sync: float32 at 8-, 16- and 32-row tiles, bfloat16 and
+// float16 at every tile; float32 online softmax, GQA without a repeated
+// K/V tensor, optional additive float32 bias and segment ids.  The
+// float32 kernel at 64- and 128-row tiles is flash_wgmma.cu.
 //
 // Replaces: the TPU kernel of repro/kernels/flash_attention.py
 // _flash_launch (kernel table row 5), a Pallas grid (B*Hq, pairs, nq+1)
 // or (B*Hq, nq, nq) whose sequential last axis carried the running max,
 // denominator and accumulator in VMEM scratch from one grid step to the
-// next.
+// next.  The map on the GPU is flash_common.cuh's: blocks run in
+// parallel and in no order, so the sequential grid axis becomes a loop
+// inside the block over the block's (b*Hq, pair) or (b*Hq, q tile).
 //
-// The map on the GPU: blocks run in parallel and in no order, so the
-// sequential grid axis becomes a loop inside the block.  One block per
-// (b*Hq, pair p) for the folded schedule walks j = 0..nq:
-//   j <= p: (q, kv) = (p, j);  j > p: (q, kv) = (nq-1-p, j-p-1),
-// resetting at j == 0 | j == p+1 and flushing at j == p | j == nq, so
-// each query tile's KV visits are consecutive and every block does
-// nq+1 tile steps (an odd nq's middle pair recomputes and rewrites its
-// own tile).  The bounding-box schedule has one block per (b*Hq, q tile)
-// and walks its kv <= q tiles.  The KV row of bh is bh / (Hq/Hkv).
+// FLOAT32 (flash_fwd_kernel).
 //
 // Bound on the card: the products QK^T and PV, 4*BQ*BQ*D operations a
 // tile pair against 2*BQ*D*4 bytes of K and V, BQ/2 operations a byte;
@@ -45,8 +41,8 @@
 // denominator; the quad sums it at the flush.  The 3xTF32 splits cost
 // about as many instructions as the MMAs, so the kernel is latency and
 // issue bound: 16-key sub-chunks and at most 128 registers a thread let
-// two blocks (16 warps) share an SM at BQ = 128, D = 128 (101,888 bytes
-// of shared memory each).
+// two blocks share an SM.  It serves the tiles below 64 rows, where a
+// warpgroup's 64-row tile (flash_wgmma.cu) does not fit.
 //
 // Masked probabilities are zeroed, so a row with no visible key so far
 // keeps l = 0 and its output becomes 0, never NaN.  The products carry
@@ -54,22 +50,42 @@
 // term), and the softmax over sub-chunks of a tile is the same online
 // recurrence as over whole tiles, so the result differs from the plain
 // version by float32 rounding only.  Element offsets are 64-bit.
+//
+// BFLOAT16 AND FLOAT16 (flash16_fwd_kernel).
+//
+// The reference takes q's dtype and computes in float32 inside: q, k and
+// v are upcast, the scores, the softmax and P stay float32, and only the
+// output is rounded to q's dtype.  This kernel holds to that arithmetic
+// on the 16-bit tensor-core path, not to a 16-bit shortcut:
+//
+// - S = Q K^T is one mma.sync.m16n8k16 in the input type with a float32
+//   accumulator: the product of two bf16 or f16 values is exact in
+//   float32, so one pass is float32-accurate; the scale multiplies the
+//   float32 scores after the product.
+// - P stays float32-accurate: it is split into two parts of the input
+//   type, hi = round(P) and lo = round(P - hi), and O += lo V + hi V is
+//   two MMAs (m16n8k16, m16n8k8 at 8-key sub-chunks).  That keeps about
+//   16 bits of P (bf16; about 22 for f16, less where lo falls below
+//   f16's normal range, which costs at most 2^-24 absolute a term),
+//   against the output's 8 or 11; V is exact in its own type.  Rounding
+//   P to bf16 once, as most 16-bit flash kernels do, would be a different
+//   result from the reference's float32 P.  f16 never goes through TF32:
+//   its 11-bit mantissa does not fit TF32's 10.
+//
+// Layout: as the float32 kernel's, with the tiles kept in the input
+// type: rows padded to D+8 elements (4 words mod 32, so the 32-bit
+// fragment loads of Q and K hit 32 distinct banks), V's B fragments
+// read transposed by ldmatrix.trans, and P taken straight from the score
+// accumulators into the A fragment of the PV product (the accumulator's
+// columns 2t, 2t+1 are the A fragment's), with no shuffles.  The output
+// is o / l rounded to nearest even in the input type.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "flash_common.cuh"
 #include "mma_tf32.cuh"
-
-#define FLASH_NEG_INF (-1e30f)
-
-struct FlashArgs {
-  const float* q;     // (B*Hq, S, D)
-  const float* k;     // (B*Hkv, S, D)
-  const float* v;     // (B*Hkv, S, D)
-  float* o;           // (B*Hq, S, D)
-  const float* bias;  // (bias_b*bias_h, S, S) or null
-  const int* seg;     // (B, S) or null
-  int hq, group, s, nq, bias_b, bias_h, folded;
-  float scale;
-};
 
 // kernels/flash_attention.py flash_smem_bytes mirrors SMEM_FLOATS.
 template <int BQ, int D>
@@ -84,36 +100,6 @@ struct FlashTile {
   static constexpr int VLD = D + 8;                    // V rows: banks 8t + g
   static constexpr int SMEM_FLOATS = QR * QLD + 2 * BC * KLD + 2 * BC * VLD;
 };
-
-static __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-static __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-static __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Step j of row p: (q tile, kv tile, reset, flush).
-static __device__ __forceinline__ void flash_step(const FlashArgs& a, int p, int j, int& qt,
-                                                  int& kt, bool& start, bool& last) {
-  if (a.folded) {
-    const bool second = j > p;
-    qt = second ? a.nq - 1 - p : p;
-    kt = second ? j - p - 1 : j;
-    start = j == 0 || j == p + 1;
-    last = j == p || j == a.nq;
-  } else {  // bounding box: the live steps kv = 0..p of q tile p
-    qt = p;
-    kt = j;
-    start = j == 0;
-    last = j == p;
-  }
-}
 
 template <int BQ, int D>
 __global__ void __launch_bounds__(FlashTile<BQ, D>::NT, 2)
@@ -132,25 +118,14 @@ flash_fwd_kernel(FlashArgs a) {
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int nq = a.nq, s = a.s;
-  const int pairs = a.folded ? (nq + 1) / 2 : nq;
-  const long long bh = blockIdx.x / pairs;
-  const int p = (int)(blockIdx.x % pairs);
-  const long long kvh = bh / a.group;
-  const long long batch = bh / a.hq;
-  const float* qb = a.q + bh * s * D;
-  const float* kb = a.k + kvh * s * D;
-  const float* vb = a.v + kvh * s * D;
-  float* ob = a.o + bh * s * D;
-  const float* bslab = nullptr;
-  if (a.bias) {
-    const long long head = bh % a.hq;
-    const long long sb = a.bias_b > 1 ? batch % a.bias_b : 0;
-    const long long sh = a.bias_h > 1 ? head % a.bias_h : 0;
-    bslab = a.bias + (sb * a.bias_h + sh) * s * (long long)s;
-  }
-  const int* segb = a.seg ? a.seg + batch * s : nullptr;
-  const int items = (a.folded ? nq + 1 : p + 1) * NCH;  // (step, sub-chunk) in order
+  const int s = a.s;
+  const FlashSlab sl = flash_slab(a);
+  const float* qb = (const float*)a.q + sl.bh * s * D;
+  const float* kb = (const float*)a.k + sl.kvh * s * D;
+  const float* vb = (const float*)a.v + sl.kvh * s * D;
+  float* ob = (float*)a.o + sl.bh * s * D;
+  const int p = sl.p;
+  const int items = sl.steps * NCH;  // (step, sub-chunk) in order
 
   // Issue the cp.async copies of item it's K and V into buffer it & 1.
   auto load_kv = [&](int it) {
@@ -232,51 +207,9 @@ flash_fwd_kernel(FlashArgs a) {
     }
 
     // Bias and masks on the fragments, then the online softmax.
-    const bool diag = qt == kt;
-    const int cbase = c * BC;  // tile-local column of the sub-chunk
-    // Below the diagonal, with no bias or segments, every score is visible.
-    const bool dense = BQ >= 16 && !diag && !segb && !bslab;
-    unsigned valid = dense ? ~0u : 0u;
-    float mx[2] = {FLASH_NEG_INF, FLASH_NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < NKT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[nt][e];
-        if (!dense) {
-          const int rl = e < 2 ? rl0 : rl1;
-          const int cl = cbase + nt * 8 + 2 * t + (e & 1);
-          bool ok = rl < BQ && !(diag && cl > rl);
-          const int row = qt * BQ + rl, col = kt * BQ + cl;
-          if (ok && segb) ok = segb[row] == segb[col];
-          if (ok && bslab) x += bslab[(long long)row * s + col];
-          x = ok ? x : FLASH_NEG_INF;
-          if (ok) valid |= 1u << (nt * 4 + e);
-          sc[nt][e] = x;
-        }
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], mn[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      mn[h] = fmaxf(mrow[h], mx[h]);
-      alpha[h] = expf(mrow[h] - mn[h]);
-      mrow[h] = mn[h];
-    }
-    float ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < NKT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pr = (valid >> (nt * 4 + e)) & 1u ? expf(sc[nt][e] - mn[e >> 1]) : 0.f;
-        sc[nt][e] = pr;
-        ps[e >> 1] += pr;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) lrow[h] = lrow[h] * alpha[h] + ps[h];  // the lane's part
-    if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f))  // a max moved
+    float alpha[2];
+    flash_softmax<NKT>(sc, 1.f, a, sl, BQ, qt, kt, rl0, c * BC, t, mrow, lrow, alpha);
+    if (flash_moved(alpha))
 #pragma unroll
       for (int dt = 0; dt < NDT; ++dt) {
         o[dt][0] *= alpha[0];
@@ -331,25 +264,315 @@ flash_fwd_kernel(FlashArgs a) {
   }
 }
 
-template <int BQ, int D>
-static int flash_launch_t(const FlashArgs& a, long long blocks, cudaStream_t st) {
-  const size_t smem = sizeof(float) * FlashTile<BQ, D>::SMEM_FLOATS;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<BQ, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+
+// ---------------------------------------------------------------------------
+// bfloat16 and float16
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct Flash16Type;
+
+template <>
+struct Flash16Type<__nv_bfloat16> {
+  // hi/lo of two floats as two packed bf16 pairs, element a in the low half.
+  static __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const __nv_bfloat162 l =
+        __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
   }
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ void mma16(float* d, const uint32_t* a, const uint32_t* b) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ void mma8(float* d, const uint32_t* a, uint32_t b) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b));
+  }
+};
+
+template <>
+struct Flash16Type<__half> {
+  static __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+    const __half2 h = __floats2half2_rn(a, b);
+    const __half2 l = __floats2half2_rn(a - __low2float(h), b - __high2float(h));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  }
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ void mma16(float* d, const uint32_t* a, const uint32_t* b) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ void mma8(float* d, const uint32_t* a, uint32_t b) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b));
+  }
+};
+
+// Four (.x4) or two (.x2) 8x8 matrices of 16-bit elements, transposed:
+// lane l gives the row address of matrix l / 8 (row l % 8).
+static __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+static __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* row) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+
+// kernels/flash_attention.py flash_smem_bytes mirrors SMEM_BYTES.
+template <int BQ, int D>
+struct Flash16Tile {
+  static constexpr int WARPS = BQ < 16 ? 1 : BQ / 16;  // 16 query rows each
+  static constexpr int NT = WARPS * 32;
+  static constexpr int QR = WARPS * 16;         // staged Q rows
+  static constexpr int BC = BQ < 16 ? BQ : 16;  // keys per sub-chunk
+  static constexpr int NCH = BQ / BC;
+  static constexpr int LD = D + 8;  // elements a row of Q, K and V
+  static constexpr int SMEM_BYTES = 2 * LD * (QR + 4 * BC);
+};
+
+template <int BQ, int D, typename T>
+__global__ void __launch_bounds__(Flash16Tile<BQ, D>::NT, 2)
+flash16_fwd_kernel(FlashArgs a) {
+  using Tile = Flash16Tile<BQ, D>;
+  using Ty = Flash16Type<T>;
+  constexpr int BC = Tile::BC, NCH = Tile::NCH, NT = Tile::NT, LD = Tile::LD;
+  constexpr int NKT = BC / 8;  // 8-key n-tiles of S
+  constexpr int NDT = D / 8;   // 8-column n-tiles of O
+  constexpr int V8 = D / 8;    // 16-byte pieces a row
+  extern __shared__ __align__(16) unsigned char smem16[];
+  T* q_s = reinterpret_cast<T*>(smem16);  // [QR][LD]     raw Q
+  T* k_s = q_s + Tile::QR * LD;           // [2][BC][LD]  K sub-chunks
+  T* v_s = k_s + 2 * BC * LD;             // [2][BC][LD]  V sub-chunks
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int s = a.s;
+  const FlashSlab sl = flash_slab(a);
+  const T* qb = (const T*)a.q + sl.bh * s * D;
+  const T* kb = (const T*)a.k + sl.kvh * s * D;
+  const T* vb = (const T*)a.v + sl.kvh * s * D;
+  T* ob = (T*)a.o + sl.bh * s * D;
+  const int p = sl.p;
+  const int items = sl.steps * NCH;  // (step, sub-chunk) in order
+
+  auto load_kv = [&](int it) {
+    int qt, kt;
+    bool st, la;
+    flash_step(a, p, it / NCH, qt, kt, st, la);
+    const long long k0 = (long long)kt * BQ + (it % NCH) * BC;
+    const T* ks = kb + k0 * D;
+    const T* vs = vb + k0 * D;
+    T* kd = k_s + (it & 1) * BC * LD;
+    T* vd = v_s + (it & 1) * BC * LD;
+    for (int e = tid; e < BC * V8; e += NT) {
+      const int r = e / V8, c8 = 8 * (e % V8);
+      cp_async16(kd + r * LD + c8, ks + r * D + c8);
+      cp_async16(vd + r * LD + c8, vs + r * D + c8);
+    }
+    cp_async_commit();
+  };
+
+  const int rl0 = warp * 16 + g, rl1 = rl0 + 8;  // the lane's tile-local rows
+  float o[NDT][4], mrow[2], lrow[2];
+  const T* qw = q_s + warp * 16 * LD;
+  load_kv(0);
+  for (int it = 0; it < items; ++it) {
+    const int c = it % NCH;
+    int qt, kt;
+    bool start, last;
+    flash_step(a, p, it / NCH, qt, kt, start, last);
+    cp_async_wait_all();
+    __syncthreads();  // item it's K, V visible; every warp is done with item it-1
+    if (it + 1 < items) load_kv(it + 1);
+    if (start && c == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mrow[h] = FLASH_NEG_INF;
+        lrow[h] = 0.f;
+      }
+#pragma unroll
+      for (int dt = 0; dt < NDT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+      __syncwarp();  // the warp's reads of the previous Q tile are done
+      const T* qsrc = qb + (long long)qt * BQ * D;
+      for (int e = lane; e < 16 * V8; e += 32) {
+        const int r = e / V8, c8 = 8 * (e % V8), row = warp * 16 + r;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);  // padding rows of BQ = 8 stay zero
+        if (row < BQ) x = __ldg(reinterpret_cast<const uint4*>(qsrc + (long long)row * D + c8));
+        *reinterpret_cast<uint4*>(q_s + row * LD + c8) = x;
+      }
+      __syncwarp();
+    }
+    const T* kc = k_s + (it & 1) * BC * LD;
+    const T* vc = v_s + (it & 1) * BC * LD;
+
+    // S = Q K^T in the input type, float32 accumulators: exact products.
+    float sc[NKT][4];
+#pragma unroll
+    for (int nt = 0; nt < NKT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll 2
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const T* q0 = qw + g * LD + kd * 16 + 2 * t;
+      uint32_t fa[4];
+      fa[0] = *reinterpret_cast<const uint32_t*>(q0);
+      fa[1] = *reinterpret_cast<const uint32_t*>(q0 + 8 * LD);
+      fa[2] = *reinterpret_cast<const uint32_t*>(q0 + 8);
+      fa[3] = *reinterpret_cast<const uint32_t*>(q0 + 8 * LD + 8);
+#pragma unroll
+      for (int nt = 0; nt < NKT; ++nt) {
+        const T* k0 = kc + (nt * 8 + g) * LD + kd * 16 + 2 * t;
+        uint32_t fb[2];
+        fb[0] = *reinterpret_cast<const uint32_t*>(k0);
+        fb[1] = *reinterpret_cast<const uint32_t*>(k0 + 8);
+        Ty::mma16(sc[nt], fa, fb);
+      }
+    }
+
+    // Scale, bias and masks on the fragments, then the online softmax.
+    float alpha[2];
+    flash_softmax<NKT>(sc, a.scale, a, sl, BQ, qt, kt, rl0, c * BC, t, mrow, lrow, alpha);
+    if (flash_moved(alpha))
+#pragma unroll
+      for (int dt = 0; dt < NDT; ++dt) {
+        o[dt][0] *= alpha[0];
+        o[dt][1] *= alpha[0];
+        o[dt][2] *= alpha[1];
+        o[dt][3] *= alpha[1];
+      }
+
+    // O += lo V + hi V: the score accumulator's columns (2t, 2t+1) of each
+    // 8-key tile are the A fragment's, so P needs no shuffles.
+    if constexpr (BC == 16) {
+      uint32_t hi[4], lo[4];
+      Ty::split2(sc[0][0], sc[0][1], hi[0], lo[0]);  // row g,   keys 2t, 2t+1
+      Ty::split2(sc[0][2], sc[0][3], hi[1], lo[1]);  // row g+8, keys 2t, 2t+1
+      Ty::split2(sc[1][0], sc[1][1], hi[2], lo[2]);  // row g,   keys 2t+8, 2t+9
+      Ty::split2(sc[1][2], sc[1][3], hi[3], lo[3]);  // row g+8, keys 2t+8, 2t+9
+      // matrix lane / 8: keys (lane / 8 & 1) * 8 + lane % 8, columns of tile dt + lane / 16
+      const T* vrow = vc + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8;
+#pragma unroll
+      for (int dt = 0; dt < NDT; dt += 2) {
+        uint32_t fb[4];
+        ldmatrix_x4_trans(fb, vrow + dt * 8);
+        Ty::mma16(o[dt], lo, fb);
+        Ty::mma16(o[dt + 1], lo, fb + 2);
+        Ty::mma16(o[dt], hi, fb);
+        Ty::mma16(o[dt + 1], hi, fb + 2);
+      }
+    } else {  // 8-key sub-chunks (BQ = 8): m16n8k8
+      uint32_t hi[2], lo[2];
+      Ty::split2(sc[0][0], sc[0][1], hi[0], lo[0]);
+      Ty::split2(sc[0][2], sc[0][3], hi[1], lo[1]);
+      // matrix (lane / 8) & 1: keys lane % 8, columns of tile dt + that
+      const T* vrow = vc + (lane & 7) * LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int dt = 0; dt < NDT; dt += 2) {
+        uint32_t fb[2];
+        ldmatrix_x2_trans(fb, vrow + dt * 8);
+        Ty::mma8(o[dt], lo, fb[0]);
+        Ty::mma8(o[dt + 1], lo, fb[1]);
+        Ty::mma8(o[dt], hi, fb[0]);
+        Ty::mma8(o[dt + 1], hi, fb[1]);
+      }
+    }
+
+    if (last && c == NCH - 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float l = lrow[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const float li = l == 0.f ? 1.f : l;
+        const int rl = h ? rl1 : rl0;
+        if (rl < BQ) {
+          T* orow = ob + (long long)(qt * BQ + rl) * D + 2 * t;
+#pragma unroll
+          for (int dt = 0; dt < NDT; ++dt)
+            *reinterpret_cast<uint32_t*>(orow + dt * 8) =
+                Ty::pack(o[dt][2 * h] / li, o[dt][2 * h + 1] / li);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <typename K>
+static int flash_set_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+template <int BQ, int D>
+static int flash_launch_f32(const FlashArgs& a, long long blocks, cudaStream_t st) {
+  const size_t smem = sizeof(float) * FlashTile<BQ, D>::SMEM_FLOATS;
+  const int err = flash_set_smem(flash_fwd_kernel<BQ, D>, smem);
+  if (err) return err;
   flash_fwd_kernel<BQ, D><<<(unsigned)blocks, FlashTile<BQ, D>::NT, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <int BQ, int D, typename T>
+static int flash_launch_16(const FlashArgs& a, long long blocks, cudaStream_t st) {
+  const size_t smem = Flash16Tile<BQ, D>::SMEM_BYTES;
+  const int err = flash_set_smem(flash16_fwd_kernel<BQ, D, T>, smem);
+  if (err) return err;
+  flash16_fwd_kernel<BQ, D, T><<<(unsigned)blocks, Flash16Tile<BQ, D>::NT, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// dtype 0 float32, 1 bfloat16, 2 float16 (kernels/flash_attention.py).
+template <int BQ, int D>
+static int flash_dispatch_t(const FlashArgs& a, int dtype, long long blocks, cudaStream_t st) {
+  switch (dtype) {
+    case 0:
+      if constexpr (BQ < 64) return flash_launch_f32<BQ, D>(a, blocks, st);
+      return (int)cudaErrorInvalidValue;  // flash_wgmma.cu serves these tiles
+    case 1: return flash_launch_16<BQ, D, __nv_bfloat16>(a, blocks, st);
+    case 2: return flash_launch_16<BQ, D, __half>(a, blocks, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <int BQ>
-static int flash_dispatch_d(const FlashArgs& a, int d, long long blocks, cudaStream_t st) {
+static int flash_dispatch_d(const FlashArgs& a, int dtype, int d, long long blocks,
+                            cudaStream_t st) {
   switch (d) {
-    case 16: return flash_launch_t<BQ, 16>(a, blocks, st);
-    case 32: return flash_launch_t<BQ, 32>(a, blocks, st);
-    case 64: return flash_launch_t<BQ, 64>(a, blocks, st);
-    case 128: return flash_launch_t<BQ, 128>(a, blocks, st);
+    case 16: return flash_dispatch_t<BQ, 16>(a, dtype, blocks, st);
+    case 32: return flash_dispatch_t<BQ, 32>(a, dtype, blocks, st);
+    case 64: return flash_dispatch_t<BQ, 64>(a, dtype, blocks, st);
+    case 128: return flash_dispatch_t<BQ, 128>(a, dtype, blocks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -357,33 +580,20 @@ static int flash_dispatch_d(const FlashArgs& a, int d, long long blocks, cudaStr
 extern "C" int flash_attention_launch(void* o, const void* q, const void* k, const void* v,
                                       const void* bias, int bias_b, int bias_h,
                                       const void* seg, int b, int hq, int hkv, int s, int d,
-                                      int block_q, int folded, float scale, void* stream) {
-  if (b < 1 || hkv < 1 || hq % hkv || block_q < 1 || s % block_q) return (int)cudaErrorInvalidValue;
+                                      int block_q, int folded, float scale, int dtype,
+                                      void* stream) {
   FlashArgs a;
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
-  a.o = (float*)o;
-  a.bias = (const float*)bias;
-  a.seg = (const int*)seg;
-  a.hq = hq;
-  a.group = hq / hkv;
-  a.s = s;
-  a.nq = s / block_q;
-  a.bias_b = bias_b;
-  a.bias_h = bias_h;
-  a.folded = folded;
-  a.scale = scale;
-  const long long pairs = folded ? (a.nq + 1) / 2 : a.nq;
-  const long long blocks = (long long)b * hq * pairs;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  long long blocks;
+  if (!flash_args(&a, o, q, k, v, bias, bias_b, bias_h, seg, b, hq, hkv, s, block_q, folded,
+                  scale, &blocks))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (block_q) {
-    case 8: return flash_dispatch_d<8>(a, d, blocks, st);
-    case 16: return flash_dispatch_d<16>(a, d, blocks, st);
-    case 32: return flash_dispatch_d<32>(a, d, blocks, st);
-    case 64: return flash_dispatch_d<64>(a, d, blocks, st);
-    case 128: return flash_dispatch_d<128>(a, d, blocks, st);
+    case 8: return flash_dispatch_d<8>(a, dtype, d, blocks, st);
+    case 16: return flash_dispatch_d<16>(a, dtype, d, blocks, st);
+    case 32: return flash_dispatch_d<32>(a, dtype, d, blocks, st);
+    case 64: return flash_dispatch_d<64>(a, dtype, d, blocks, st);
+    case 128: return flash_dispatch_d<128>(a, dtype, d, blocks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -30,8 +30,14 @@
 // that threads of one warp read distinct banks; CA stages the
 // (rho+2)^2 periodic halo, each cell masked by its own wrapped
 // position.  Element offsets are int64 (n = 65536 is a 16 GiB array).
+//
+// Element types are the reference's: ACCUM and CA run in the array's own
+// type and EDM computes in float32 and stores the points' type
+// (dtypes.cuh holds that arithmetic; the wrapper stages EDM's points as
+// float32).
 #include <limits.h>
 
+#include "dtypes.cuh"
 #include "simplex_maps.cuh"
 
 enum Legacy2DKind { LEGACY2D_HMAP = 0, LEGACY2D_RB = 1, LEGACY2D_BB = 2 };
@@ -120,8 +126,8 @@ extern "C" int legacy_map2d_launch(void* out, int kind, int nb, int chunk, long 
 // ---------------------------------------------------------------------------
 
 template <typename T>
-__global__ void legacy_accum2d_kernel(T* __restrict__ x, int kind, int nb, int h, int n,
-                                      int rho) {
+static __device__ __forceinline__ void legacy_accum2d_body(T* __restrict__ x, int kind, int nb,
+                                                           int h, int n, int rho) {
   const int wx = blockIdx.x;
   const int tile = rho * rho;
   for (int wy = blockIdx.y; wy < h; wy += gridDim.y) {
@@ -133,42 +139,42 @@ __global__ void legacy_accum2d_kernel(T* __restrict__ x, int kind, int nb, int h
       const int c = xb * rho + (e - i * rho);
       if (c <= r) {
         const long long off = (long long)r * n + c;
-        x[off] = x[off] + (T)1;
+        x[off] = Dt<T>::add(x[off], Dt<T>::from_float(1.f));
       }
     }
   }
 }
 
-template <typename T>
-static int legacy_accum2d_run(T* x, int kind, int nb, int n, int rho, cudaStream_t s) {
-  dim3 grid;
-  int h, threads;
-  if (!legacy2d_tile_launch(kind, nb, n, rho, &grid, &h, &threads))
-    return (int)cudaErrorInvalidValue;
-  legacy_accum2d_kernel<T><<<grid, threads, 0, s>>>(x, kind, nb, h, n, rho);
-  return (int)cudaGetLastError();
+// dtype: a code of dtypes.cuh that ACCUM takes, switched once at the top
+// (the same code in every thread) into a body typed throughout.
+__global__ void legacy_accum2d_kernel(void* __restrict__ x, int dtype, int kind, int nb, int h,
+                                      int n, int rho) {
+#define LEGACY_ACCUM2D_BODY(T) legacy_accum2d_body<T>(static_cast<T*>(x), kind, nb, h, n, rho)
+  SIMPLEX_SWITCH_DTYPE(dtype, LEGACY_ACCUM2D_BODY)
+#undef LEGACY_ACCUM2D_BODY
 }
 
-// dtype: 0 int32, 1 int64, 2 float32, 3 float64.
+// dtype: a code of dtypes.cuh that ACCUM takes (kernels/policy.py DTYPE_CODES).
 extern "C" int legacy_accum2d_launch(void* x, int dtype, int kind, int nb, int n, int rho,
                                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0: return legacy_accum2d_run((int*)x, kind, nb, n, rho, s);
-    case 1: return legacy_accum2d_run((long long*)x, kind, nb, n, rho, s);
-    case 2: return legacy_accum2d_run((float*)x, kind, nb, n, rho, s);
-    case 3: return legacy_accum2d_run((double*)x, kind, nb, n, rho, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  dim3 grid;
+  int h, threads;
+  if (!dt_accum_ok(dtype) || !legacy2d_tile_launch(kind, nb, n, rho, &grid, &h, &threads))
+    return (int)cudaErrorInvalidValue;
+  legacy_accum2d_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(x, dtype, kind, nb, h, n,
+                                                                    rho);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // EDM: out[r, c] = sqrt(sum_k (p[r, k] - p[c, k])^2) where c <= r.
 // ---------------------------------------------------------------------------
 
-__global__ void legacy_edm2d_kernel(float* __restrict__ out, const float* __restrict__ p,
-                                    int d, int kind, int nb, int h, int n, int rho) {
-  extern __shared__ float s_pts[];
+template <typename OutT>
+static __device__ __forceinline__ void legacy_edm2d_body(OutT* __restrict__ out,
+                                                         const float* __restrict__ p, int d,
+                                                         int kind, int nb, int h, int n,
+                                                         int rho, float* s_pts) {
   const int ld = d + 1;
   float* s_row = s_pts;              // (rho, d+1): points of the row block
   float* s_col = s_pts + rho * ld;   // (rho, d+1): points of the column block
@@ -198,16 +204,36 @@ __global__ void legacy_edm2d_kernel(float* __restrict__ out, const float* __rest
         const float t = a[k] - b[k];
         acc += t * t;
       }
-      out[(long long)r * n + c] = sqrtf(acc);
+      out[(long long)r * n + c] = Dt<OutT>::from_float(sqrtf(acc));
     }
   }
 }
 
-extern "C" int legacy_edm2d_launch(void* out, const void* p, int d, int kind, int nb,
-                                   int n, int rho, void* stream) {
+// out_dtype: the floating code of dtypes.cuh the output is stored in,
+// switched once at the top into a body typed throughout.
+__global__ void legacy_edm2d_kernel(void* __restrict__ out, int out_dtype,
+                                    const float* __restrict__ p, int d, int kind, int nb, int h,
+                                    int n, int rho) {
+  extern __shared__ float s_pts[];
+#define LEGACY_EDM2D_BODY(T) \
+  legacy_edm2d_body<T>(static_cast<T*>(out), p, d, kind, nb, h, n, rho, s_pts)
+  switch (out_dtype) {
+    case SIMPLEX_F64: LEGACY_EDM2D_BODY(double); break;
+    case SIMPLEX_BF16: LEGACY_EDM2D_BODY(__nv_bfloat16); break;
+    case SIMPLEX_F16: LEGACY_EDM2D_BODY(__half); break;
+    default: LEGACY_EDM2D_BODY(float); break;
+  }
+#undef LEGACY_EDM2D_BODY
+}
+
+// out_dtype: the floating code of dtypes.cuh the output is stored in; the
+// points are float32.
+extern "C" int legacy_edm2d_launch(void* out, int out_dtype, const void* p, int d, int kind,
+                                   int nb, int n, int rho, void* stream) {
   dim3 grid;
   int h, threads;
-  if (d < 1 || !legacy2d_tile_launch(kind, nb, n, rho, &grid, &h, &threads))
+  if (d < 1 || !dt_float_ok(out_dtype) ||
+      !legacy2d_tile_launch(kind, nb, n, rho, &grid, &h, &threads))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * 2 * (size_t)rho * (d + 1);
   if (smem > 48 * 1024) {
@@ -216,7 +242,7 @@ extern "C" int legacy_edm2d_launch(void* out, const void* p, int d, int kind, in
     if (e != cudaSuccess) return (int)e;
   }
   legacy_edm2d_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (float*)out, (const float*)p, d, kind, nb, h, n, rho);
+      out, out_dtype, (const float*)p, d, kind, nb, h, n, rho);
   return (int)cudaGetLastError();
 }
 
@@ -224,9 +250,13 @@ extern "C" int legacy_edm2d_launch(void* out, const void* p, int d, int kind, in
 // CA: one B3/S23 step on the triangle of a periodic square, in -> out.
 // ---------------------------------------------------------------------------
 
-__global__ void legacy_ca2d_kernel(int* __restrict__ out, const int* __restrict__ in,
-                                   int kind, int nb, int h, int n, int rho) {
-  extern __shared__ int s_halo[];  // (rho+2)^2, origin one cell up and left of the tile
+template <typename T>
+static __device__ __forceinline__ void legacy_ca2d_body(T* __restrict__ out,
+                                                        const T* __restrict__ in, int kind,
+                                                        int nb, int h, int n, int rho,
+                                                        unsigned char* smem) {
+  T* s_halo = reinterpret_cast<T*>(smem);  // (rho+2)^2, origin one cell up and left
+  const T zero = Dt<T>::from_float(0.f);
   const int hs = rho + 2;
   const int wx = blockIdx.x;
   const int tile = rho * rho;
@@ -240,7 +270,7 @@ __global__ void legacy_ca2d_kernel(int* __restrict__ out, const int* __restrict_
       int C = xb * rho + (e - hi * hs) - 1;
       R = R < 0 ? R + n : (R >= n ? R - n : R);
       C = C < 0 ? C + n : (C >= n ? C - n : C);
-      s_halo[e] = C <= R ? in[(long long)R * n + C] : 0;  // off the triangle: dead
+      s_halo[e] = C <= R ? in[(long long)R * n + C] : zero;  // off the triangle: dead
     }
     __syncthreads();
     for (int e = threadIdx.x; e < tile; e += blockDim.x) {
@@ -249,30 +279,45 @@ __global__ void legacy_ca2d_kernel(int* __restrict__ out, const int* __restrict_
       const int r = yb * rho + i;
       const int c = xb * rho + j;
       if (c > r) continue;
-      const int* q = s_halo + (i + 1) * hs + (j + 1);
-      const int centre = q[0];
-      const int neigh = q[-hs - 1] + q[-hs] + q[-hs + 1] + q[-1] + q[1] + q[hs - 1] +
-                        q[hs] + q[hs + 1];
-      const bool alive = (centre == 0 && neigh == 3) ||
-                         (centre == 1 && (neigh == 2 || neigh == 3));
-      out[(long long)r * n + c] = alive;
+      const T* q = s_halo + (i + 1) * hs + (j + 1);
+      const T centre = q[0];
+      // the reference's order (rows, then columns), in the state's own type
+      T neigh = Dt<T>::add(Dt<T>::add(Dt<T>::add(q[-hs - 1], q[-hs]), q[-hs + 1]), q[-1]);
+      neigh = Dt<T>::add(Dt<T>::add(Dt<T>::add(Dt<T>::add(neigh, q[1]), q[hs - 1]), q[hs]),
+                         q[hs + 1]);
+      const bool three = Dt<T>::eq(neigh, 3);
+      const bool alive = (Dt<T>::eq(centre, 0) && three) ||
+                         (Dt<T>::eq(centre, 1) && (Dt<T>::eq(neigh, 2) || three));
+      out[(long long)r * n + c] = Dt<T>::from_float(alive ? 1.f : 0.f);
     }
   }
 }
 
-extern "C" int legacy_ca2d_launch(void* out, const void* in, int kind, int nb, int n,
-                                  int rho, void* stream) {
+// dtype: a code of dtypes.cuh that CA takes, switched once at the top into
+// a body typed throughout.
+__global__ void legacy_ca2d_kernel(void* __restrict__ out, const void* __restrict__ in,
+                                   int dtype, int kind, int nb, int h, int n, int rho) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+#define LEGACY_CA2D_BODY(T) \
+  legacy_ca2d_body<T>(static_cast<T*>(out), static_cast<const T*>(in), kind, nb, h, n, rho, s_raw)
+  SIMPLEX_SWITCH_CA_DTYPE(dtype, LEGACY_CA2D_BODY)
+#undef LEGACY_CA2D_BODY
+}
+
+// dtype: a code of dtypes.cuh that CA takes (kernels/policy.py DTYPE_CODES).
+extern "C" int legacy_ca2d_launch(void* out, const void* in, int dtype, int kind, int nb,
+                                  int n, int rho, void* stream) {
   dim3 grid;
   int h, threads;
-  if (!legacy2d_tile_launch(kind, nb, n, rho, &grid, &h, &threads))
+  if (!dt_ca_ok(dtype) || !legacy2d_tile_launch(kind, nb, n, rho, &grid, &h, &threads))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(int) * (size_t)(rho + 2) * (rho + 2);
+  const size_t smem = (size_t)dt_bytes(dtype) * (size_t)(rho + 2) * (rho + 2);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         legacy_ca2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  legacy_ca2d_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (int*)out, (const int*)in, kind, nb, h, n, rho);
+  legacy_ca2d_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(out, in, dtype, kind, nb,
+                                                                    h, n, rho);
   return (int)cudaGetLastError();
 }

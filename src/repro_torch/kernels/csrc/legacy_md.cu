@@ -34,8 +34,17 @@
 // threads touch neighbouring addresses, a loop when rho^m exceeds the
 // block's 1024 threads.  Element offsets are int64 (an m=3, n=1024 int32
 // array is 2^30 elements, 4 GiB).
+//
+// Element types are the reference's: ACCUM and CA run in the array's own
+// type (dtypes.cuh holds that arithmetic: integers wrap, 16-bit floats
+// round to nearest even after each add).  The type is a run-time code the
+// kernel switches on at the element (ACCUM) or after the map (CA's
+// typed tile), so each kernel is compiled once, not once per type: every
+// thread here inlines the general map, which is what makes a kernel slow
+// to compile.
 #include <limits.h>
 
+#include "dtypes.cuh"
 #include "simplex_maps.cuh"
 
 // Host: unpack the schedule and check the launch: m (0 for any m >= 3)
@@ -57,8 +66,8 @@ static bool legacy_md_setup(const long long* header, const void* data, int m, in
 // ACCUM3D: +1 on T(n) = {x + y + z < n} of an (n, n, n) array, in place.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void legacy_accum3d_kernel(T* __restrict__ x, SimplexMap map, int n, int rho) {
+__global__ void legacy_accum3d_kernel(void* __restrict__ x, int dtype, SimplexMap map, int n,
+                                      int rho) {
   int c[SIMPLEX_MAX_M];
   if (!simplex_map(map, (int)blockIdx.x, c)) return;
   const int z0 = c[2] * rho, y0 = c[1] * rho, x0 = c[0] * rho;
@@ -68,45 +77,30 @@ __global__ void legacy_accum3d_kernel(T* __restrict__ x, SimplexMap map, int n, 
     const int r = e - i * rr;
     const int j = r / rho;
     const int gz = z0 + i, gy = y0 + j, gx = x0 + (r - j * rho);
-    if (gx + gy + gz < n) {
-      const long long off = ((long long)gz * n + gy) * n + gx;
-      x[off] = x[off] + (T)1;
-    }
+    if (gx + gy + gz < n) dt_add_one(x, ((long long)gz * n + gy) * n + gx, dtype);
   }
 }
 
-template <typename T>
-static int legacy_accum3d_run(T* x, const SimplexMap& map, int n, int rho, int threads,
-                              cudaStream_t s) {
-  legacy_accum3d_kernel<T><<<map.steps, threads, 0, s>>>(x, map, n, rho);
-  return (int)cudaGetLastError();
-}
-
-// dtype: 0 int32, 1 int64, 2 float32, 3 float64.
+// dtype: a code of dtypes.cuh that ACCUM takes (kernels/policy.py DTYPE_CODES).
 extern "C" int legacy_accum3d_launch(void* x, int dtype, const long long* header,
                                      const void* data, int n, int rho, void* stream) {
   SimplexMap map;
   int threads;
-  if (!legacy_md_setup(header, data, 3, n, rho, &map, &threads))
+  if (!legacy_md_setup(header, data, 3, n, rho, &map, &threads) ||
+      !dt_accum_ok(dtype))
     return (int)cudaErrorInvalidValue;
   if (map.steps == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0: return legacy_accum3d_run((int*)x, map, n, rho, threads, s);
-    case 1: return legacy_accum3d_run((long long*)x, map, n, rho, threads, s);
-    case 2: return legacy_accum3d_run((float*)x, map, n, rho, threads, s);
-    case 3: return legacy_accum3d_run((double*)x, map, n, rho, threads, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  legacy_accum3d_kernel<<<map.steps, threads, 0, (cudaStream_t)stream>>>(x, dtype, map, n, rho);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // ACCUM_MD: +1 on {sum of coordinates < n} of an (n,)*M array, in place.
 // ---------------------------------------------------------------------------
 
-template <int M, typename T>
-__global__ void legacy_accum_md_kernel(T* __restrict__ x, SimplexMap map, int n, int rho,
-                                       int tile) {
+template <int M>
+__global__ void legacy_accum_md_kernel(void* __restrict__ x, int dtype, SimplexMap map, int n,
+                                       int rho, int tile) {
   int c[SIMPLEX_MAX_M];
   if (!simplex_map(map, (int)blockIdx.x, c)) return;
   int origin[M];  // per array axis; axis j holds x_{M-1-j}
@@ -126,21 +120,9 @@ __global__ void legacy_accum_md_kernel(T* __restrict__ x, SimplexMap map, int n,
       long long off = 0;
 #pragma unroll
       for (int j = 0; j < M; ++j) off = off * n + g[j];
-      x[off] = x[off] + (T)1;
+      dt_add_one(x, off, dtype);
     }
   }
-}
-
-template <typename T>
-static int legacy_accum_md_run(T* x, const SimplexMap& map, int n, int rho, int threads,
-                               cudaStream_t s) {
-  int tile = 1;
-  for (int j = 0; j < map.m; ++j) tile *= rho;
-#define LEGACY_ACCUM_MD(MM) \
-  legacy_accum_md_kernel<MM, T><<<map.steps, threads, 0, s>>>(x, map, n, rho, tile)
-  SIMPLEX_DISPATCH_M(map.m, LEGACY_ACCUM_MD)
-#undef LEGACY_ACCUM_MD
-  return (int)cudaGetLastError();
 }
 
 // m comes from the header (3..SIMPLEX_MAX_M); dtype as for accum3d.
@@ -148,29 +130,32 @@ extern "C" int legacy_accum_md_launch(void* x, int dtype, const long long* heade
                                       const void* data, int n, int rho, void* stream) {
   SimplexMap map;
   int threads;
-  if (!legacy_md_setup(header, data, 0, n, rho, &map, &threads))
+  if (!legacy_md_setup(header, data, 0, n, rho, &map, &threads) ||
+      !dt_accum_ok(dtype))
     return (int)cudaErrorInvalidValue;
   if (map.steps == 0) return 0;
+  int tile = 1;
+  for (int j = 0; j < map.m; ++j) tile *= rho;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0: return legacy_accum_md_run((int*)x, map, n, rho, threads, s);
-    case 1: return legacy_accum_md_run((long long*)x, map, n, rho, threads, s);
-    case 2: return legacy_accum_md_run((float*)x, map, n, rho, threads, s);
-    case 3: return legacy_accum_md_run((double*)x, map, n, rho, threads, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define LEGACY_ACCUM_MD(MM) \
+  legacy_accum_md_kernel<MM><<<map.steps, threads, 0, s>>>(x, dtype, map, n, rho, tile)
+  SIMPLEX_DISPATCH_M(map.m, LEGACY_ACCUM_MD)
+#undef LEGACY_ACCUM_MD
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // CA3D: one B3/S23 step over 26 neighbours on T(n), free boundaries, in -> out.
 // ---------------------------------------------------------------------------
 
-__global__ void legacy_ca3d_kernel(int* __restrict__ out, const int* __restrict__ in,
-                                   SimplexMap map, int n, int rho) {
-  extern __shared__ int s_halo[];  // (rho+2)^3, origin one cell before the tile per axis
-  int c[SIMPLEX_MAX_M];
-  if (!simplex_map(map, (int)blockIdx.x, c)) return;  // uniform in the block
-  const int z0 = c[2] * rho, y0 = c[1] * rho, x0 = c[0] * rho;
+// One tile in the state's type T from the block's origin (z0, y0, x0).
+template <typename T>
+static __device__ __forceinline__ void legacy_ca3d_tile(T* __restrict__ out,
+                                                        const T* __restrict__ in, int z0,
+                                                        int y0, int x0, int n, int rho,
+                                                        unsigned char* smem) {
+  T* s_halo = reinterpret_cast<T*>(smem);  // (rho+2)^3, origin one cell before the tile
+  const T zero = Dt<T>::from_float(0.f);
   const int hs = rho + 2, hh = hs * hs;
   for (int e = threadIdx.x; e < hh * hs; e += blockDim.x) {
     const int i = e / hh;
@@ -179,7 +164,7 @@ __global__ void legacy_ca3d_kernel(int* __restrict__ out, const int* __restrict_
     const int gz = z0 + i - 1, gy = y0 + j - 1, gx = x0 + (r - j * hs) - 1;
     const bool ok = gz >= 0 && gy >= 0 && gx >= 0 && gz < n && gy < n && gx < n &&
                     gx + gy + gz < n;  // off the cube or the tetrahedron: dead
-    s_halo[e] = ok ? in[((long long)gz * n + gy) * n + gx] : 0;
+    s_halo[e] = ok ? in[((long long)gz * n + gy) * n + gx] : zero;
   }
   __syncthreads();
   const int rr = rho * rho;
@@ -190,33 +175,51 @@ __global__ void legacy_ca3d_kernel(int* __restrict__ out, const int* __restrict_
     const int k = r - j * rho;
     const int gz = z0 + i, gy = y0 + j, gx = x0 + k;
     if (gx + gy + gz >= n) continue;  // off the domain: keeps its input
-    const int* q = s_halo + ((i + 1) * hs + (j + 1)) * hs + (k + 1);
-    int neigh = 0;
+    const T* q = s_halo + ((i + 1) * hs + (j + 1)) * hs + (k + 1);
+    // the reference's order over the 27 offsets, the centre left out, in
+    // the state's own type
+    T neigh = zero;
     for (int dz = -1; dz <= 1; ++dz)
       for (int dy = -1; dy <= 1; ++dy)
-        for (int dx = -1; dx <= 1; ++dx) neigh += q[(dz * hs + dy) * hs + dx];
-    const int centre = q[0];
-    neigh -= centre;
-    const bool alive = (centre == 0 && neigh == 3) ||
-                       (centre == 1 && (neigh == 2 || neigh == 3));
-    out[((long long)gz * n + gy) * n + gx] = alive;
+        for (int dx = -1; dx <= 1; ++dx)
+          if (dz || dy || dx) neigh = Dt<T>::add(neigh, q[(dz * hs + dy) * hs + dx]);
+    const T centre = q[0];
+    const bool three = Dt<T>::eq(neigh, 3);
+    const bool alive = (Dt<T>::eq(centre, 0) && three) ||
+                       (Dt<T>::eq(centre, 1) && (Dt<T>::eq(neigh, 2) || three));
+    out[((long long)gz * n + gy) * n + gx] = Dt<T>::from_float(alive ? 1.f : 0.f);
   }
 }
 
-extern "C" int legacy_ca3d_launch(void* out, const void* in, const long long* header,
-                                  const void* data, int n, int rho, void* stream) {
+__global__ void legacy_ca3d_kernel(void* __restrict__ out, const void* __restrict__ in,
+                                   int dtype, SimplexMap map, int n, int rho) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  int c[SIMPLEX_MAX_M];
+  if (!simplex_map(map, (int)blockIdx.x, c)) return;  // uniform in the block
+  const int z0 = c[2] * rho, y0 = c[1] * rho, x0 = c[0] * rho;
+#define LEGACY_CA3D_TILE(T) \
+  legacy_ca3d_tile<T>(static_cast<T*>(out), static_cast<const T*>(in), z0, y0, x0, n, rho, s_raw)
+  SIMPLEX_SWITCH_CA_DTYPE(dtype, LEGACY_CA3D_TILE)
+#undef LEGACY_CA3D_TILE
+}
+
+// dtype: a code of dtypes.cuh that CA takes (kernels/policy.py DTYPE_CODES).
+extern "C" int legacy_ca3d_launch(void* out, const void* in, int dtype,
+                                  const long long* header, const void* data, int n, int rho,
+                                  void* stream) {
   SimplexMap map;
   int threads;
-  if (!legacy_md_setup(header, data, 3, n, rho, &map, &threads))
+  if (!legacy_md_setup(header, data, 3, n, rho, &map, &threads) || !dt_ca_ok(dtype))
     return (int)cudaErrorInvalidValue;
   if (map.steps == 0) return 0;
-  const size_t smem = sizeof(int) * (size_t)(rho + 2) * (rho + 2) * (rho + 2);
+  const size_t smem =
+      (size_t)dt_bytes(dtype) * (size_t)(rho + 2) * (rho + 2) * (rho + 2);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         legacy_ca3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  legacy_ca3d_kernel<<<map.steps, threads, smem, (cudaStream_t)stream>>>(
-      (int*)out, (const int*)in, map, n, rho);
+  legacy_ca3d_kernel<<<map.steps, threads, smem, (cudaStream_t)stream>>>(out, in, dtype, map,
+                                                                         n, rho);
   return (int)cudaGetLastError();
 }

@@ -36,7 +36,8 @@ import torch
 
 from ..core.schedule import SimplexSchedule, resolve_kind
 from . import _build
-from .policy import SMEM_LIMIT, card_operand, check_tile, on_card, resolve_device
+from .policy import (ACCUM_DTYPES, CA_DTYPES, DTYPE_CODES, EDM_DTYPES, SMEM_LIMIT,
+                     card_operand, check_tile, on_card, resolve_device)
 
 __all__ = [
     "SimplexKernel",
@@ -70,7 +71,6 @@ __all__ = [
 
 # Elements per chunk of a plain version's tile gather (bounds its memory).
 _CHUNK_ELEMS = 1 << 22
-_ACCUM_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
 
 
 # ---------------------------------------------------------------------------
@@ -387,12 +387,12 @@ class AccumBody(KernelBody):
     def kernel_(self, buf: torch.Tensor, sched, rho: int) -> None:
         """+1 on the domain tiles ``sched`` visits, in place (``accum.cu``)."""
         check_operand(self.name, sched, rho, buf)
-        card_operand(buf, self.name, _ACCUM_DTYPES)
+        card_operand(buf, self.name, ACCUM_DTYPES)
         desc = sched.device_descriptor(buf.device)
         lib = _build.library()
         with torch.cuda.device(buf.device):
             code = lib.simplex_accum_launch(
-                buf.data_ptr(), _ACCUM_DTYPES[buf.dtype], desc.header.ctypes.data,
+                buf.data_ptr(), DTYPE_CODES[buf.dtype], desc.header.ctypes.data,
                 _ptr(desc.data), buf.shape[0], rho, _stream(buf),
             )
         _build.check(code, self.name)
@@ -461,19 +461,22 @@ class EDMBody(KernelBody):
             flat[_offsets(g, n)[keep]] = total.reshape(s, -1)[keep].to(out.dtype)
 
     def kernel_(self, out: torch.Tensor, p: torch.Tensor, sched, rho: int) -> None:
-        """Write the domain cells of the tiles ``sched`` visits (``edm.cu``)."""
+        """Write the domain cells of the tiles ``sched`` visits (``edm.cu``):
+        the points are staged as float32, the distances stored in
+        ``out.dtype``, one of ``EDM_DTYPES``."""
         check_operand(self.name, sched, rho, out, points=p,
                       smem_bytes=self.smem_bytes(sched.m, rho, p.shape[-1]))
-        card_operand(out, self.name, (torch.float32,))
-        card_operand(p, self.name, (torch.float32,))
+        card_operand(out, self.name, EDM_DTYPES)
+        card_operand(p, self.name, EDM_DTYPES)
         if p.device != out.device:
             raise ValueError(f"{self.name}: points on {p.device}, output on {out.device}")
+        pf = p.to(torch.float32)
         desc = sched.device_descriptor(out.device)
         lib = _build.library()
         with torch.cuda.device(out.device):
             code = lib.simplex_edm_launch(
-                out.data_ptr(), p.data_ptr(), p.shape[1], desc.header.ctypes.data,
-                _ptr(desc.data), out.shape[0], rho, _stream(out),
+                out.data_ptr(), DTYPE_CODES[out.dtype], pf.data_ptr(), p.shape[1],
+                desc.header.ctypes.data, _ptr(desc.data), out.shape[0], rho, _stream(out),
             )
         _build.check(code, self.name)
         self.launches += 1
@@ -575,21 +578,22 @@ class CABody(KernelBody):
 
     def kernel_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
         """Step the domain cells of the tiles ``sched`` visits from
-        ``inp`` into ``out`` (``ca.cu``); ``out`` must not alias ``inp``."""
+        ``inp`` into ``out`` (``ca.cu``), in the state's own dtype (one of
+        ``CA_DTYPES``); ``out`` must not alias ``inp``."""
         check_operand(self.name, sched, rho, inp,
-                      smem_bytes=self.smem_bytes(sched.m, rho))
-        if out.shape != inp.shape:
-            raise ValueError(f"ca: output {tuple(out.shape)} and input "
-                             f"{tuple(inp.shape)} differ")
-        card_operand(out, self.name, (torch.int32,))
-        card_operand(inp, self.name, (torch.int32,))
+                      smem_bytes=self.smem_bytes(sched.m, rho, inp.element_size()))
+        if out.shape != inp.shape or out.dtype != inp.dtype:
+            raise ValueError(f"ca: output {tuple(out.shape)} {out.dtype} and input "
+                             f"{tuple(inp.shape)} {inp.dtype} differ")
+        card_operand(out, self.name, CA_DTYPES)
+        card_operand(inp, self.name, CA_DTYPES)
         if out.data_ptr() == inp.data_ptr():
             raise ValueError("ca: the kernel reads one buffer and writes another")
         desc = sched.device_descriptor(inp.device)
         lib = _build.library()
         with torch.cuda.device(inp.device):
             code = lib.simplex_ca_launch(
-                out.data_ptr(), inp.data_ptr(), int(inp.ndim == 2),
+                out.data_ptr(), inp.data_ptr(), DTYPE_CODES[inp.dtype], int(inp.ndim == 2),
                 desc.header.ctypes.data, _ptr(desc.data), inp.shape[0], rho,
                 _stream(inp),
             )
@@ -597,17 +601,23 @@ class CABody(KernelBody):
         self.launches += 1
 
     @staticmethod
-    def smem_bytes(m: int, rho: int) -> int:
-        """Shared memory of one ``ca.cu`` block: the (rho+2)^m halo and
-        the 3^m stencil offsets."""
-        return 4 * ((rho + 2) ** m + 3**m)
+    def smem_bytes(m: int, rho: int, itemsize: int = 4) -> int:
+        """Shared memory of one ``ca.cu`` block: the (rho+2)^m halo of
+        ``itemsize``-byte cells, rounded up to 4 bytes, and the 3^m - 1
+        neighbour offsets.
+
+        Example:
+            >>> CABody.smem_bytes(2, 16), CABody.smem_bytes(2, 16, 1)
+            (1328, 356)
+        """
+        return ((rho + 2) ** m * itemsize + 3) // 4 * 4 + 4 * (3**m - 1)
 
     def launch(self, kernel: "SimplexKernel", state, device: torch.device):
         """The stepped state; off-domain cells keep their input."""
         m, rho = kernel.m, kernel.rho
         inp = torch.as_tensor(state, device=device).contiguous()
         n = _cube(inp, m, self.name)
-        check_tile(self.name, m, n, rho, self.smem_bytes(m, rho))
+        check_tile(self.name, m, n, rho, self.smem_bytes(m, rho, inp.element_size()))
         out = inp.clone()
         card = on_card(inp, self.name)
         for sched in launch_plan(m, n // rho, kernel.kind, kernel.split,
@@ -717,7 +727,11 @@ def accum(x, rho: Optional[int] = None, kind: str = "hmap",
 
     Args:
         x: ``(n,)*m`` array or tensor, ``rho | n``; m=2 uses the
-            inclusive lower triangle, m >= 3 the strict simplex.
+            inclusive lower triangle, m >= 3 the strict simplex.  On the
+            card any of ``policy.ACCUM_DTYPES`` (int8, uint8, int16,
+            int32, int64, bfloat16, float16, float32, float64); +1 in
+            the array's own type (integers wrap, 16-bit floats round to
+            nearest even).
         rho: Tile side (default per dimension).
         kind: Schedule kind.
         split: Composite per-piece launches (None = fused).
@@ -755,7 +769,8 @@ def edm(p, m: int = 2, rho: Optional[int] = None, kind: str = "hmap",
     matrix at m=2, its dimension-generic sibling beyond.
 
     Args:
-        p: ``(n, d)`` points (float32 on the card).
+        p: ``(n, d)`` points (float16, bfloat16, float32 or float64 on
+            the card); the distances are computed in float32.
         m: Simplex dimension of the output field.
         rho: Tile side (default per dimension).
         kind: Schedule kind.
@@ -774,7 +789,10 @@ def ca(state, rho: Optional[int] = None, kind: str = "hmap",
     """One Game-of-Life step on the m-simplex (m = state.ndim).
 
     Args:
-        state: ``(n,)*m`` 0/1 array (int32 on the card).
+        state: ``(n,)*m`` 0/1 array (on the card any of
+            ``policy.CA_DTYPES``: int8, uint8, int16, int32, int64,
+            bfloat16, float16, float32); neighbours are counted in its
+            own dtype.
         rho: Tile side (default per dimension).
         kind: Schedule kind.
         device: None for the card, ``'cpu'`` for the plain version.

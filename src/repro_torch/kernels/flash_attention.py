@@ -16,18 +16,30 @@ same output and rewrites it.
 
 Two versions of the forward compute the same function:
 
-* the CUDA kernel ``kernels/csrc/flash_attention.cu`` for CUDA tensors,
-  one thread block per ``(b*Hq, pair)`` (folded) or ``(b*Hq, q tile)``
-  (bb) that walks its tile steps in order, its products on the tensor
-  cores to float32 accuracy (3xTF32 ``mma.sync``);
+* three CUDA kernels for CUDA tensors, each block walking one
+  ``(b*Hq, pair)`` (folded) or ``(b*Hq, q tile)`` (bb) in order, chosen
+  by a fixed rule (``flash_route``):
+
+  - ``flash_wgmma`` (``kernels/csrc/flash_wgmma.cu``): float32 at
+    ``block_q`` 64 and 128, 3xTF32 ``wgmma`` with every operand split
+    once per block into shared memory;
+  - ``flash`` (``kernels/csrc/flash_attention.cu``): float32 at
+    ``block_q`` 8, 16 and 32, where a warpgroup's 64-row tile does not
+    fit, 3xTF32 ``mma.sync``;
+  - ``flash16`` (``kernels/csrc/flash_attention.cu``): bfloat16 and
+    float16 at every tile, ``mma.sync`` in the input type with float32
+    accumulators and P kept float32-accurate as two 16-bit parts;
+
+  all compute the reference's float32 softmax and round only the output
+  to q's dtype;
 * a plain PyTorch version that walks the same schedule over one batch of
   ``b*Hq`` slabs with the same running max, denominator, resets and
-  flushes, for CPU tensors and as the kernel's reference on the card.
+  flushes, for CPU tensors and as the kernels' reference on the card.
 
-Dispatch follows the tensor; nothing falls back.  GQA reads the KV row
-``bh // (Hq/Hkv)`` without a repeated K/V tensor.  ``_reference_attention``
-is the independent dense check.  The backward (training) is not ported
-yet.
+Dispatch follows the tensor; nothing falls back, and no kernel gives way
+to another.  GQA reads the KV row ``bh // (Hq/Hkv)`` without a repeated
+K/V tensor.  ``_reference_attention`` is the independent dense check.
+The backward (training) is not ported yet.
 """
 
 from __future__ import annotations
@@ -51,12 +63,20 @@ __all__ = [
     "folded_qkv",
     "kernel_fits",
     "flash_smem_bytes",
+    "flash_route",
     "launch_counts",
+    "ROUTES",
 ]
 
-# Tiles and head dims the CUDA kernel is compiled for.
+# Tiles, head dims and dtypes the CUDA kernels are compiled for.
 KERNEL_BLOCKS = (8, 16, 32, 64, 128)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# The kernels, by the name their launch counter goes under.
+ROUTES = ("flash", "flash16", "flash_wgmma")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# Keys a chunk of flash_wgmma.cu (WG_BN).
+_WG_BN = 32
 
 
 def flash_fold_pairs(nq_tiles: int) -> int:
@@ -133,41 +153,75 @@ def _bias_index(bias_shape, b: int, hq: int):
     return to_slab
 
 
-def flash_smem_bytes(block_q: int, d: int) -> int:
-    """Shared memory of one ``flash_attention.cu`` block: the scaled Q
-    rows of its warps (16 each, so ``max(block_q, 16)``) padded to
-    ``d+4`` floats, then two K sub-chunks padded to ``d+4`` and two V
-    sub-chunks padded to ``d+8`` (the ``cp.async`` double buffer),
-    ``bc = min(16, block_q)`` keys each.  At the serve shape two blocks
-    fit an SM.
+def flash_route(block_q: int, dtype=torch.float32) -> str:
+    """The CUDA kernel that serves ``(block_q, dtype)``: a fixed rule.
+
+    float32 at ``block_q >= 64`` runs ``flash_wgmma`` (a warpgroup's
+    64-row tile), float32 below it ``flash`` (3xTF32 ``mma.sync``), and
+    bfloat16 and float16 ``flash16`` at every tile.
 
     Example:
-        >>> flash_smem_bytes(128, 128)
-        101888
+        >>> flash_route(128), flash_route(32), flash_route(128, torch.bfloat16)
+        ('flash_wgmma', 'flash', 'flash16')
     """
+    if dtype in (torch.bfloat16, torch.float16):
+        return "flash16"
+    return "flash_wgmma" if block_q >= 64 else "flash"
+
+
+def flash_smem_bytes(block_q: int, d: int, dtype=torch.float32) -> int:
+    """Shared memory of one block of the kernel that serves ``(block_q,
+    d, dtype)`` (``flash_route``).
+
+    * ``flash_wgmma``: 1 KB of alignment slack, the big and small parts of
+      the scaled Q tile and of a 32-key K chunk (rows of 128-byte atoms,
+      ``ceil(d/32)`` atoms a row), the big and small parts of the chunk's
+      V^T (``d`` rows of 128 bytes), the raw K and V chunk, the mbarrier.
+      One block an SM at ``(128, 128)``.
+    * ``flash``: the scaled Q rows of its warps (16 each, so
+      ``max(block_q, 16)``) padded to ``d+4`` floats, then two K
+      sub-chunks padded to ``d+4`` and two V sub-chunks padded to ``d+8``
+      (the ``cp.async`` double buffer), ``min(16, block_q)`` keys each.
+    * ``flash16``: the same rows in 2-byte elements, every row padded to
+      ``d+8`` elements.
+
+    Example:
+        >>> flash_smem_bytes(128, 128), flash_smem_bytes(32, 128)
+        (230416, 51200)
+        >>> flash_smem_bytes(128, 128, torch.bfloat16)
+        52224
+    """
+    route = flash_route(block_q, dtype)
     bc = min(16, block_q)
+    if route == "flash_wgmma":
+        atoms = (d + 31) // 32
+        return (1024 + 2 * atoms * 128 * (block_q + _WG_BN) + 2 * d * 128
+                + 2 * _WG_BN * d * 4 + 16)
+    if route == "flash16":
+        return 2 * (d + 8) * (max(block_q, 16) + 4 * bc)
     return 4 * (max(block_q, 16) * (d + 4) + 2 * bc * (d + 4) + 2 * bc * (d + 8))
 
 
-def kernel_fits(block_q: int, d: int) -> bool:
-    """Whether the CUDA kernel is compiled for ``(block_q, d)`` and its
-    block fits the shared memory a Hopper block may use."""
-    return (block_q in KERNEL_BLOCKS and d in KERNEL_HEAD_DIMS
-            and flash_smem_bytes(block_q, d) <= SMEM_LIMIT)
+def kernel_fits(block_q: int, d: int, dtype=torch.float32) -> bool:
+    """Whether a CUDA kernel is compiled for ``(block_q, d, dtype)`` and
+    its block fits the shared memory a Hopper block may use."""
+    return (block_q in KERNEL_BLOCKS and d in KERNEL_HEAD_DIMS and dtype in KERNEL_DTYPES
+            and flash_smem_bytes(block_q, d, dtype) <= SMEM_LIMIT)
 
 
 class FlashKernel:
-    """The flash forward's two versions and its launch counter.
+    """The flash forward's two versions and its launch counters.
 
     Attributes:
-        launches: Launches of the CUDA kernel so far, never of the plain
+        launches: Launches of each CUDA kernel so far, by ``ROUTES`` name
+            (``flash``, ``flash16``, ``flash_wgmma``), never of the plain
             version.
     """
 
     name = "flash"
 
     def __init__(self):
-        self.launches = 0
+        self.launches = dict.fromkeys(ROUTES, 0)
 
     def plain(self, kind: str, block_q: int, scale: float, q, k, v, bias=None,
               seg=None) -> torch.Tensor:
@@ -218,22 +272,27 @@ class FlashKernel:
 
     def kernel(self, kind: str, block_q: int, scale: float, q, k, v, bias=None,
                seg=None) -> torch.Tensor:
-        """The CUDA kernel ``flash_attention.cu`` on CUDA tensors."""
+        """The CUDA kernel ``flash_route(block_q, q.dtype)`` names, on CUDA
+        tensors of one dtype in ``KERNEL_DTYPES``; the output is in that
+        dtype."""
         b, hq, s, d = q.shape
         hkv = k.shape[1]
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.device.type != "cuda" or t.dtype != torch.float32:
-                raise ValueError(f"flash kernel takes float32 CUDA tensors; {name} is "
-                                 f"{t.dtype} on {t.device}")
-            if t.device != q.device:
-                raise ValueError(f"flash kernel: {name} on {t.device}, q on {q.device}")
-        if not kernel_fits(block_q, d):
+            if t.device.type != "cuda" or t.dtype not in KERNEL_DTYPES:
+                raise ValueError(f"flash kernel takes float32, bfloat16 or float16 CUDA "
+                                 f"tensors; {name} is {t.dtype} on {t.device}")
+            if t.device != q.device or t.dtype != q.dtype:
+                raise ValueError(f"flash kernel: {name} is {t.dtype} on {t.device}, q "
+                                 f"{q.dtype} on {q.device}")
+        if not kernel_fits(block_q, d, q.dtype):
             raise ValueError(
                 f"flash kernel is built for block_q in {KERNEL_BLOCKS} and head_dim in "
                 f"{KERNEL_HEAD_DIMS} within {SMEM_LIMIT} bytes of shared memory; got "
                 f"block_q={block_q}, head_dim={d}"
             )
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        # The copies move 16-byte pieces, and a view may start anywhere.
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
         bias_b = bias_h = 1
         if bias is not None:
             bias_b, bias_h = bias.shape[0], bias.shape[1]
@@ -241,17 +300,20 @@ class FlashKernel:
         if seg is not None:
             seg = seg.to(device=q.device, dtype=torch.int32).contiguous()
         out = torch.empty_like(q)
-        lib = _build.library()
-        with torch.cuda.device(q.device):
-            code = lib.flash_attention_launch(
-                out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        route = flash_route(block_q, q.dtype)
+        args = [out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias is None else bias.data_ptr(), bias_b, bias_h,
                 None if seg is None else seg.data_ptr(), b, hq, hkv, s, d, block_q,
-                int(kind == "folded"), float(scale),
-                torch.cuda.current_stream(q.device).cuda_stream,
-            )
-        _build.check(code, self.name)
-        self.launches += 1
+                int(kind == "folded"), float(scale)]
+        lib = _build.library()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            if route == "flash_wgmma":
+                code = lib.flash_wgmma_launch(*args, stream)
+            else:
+                code = lib.flash_attention_launch(*args, _DTYPE_CODES[q.dtype], stream)
+        _build.check(code, route)
+        self.launches[route] += 1
         return out
 
 
@@ -259,13 +321,13 @@ FLASH = FlashKernel()
 
 
 def launch_counts() -> dict:
-    """Launches of the flash kernel since its counter was last 0.
+    """Launches of each flash kernel since its counter was last 0.
 
     Example:
         >>> sorted(launch_counts())
-        ['flash']
+        ['flash', 'flash16', 'flash_wgmma']
     """
-    return {FLASH.name: FLASH.launches}
+    return dict(FLASH.launches)
 
 
 def flash_attention(
@@ -301,7 +363,8 @@ def flash_attention(
 
     Returns:
         ``(B, Hq, S, D)`` attention output in ``q.dtype`` (float32
-        softmax accumulation).
+        softmax accumulation; on the card q, k and v are float32,
+        bfloat16 or float16, all one dtype).
 
     Raises:
         ValueError: S not divisible by the block size, ``block_q !=

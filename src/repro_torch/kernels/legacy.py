@@ -45,7 +45,8 @@ import torch
 
 from ..core.schedule import SimplexSchedule, resolve_kind
 from . import _build
-from .policy import card_operand, check_tile, on_card, resolve_device
+from .policy import (ACCUM_DTYPES, CA_DTYPES, DTYPE_CODES, EDM_DTYPES, card_operand,
+                     check_tile, on_card, resolve_device)
 
 __all__ = [
     "map2d",
@@ -70,7 +71,6 @@ __all__ = [
 # Elements per chunk of a plain version's tile gather (bounds its memory).
 _CHUNK_ELEMS = 1 << 22
 _KIND_CODES = {"hmap": 0, "rb": 1, "bb": 2}
-_ACCUM_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
 
 
 # ---------------------------------------------------------------------------
@@ -290,9 +290,9 @@ class Accum2DKernel(_Legacy):
     def kernel_(self, buf: torch.Tensor, sched, rho: int) -> None:
         """+1 on the triangle of each visited tile of ``buf``, in place
         (``legacy2d.cu``)."""
-        code = _check_launch(self.name, sched, rho, buf, _ACCUM_DTYPES)
+        code = _check_launch(self.name, sched, rho, buf, ACCUM_DTYPES)
         self._launch("legacy_accum2d_launch", buf.device, buf.data_ptr(),
-                     _ACCUM_DTYPES[buf.dtype], code, sched.n, buf.shape[0], rho)
+                     DTYPE_CODES[buf.dtype], code, sched.n, buf.shape[0], rho)
 
 
 ACCUM2D = Accum2DKernel()
@@ -302,8 +302,8 @@ def accum2d(x, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
     """+1 on the inclusive lower triangle of ``x`` (n x n, rho | n).
 
     Args:
-        x: ``(n, n)`` array or tensor (int32, int64, float32 or float64
-            on the card).
+        x: ``(n, n)`` array or tensor (on the card any of
+            ``policy.ACCUM_DTYPES``; +1 in its own type).
         rho: Tile side.
         kind: ``'hmap'``, ``'rb'`` or ``'bb'``.
         device: None for the card, ``'cpu'`` for the plain version.
@@ -360,13 +360,15 @@ class EDM2DKernel(_Legacy):
         if p.ndim != 2 or p.shape[0] != out.shape[0]:
             raise ValueError(f"{self.name}: expected ({out.shape[0]}, d) points, got "
                              f"{tuple(p.shape)}")
-        code = _check_launch(self.name, sched, rho, out, (torch.float32,),
+        code = _check_launch(self.name, sched, rho, out, EDM_DTYPES,
                              self.smem_bytes(rho, p.shape[1]))
-        card_operand(p, self.name, (torch.float32,))
+        card_operand(p, self.name, EDM_DTYPES)
         if p.device != out.device:
             raise ValueError(f"{self.name}: points on {p.device}, output on {out.device}")
-        self._launch("legacy_edm2d_launch", out.device, out.data_ptr(), p.data_ptr(),
-                     p.shape[1], code, sched.n, out.shape[0], rho)
+        pf = p.to(torch.float32)
+        self._launch("legacy_edm2d_launch", out.device, out.data_ptr(),
+                     DTYPE_CODES[out.dtype], pf.data_ptr(), p.shape[1], code, sched.n,
+                     out.shape[0], rho)
 
 
 EDM2D = EDM2DKernel()
@@ -376,7 +378,8 @@ def edm2d(p, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
     """``out[i, j] = ||p_i - p_j||`` on the inclusive lower triangle.
 
     Args:
-        p: ``(n, d)`` points (float32 on the card).
+        p: ``(n, d)`` points (float16, bfloat16, float32 or float64 on
+            the card); the distances are computed in float32.
         rho: Tile side.
         kind: ``'hmap'``, ``'rb'`` or ``'bb'``.
         device: None for the card, ``'cpu'`` for the plain version.
@@ -419,9 +422,10 @@ class CA2DKernel(_Legacy):
     name = "ca2d"
 
     @staticmethod
-    def smem_bytes(rho: int) -> int:
-        """Shared memory of one block: the ``(rho+2)^2`` int32 halo."""
-        return 4 * (rho + 2) ** 2
+    def smem_bytes(rho: int, itemsize: int = 4) -> int:
+        """Shared memory of one block: the ``(rho+2)^2`` halo of
+        ``itemsize``-byte cells."""
+        return itemsize * (rho + 2) ** 2
 
     def plain_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
         """Step the triangle of each visited tile from ``inp`` into ``out``."""
@@ -445,17 +449,17 @@ class CA2DKernel(_Legacy):
     def kernel_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
         """Step the triangle of each visited tile from ``inp`` into ``out``
         (``legacy2d.cu``); ``out`` must not alias ``inp``."""
-        code = _check_launch(self.name, sched, rho, inp, (torch.int32,),
-                             self.smem_bytes(rho))
-        if out.shape != inp.shape:
-            raise ValueError(f"{self.name}: output {tuple(out.shape)} and input "
-                             f"{tuple(inp.shape)} differ")
-        card_operand(out, self.name, (torch.int32,))
+        code = _check_launch(self.name, sched, rho, inp, CA_DTYPES,
+                             self.smem_bytes(rho, inp.element_size()))
+        if out.shape != inp.shape or out.dtype != inp.dtype:
+            raise ValueError(f"{self.name}: output {tuple(out.shape)} {out.dtype} and "
+                             f"input {tuple(inp.shape)} {inp.dtype} differ")
+        card_operand(out, self.name, CA_DTYPES)
         if out.device != inp.device or out.data_ptr() == inp.data_ptr():
             raise ValueError(f"{self.name}: the kernel reads one buffer and writes "
                              "another on the same device")
         self._launch("legacy_ca2d_launch", inp.device, out.data_ptr(), inp.data_ptr(),
-                      code, sched.n, inp.shape[0], rho)
+                     DTYPE_CODES[inp.dtype], code, sched.n, inp.shape[0], rho)
 
 
 CA2D = CA2DKernel()
@@ -466,7 +470,8 @@ def ca2d(state, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
     underlying square).
 
     Args:
-        state: ``(n, n)`` 0/1 array (int32 on the card).
+        state: ``(n, n)`` 0/1 array (on the card any of
+            ``policy.CA_DTYPES``; neighbours counted in its own type).
         rho: Tile side.
         kind: ``'hmap'``, ``'rb'`` or ``'bb'``.
         device: None for the card, ``'cpu'`` for the plain version.
@@ -481,7 +486,7 @@ def ca2d(state, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
         [0, 1, 1, 1]
     """
     inp = torch.as_tensor(state, device=resolve_device(device)).contiguous()
-    n = _check_square(CA2D.name, inp, rho, CA2D.smem_bytes(rho))
+    n = _check_square(CA2D.name, inp, rho, CA2D.smem_bytes(rho, inp.element_size()))
     sched = _schedule(2, n // rho, kind)
     out = inp.clone()
     if on_card(inp, CA2D.name):
@@ -607,8 +612,8 @@ class _LinearAccum(_Legacy):
         place (``legacy_md.cu``)."""
         if self.m and sched.m != self.m:
             raise ValueError(f"{self.name}: serves m={self.m}, got a schedule of m={sched.m}")
-        _check_linear_launch(self.name, sched, rho, buf, _ACCUM_DTYPES)
-        self._launch(self.entry, buf.device, buf.data_ptr(), _ACCUM_DTYPES[buf.dtype],
+        _check_linear_launch(self.name, sched, rho, buf, ACCUM_DTYPES)
+        self._launch(self.entry, buf.device, buf.data_ptr(), DTYPE_CODES[buf.dtype],
                      *_desc_args(sched, buf.device), buf.shape[0], rho)
 
     def run(self, x, m: int, rho: int, kind: str, split: Optional[bool],
@@ -651,8 +656,8 @@ def accum3d(x, rho: int = 4, kind: str = "hmap", split: Optional[bool] = None,
     """+1 on T(n) = {x+y+z < n}; axes (z, y, x); rho | n.
 
     Args:
-        x: ``(n, n, n)`` array or tensor (int32, int64, float32 or
-            float64 on the card).
+        x: ``(n, n, n)`` array or tensor (on the card any of
+            ``policy.ACCUM_DTYPES``; +1 in its own type).
         rho: Tile side.
         kind: ``'hmap'``, ``'octant'``, ``'bb'``, ``'table'`` or
             ``'composite'`` (``'hmap'`` resolves to ``'composite'`` at a
@@ -714,9 +719,10 @@ class CA3DKernel(_Legacy):
     name = "ca3d"
 
     @staticmethod
-    def smem_bytes(rho: int) -> int:
-        """Shared memory of one block: the ``(rho+2)^3`` int32 halo."""
-        return 4 * (rho + 2) ** 3
+    def smem_bytes(rho: int, itemsize: int = 4) -> int:
+        """Shared memory of one block: the ``(rho+2)^3`` halo of
+        ``itemsize``-byte cells."""
+        return itemsize * (rho + 2) ** 3
 
     def plain_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
         """Step the domain cells of each visited tile from ``inp`` into ``out``."""
@@ -748,17 +754,18 @@ class CA3DKernel(_Legacy):
         ``out`` (``legacy_md.cu``); ``out`` must not alias ``inp``."""
         if sched.m != 3:
             raise ValueError(f"{self.name}: serves m=3, got a schedule of m={sched.m}")
-        _check_linear_launch(self.name, sched, rho, inp, (torch.int32,),
-                             self.smem_bytes(rho))
-        if out.shape != inp.shape:
-            raise ValueError(f"{self.name}: output {tuple(out.shape)} and input "
-                             f"{tuple(inp.shape)} differ")
-        card_operand(out, self.name, (torch.int32,))
+        _check_linear_launch(self.name, sched, rho, inp, CA_DTYPES,
+                             self.smem_bytes(rho, inp.element_size()))
+        if out.shape != inp.shape or out.dtype != inp.dtype:
+            raise ValueError(f"{self.name}: output {tuple(out.shape)} {out.dtype} and "
+                             f"input {tuple(inp.shape)} {inp.dtype} differ")
+        card_operand(out, self.name, CA_DTYPES)
         if out.device != inp.device or out.data_ptr() == inp.data_ptr():
             raise ValueError(f"{self.name}: the kernel reads one buffer and writes "
                              "another on the same device")
         self._launch("legacy_ca3d_launch", inp.device, out.data_ptr(), inp.data_ptr(),
-                     *_desc_args(sched, inp.device), inp.shape[0], rho)
+                     DTYPE_CODES[inp.dtype], *_desc_args(sched, inp.device), inp.shape[0],
+                     rho)
 
 
 CA3D = CA3DKernel()
@@ -768,8 +775,9 @@ def ca3d(state, rho: int = 4, kind: str = "hmap", device=None) -> torch.Tensor:
     """One 26-neighbour Game-of-Life step on T(n), free boundaries.
 
     Args:
-        state: ``(n, n, n)`` 0/1 array (int32 on the card); cells off
-            T(n) are dead as neighbours whatever they hold.
+        state: ``(n, n, n)`` 0/1 array (on the card any of
+            ``policy.CA_DTYPES``; neighbours counted in its own type);
+            cells off T(n) are dead as neighbours whatever they hold.
         rho: Tile side.
         kind: ``'hmap'``, ``'octant'``, ``'bb'``, ``'table'`` or
             ``'composite'``.
@@ -785,7 +793,7 @@ def ca3d(state, rho: int = 4, kind: str = "hmap", device=None) -> torch.Tensor:
         1
     """
     inp = torch.as_tensor(state, device=resolve_device(device)).contiguous()
-    n = _check_cube(CA3D.name, inp, 3, rho, CA3D.smem_bytes(rho))
+    n = _check_cube(CA3D.name, inp, 3, rho, CA3D.smem_bytes(rho, inp.element_size()))
     sched = _schedule(3, n // rho, kind)
     out = inp.clone()
     if on_card(inp, CA3D.name):

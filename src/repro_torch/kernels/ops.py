@@ -129,7 +129,7 @@ def causal_flash_attention(q, k, v, kind: str = "auto", block_q: int = 0,
     q, k, v = (torch.as_tensor(x, device=device) for x in (q, k, v))
     if kind == "auto" or block_q <= 0:
         b, hq, s, d = q.shape
-        dec = choose_attn_impl(s, hq, d, device)
+        dec = choose_attn_impl(s, hq, d, device, q.dtype)
         if kind == "auto":
             if dec.impl != "flash" or dec.block_q <= 0:
                 return ref.causal_attention(q, k, v)

@@ -13,6 +13,11 @@
 * ``card_operand`` is what a kernel wrapper holds each tensor to before
   any build or launch: on the card, of a dtype the kernel takes,
   contiguous.
+* ``DTYPE_CODES`` numbers the element types of the simplex kernels as
+  ``kernels/csrc/dtypes.cuh`` does; ``ACCUM_DTYPES``, ``CA_DTYPES`` and
+  ``EDM_DTYPES`` are the types each family takes on the card, the
+  reference's: ACCUM and CA run in the array's own type, EDM computes in
+  float32 and returns the points' floating type.
 """
 
 from __future__ import annotations
@@ -23,6 +28,10 @@ import torch
 
 __all__ = [
     "SMEM_LIMIT",
+    "DTYPE_CODES",
+    "ACCUM_DTYPES",
+    "CA_DTYPES",
+    "EDM_DTYPES",
     "MAX_M",
     "resolve_device",
     "on_card",
@@ -34,6 +43,18 @@ __all__ = [
 SMEM_LIMIT = 232_448
 # Dimensions the device maps serve (SIMPLEX_MAX_M in simplex_maps.cuh).
 MAX_M = 8
+
+# Element type codes of kernels/csrc/dtypes.cuh (enum SimplexDtype).
+DTYPE_CODES = {
+    torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3, torch.int8: 4,
+    torch.uint8: 5, torch.int16: 6, torch.bfloat16: 7, torch.float16: 8,
+}
+# +1 in place (accum.cu, legacy ACCUM): every coded type.
+ACCUM_DTYPES = tuple(DTYPE_CODES)
+# One Life step in the state's own type (ca.cu, legacy CA): all but float64.
+CA_DTYPES = tuple(t for t in DTYPE_CODES if t is not torch.float64)
+# Distances in float32, stored in the points' type (edm.cu, legacy EDM).
+EDM_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 
 
 def resolve_device(device=None) -> torch.device:

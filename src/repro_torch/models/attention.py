@@ -179,7 +179,7 @@ def simplex_attention(
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     if impl != "chunked" and v.shape[-1] == d and hkv > 0 and hq % hkv == 0:
-        dec = choose_attn_impl(s, hq, d, q.device)
+        dec = choose_attn_impl(s, hq, d, q.device, q.dtype)
         if dec.block_q > 0 and (dec.impl == "flash" or impl != "auto"):
             if "-" in impl:
                 kind = impl.split("-", 1)[1]

@@ -42,7 +42,7 @@ def test_port_has_modules():
         assert want in names
     for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh",
                "flash_attention.cu", "legacy2d.cu", "legacy_md.cu", "hmap_mxu.cu",
-               "mma_tf32.cuh"):
+               "mma_tf32.cuh", "flash_wgmma.cu", "flash_common.cuh", "dtypes.cuh"):
         assert (REPO / "src/repro_torch/kernels/csrc" / cu).is_file()
 
 

@@ -1,5 +1,7 @@
-"""The tensor-core arithmetic of ``edm.cu`` and ``flash_attention.cu``,
-emulated on the CPU and held against the plain versions.
+"""The tensor-core arithmetic of ``edm.cu``, ``flash_attention.cu`` and
+``flash_wgmma.cu``, emulated on the CPU and held against the plain
+versions; ``flash_wgmma.cu``'s shared-memory layouts emulated against the
+fragments they replace.
 
 Both kernels take float32 dot products on the tensor cores as 3xTF32
 ``mma.sync`` (``kernels/csrc/mma_tf32.cuh``): ``x = big + small`` with
@@ -15,6 +17,8 @@ flash within ``2e-5 + 2e-5 * max|want|`` of the plain version.  Single-
 pass TF32 (``big_a.big_b`` alone) must fail the EDM gate on the same
 inputs, which shows the test sees the difference.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -242,3 +246,142 @@ def test_new_layouts_accept_every_shape_the_old_ones_did():
                 if old <= limit:
                     assert new <= limit, (m, rho, d, old, new)
     assert all(TF.kernel_fits(bq, d) for bq in TF.KERNEL_BLOCKS for d in TF.KERNEL_HEAD_DIMS)
+
+
+# ---------------------------------------------------------------- flash_wgmma.cu's layouts
+#
+# flash_wgmma.cu splits each operand once per block and stores the parts
+# in wgmma's 128-byte-swizzle K-major layout: 8 rows of 128 bytes an atom,
+# the 16-byte piece c of row r at piece c ^ (r % 8), atoms along K; the
+# hardware reads k-step ks (8 floats) of row r from bytes 32 (ks % 4) ..
+# of atom ks // 4, through the same XOR.  V is stored transposed, its keys
+# permuted within each 8-key block so that the score accumulators are the
+# A fragment of the PV product as they stand.  The emulation below holds
+# those formulas, which the test first finds in the kernel's source.
+
+WGMMA_SRC = (pathlib.Path(TF.__file__).parent / "csrc" / "flash_wgmma.cu").read_text()
+
+
+def wg_swz(r: int, c: int, rows: int) -> int:
+    """Byte offset of 16-byte piece ``c`` of row ``r`` (``wg_swz``)."""
+    return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4)
+
+
+def wg_read(buf: np.ndarray, r: int, ks: int, kk: int, rows: int) -> np.uint32:
+    """What wgmma reads for row ``r``, element ``kk`` of k-step ``ks``: the
+    logical byte 32 (ks % 4) + 4 kk of the row in atom ks // 4, whose
+    16-byte piece the hardware swizzles by the row."""
+    byte = 32 * (ks & 3) + 4 * kk
+    piece, within = byte >> 4, byte & 15
+    addr = (ks >> 2) * rows * 128 + r * 128 + ((piece ^ (r & 7)) << 4) + within
+    return buf[addr // 4]
+
+
+def split_bits(x: torch.Tensor):
+    big, small = split(x)
+    return big.view(torch.int32).numpy().view(np.uint32), \
+        small.view(torch.int32).numpy().view(np.uint32)
+
+
+def test_wgmma_kernel_has_the_emulated_layouts():
+    """Two anchors tie the emulations below to the kernel: the swizzle of
+    ``wg_swz`` and the key permutation of the Vᵀ split pass."""
+    for text in ("(c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4)",
+                 "(8 * (j >> 1) + (j & 1)) * D"):
+        assert text in WGMMA_SRC, text
+
+
+@pytest.mark.parametrize("rows,d", [(128, 128), (64, 64), (32, 16)])
+def test_block_once_split_gives_the_fragment_bits(rows, d):
+    """Q (scaled) and K split once into the swizzled layout read back, at
+    every (row, k) wgmma asks for, the big and small bits ``frag_a`` /
+    ``frag_b`` give when they split the same value at the load; so does
+    the register A fragment of Q's big part, read from the same layout."""
+    rng = np.random.default_rng(rows + d)
+    x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32)) * d**-0.5
+    atoms = (d + 31) // 32
+    bufs = [np.zeros(atoms * rows * 32, np.uint32) for _ in range(2)]
+    for r in range(rows):  # the split pass: piece c4 of row r, both parts
+        for c4 in range(d // 4):
+            off = wg_swz(r, c4, rows) // 4
+            for part, bits in zip(bufs, split_bits(x[r, 4 * c4:4 * c4 + 4])):
+                part[off:off + 4] = bits
+    big, small = split_bits(x)
+    for ks in range(d // 8):
+        for r in range(rows):
+            for kk in range(8):
+                assert wg_read(bufs[0], r, ks, kk, rows) == big[r, 8 * ks + kk]
+                assert wg_read(bufs[1], r, ks, kk, rows) == small[r, 8 * ks + kk]
+    # The register A fragment of Q's big part, read once per query tile:
+    # lane (g, t) of warp w holds rows 16w + g (+8), k-step columns t, t+4.
+    for w in range(rows // 16):
+        for g in range(8):
+            for t in range(4):
+                for ks in range(d // 8):
+                    for f in range(4):
+                        r = 16 * w + g + 8 * (f & 1)
+                        k = 8 * ks + t + 4 * (f >> 1)
+                        off = (wg_swz(r, k >> 2, rows) + 4 * (k & 3)) // 4
+                        assert bufs[0][off] == big[r, k]
+
+
+def _vt_buffers(v: torch.Tensor, permute: bool):
+    """V (32 keys x D) split into V^T's two parts as the split pass writes
+    them: row d, logical keys 4j..4j+3 from physical keys
+    8 (j / 2) + (j % 2) + {0, 2, 4, 6} (or, without the permutation,
+    4j..4j+3)."""
+    n, d = v.shape
+    bufs = [np.zeros(d * 32, np.uint32) for _ in range(2)]
+    for dd in range(d):
+        for j in range(n // 4):
+            keys = ([8 * (j >> 1) + (j & 1) + o for o in (0, 2, 4, 6)] if permute
+                    else [4 * j + o for o in range(4)])
+            off = (dd * 128 + ((j ^ (dd & 7)) << 4)) // 4
+            for part, bits in zip(bufs, split_bits(v[keys, dd])):
+                part[off:off + 4] = bits
+    return bufs
+
+
+def _pv_from_accumulators(p: torch.Tensor, bufs, d: int) -> torch.Tensor:
+    """One warp's O = P V as the kernel issues it: P (16 x 32) held as the
+    score accumulators (lane (g, t): sc[4i + e] = P[g + 8 (e / 2)]
+    [8i + 2t + (e % 2)]), taken as the A fragment of k-step i (a0 = (g, t)
+    = sc[4i], a1 = (g + 8, t) = sc[4i + 2], a2 = (g, t + 4) = sc[4i + 1],
+    a3 = (g + 8, t + 4) = sc[4i + 3]), times B = V^T read by wgmma, in
+    3xTF32 with every product and sum in float64."""
+    pb, ps = split(p)
+    out = torch.zeros((16, d), dtype=torch.float64)
+    for i in range(4):
+        a_big = torch.zeros((16, 8), dtype=torch.float64)
+        a_small = torch.zeros((16, 8), dtype=torch.float64)
+        for g in range(8):
+            for t in range(4):
+                for (row, k), (r_acc, key) in (((g, t), (g, 8 * i + 2 * t)),
+                                               ((g + 8, t), (g + 8, 8 * i + 2 * t)),
+                                               ((g, t + 4), (g, 8 * i + 2 * t + 1)),
+                                               ((g + 8, t + 4), (g + 8, 8 * i + 2 * t + 1))):
+                    a_big[row, k] = pb[r_acc, key]
+                    a_small[row, k] = ps[r_acc, key]
+        b = [np.array([[wg_read(part, n, i, k, d) for n in range(d)] for k in range(8)])
+             for part in bufs]
+        b_big, b_small = (torch.from_numpy(x.astype(np.uint32).view(np.float32)).double()
+                          for x in b)
+        out += a_small @ b_big + a_big @ b_small + a_big @ b_big
+    return out
+
+
+@pytest.mark.parametrize("d", [16, 128])
+def test_vt_layout_gives_the_same_product(d):
+    """The permuted V^T with the accumulators as A gives P V's 3xTF32
+    product exactly (every term exact in float64); without the
+    permutation the same reads give another matrix."""
+    rng = np.random.default_rng(d)
+    p = torch.from_numpy(rng.random((16, 32)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((32, d)).astype(np.float32))
+    pb, ps = split(p)
+    vb, vs = split(v)
+    want = ps.double() @ vb.double() + pb.double() @ vs.double() + pb.double() @ vb.double()
+    got = _pv_from_accumulators(p, _vt_buffers(v, permute=True), d)
+    assert torch.allclose(got, want, rtol=1e-12, atol=1e-12)
+    wrong = _pv_from_accumulators(p, _vt_buffers(v, permute=False), d)
+    assert (wrong - want).abs().max().item() > 1e-3
