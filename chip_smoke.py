@@ -26,6 +26,9 @@ coordinates into element origins.  This script
    sums run in another order on the card, the kernel takes the Gram form
    on the tensor cores, and ``sqrtf`` rounds there), also on points with
    exact and near duplicates at m=2 and m=3, where the Gram form cancels;
+   ACCUM also on ACCUM's scalar path (rho = 1 and 2 in int32, where a tile
+   row is not a whole number of 16-byte pieces) and, in place through
+   ``engine.accum_``, on a view that starts off a 16-byte boundary;
 4. reads the counters, which must be > 0 for every kernel;
 5. legacy 2-D: sets every counter to 0 again and drives the frozen 2-D
    originals of ``repro_torch.kernels.legacy`` (``map2d``, ``accum2d``,
@@ -70,8 +73,8 @@ coordinates into element origins.  This script
    kinds, odd and even tile counts, some with a bias or segment ids;
    float32 within ``2e-5 + 2e-5 * max|p|`` of the plain version, 16-bit
    within one ulp of its type plus ``2^-15 * max|v|``; each kernel
-   (``flash``, ``flash16``, ``flash_wgmma``) launched once per case of
-   its route;
+   (``flash``, ``flash16``, ``flash16_wgmma``, ``flash_wgmma``) launched
+   once per case of its route;
 10. serves full-width yi-6b (32 layers, d_model 4096, float32 weights
    from ``--seed``; batch 4, prompt 2048, 16 greedy tokens) with every
    counter at 0, and checks that prefill launched ``flash_wgmma`` once
@@ -82,7 +85,8 @@ coordinates into element origins.  This script
 12. frees that model, builds yi-6b at its config's own dtypes (bfloat16
    activations, float32 weights from ``--seed``), prefills batch 4,
    prompt 2048 with every counter at 0, checks that it launched
-   ``flash16`` once per layer, and holds its last-token logits against
+   ``flash16_wgmma`` once per layer and no other flash kernel, and holds
+   its last-token logits against
    the same model's chunked prefill within ``LOGIT16_TOL * max|logit|``
    with every row's argmax equal, then prefills it twice more with a
    wrong attention in the kernel's place (a mask one key too wide, which
@@ -90,8 +94,9 @@ coordinates into element origins.  This script
 13. holds the flash kernels against their plain version on the card at
    the serve shape (float32 folded and bb, bfloat16 and float16
    folded), at a 2080-token prompt with 32-row tiles (float32 folded and
-   bb), an odd tile count, ``Hkv == Hq``, a broadcast bias and segment
-   ids, and against ``_reference_attention`` on a small case;
+   bb, bfloat16 folded), an odd tile count, ``Hkv == Hq``, a broadcast
+   bias and segment ids, and against ``_reference_attention`` on a small
+   case;
 14. times each engine kernel (median of CUDA-event-timed runs after
    warm-up), its plain version and, where one PyTorch call computes the
    same function, that call (``library_ms``, a yardstick the port never
@@ -103,8 +108,9 @@ coordinates into element origins.  This script
    67 TFLOP/s);
 15. times each flash kernel, its plain version and
     ``scaled_dot_product_attention`` in the same dtype: ``flash_wgmma``
-    (folded and bb) at the serve shape, ``flash16`` in bfloat16 at the
-    serve shape (bound at the bf16 rate, 989 TFLOP/s), ``flash`` at a
+    (folded and bb) at the serve shape, ``flash16_wgmma`` in bfloat16
+    (folded and bb) and float16 at the serve shape (bound at the 16-bit
+    rate, 989 TFLOP/s), ``flash`` and ``flash16`` (bfloat16) at a
     2080-token prompt (32-row tiles); each timed output is held against
     the plain version's on the same inputs (``equal=`` on its line);
 16. checks a small input against the dense oracles of ``kernels/ref.py``;
@@ -146,6 +152,7 @@ REPLACES = {
     "ca": "src/repro/kernels/engine.py:503",
     "flash": "src/repro/kernels/flash_attention.py:296",
     "flash16": "src/repro/kernels/flash_attention.py:296",
+    "flash16_wgmma": "src/repro/kernels/flash_attention.py:296",
     "flash_wgmma": "src/repro/kernels/flash_attention.py:296",
     "map2d": "src/repro/kernels/legacy.py:82",
     "accum2d": "src/repro/kernels/legacy.py:118",
@@ -160,6 +167,7 @@ SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in SIMPLEX}
 SOURCES["flash"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCES["flash16"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCES["flash_wgmma"] = "src/repro_torch/kernels/csrc/flash_wgmma.cu"
+SOURCES["flash16_wgmma"] = "src/repro_torch/kernels/csrc/flash16_wgmma.cu"
 SOURCES["hmap_mxu"] = "src/repro_torch/kernels/csrc/hmap_mxu.cu"
 
 # The frozen 2-D originals: each legacy kernel and the engine body it is
@@ -225,6 +233,12 @@ MAP_CASES = {
 EDM_DUPLICATE_CASES = ((2, 16384, 16, "hmap"), (3, 1024, 8, "octant"))
 # (test, m) whose composite cases also run split=True: one launch per piece.
 SPLIT = {("accum", 3), ("edm", 3), ("accum", 4), ("edm", 4)}
+# ACCUM off its 16-byte pieces: (m, n, rho) in int32, where rho elements
+# are not a whole number of pieces (engine.accum_vector_access), and the
+# side of the in-place case on a view that starts 4 bytes past a 16-byte
+# boundary.
+ACCUM_SCALAR_CASES = ((2, 4096, 1), (2, 4096, 2), (3, 256, 2))
+ACCUM_MISALIGNED_N = 4096
 CA_DENSITY = {2: 0.4, 3: 0.35}
 
 
@@ -365,6 +379,7 @@ class Smoke:
                     self._ca_cases(m, n, rho, kinds)
                 torch.cuda.empty_cache()
         self._edm_duplicates()
+        self._accum_access()
 
     def variants(self, test, m, kinds):
         """``(kind, split)`` per case: every kind fused, and the composite
@@ -418,6 +433,50 @@ class Smoke:
             if not torch.equal(out, want):
                 self.fail(f"accum m={m} n={n} kind={kind} split={split}")
             del out, want
+
+    def _accum_access(self) -> None:
+        """ACCUM where ``accum.cu`` takes single elements, bit-equal to the
+        plain version: rho 1 and 2 in int32 through the entry points, and
+        ``engine.accum_`` in place on a view that starts 4 bytes past a
+        16-byte boundary, whose neighbours must stay as they were."""
+        torch, ops, engine = self.torch, self.ops, self.engine
+        body = engine.get_body("accum")
+        for m, n, rho in ACCUM_SCALAR_CASES:
+            x = torch.randint(0, 100, (n,) * m, generator=self.gen(30 + 4 * m + rho),
+                              device=self.dev, dtype=torch.int32)
+            vector = engine.accum_vector_access(rho, x.element_size(), x.data_ptr())
+            before = body.launches
+            out = (ops.simplex_accum2d if m == 2 else ops.simplex_accum3d)(x, rho=rho,
+                                                                           kind="hmap")
+            torch.cuda.synchronize()
+            want = x.clone()
+            body.plain_(want, engine.schedule_for(m, n // rho, "hmap"), rho)
+            equal = torch.equal(out, want)
+            _log(f"accum check scalar path m={m} n={n} rho={rho} int32 vector={vector} "
+                 f"launches={body.launches - before} equal={equal}")
+            if vector or body.launches - before != 1 or not equal:
+                self.fail(f"accum scalar path m={m} n={n} rho={rho}")
+            del x, out, want
+        n = ACCUM_MISALIGNED_N
+        store = torch.randint(0, 100, (n * n + 8,), generator=self.gen(39), device=self.dev,
+                              dtype=torch.int32)
+        lead = (-store.data_ptr() % 16) // 4 + 1  # one element past a 16-byte boundary
+        x = store[lead:lead + n * n].view(n, n)
+        kept = store.clone()
+        want = x.clone()
+        body.plain_(want, engine.schedule_for(2, n // 16, "hmap"), 16)
+        vector = engine.accum_vector_access(16, 4, x.data_ptr())
+        before = body.launches
+        engine.accum_(x, rho=16, kind="hmap")
+        torch.cuda.synchronize()
+        equal = (torch.equal(x, want) and torch.equal(store[:lead], kept[:lead])
+                 and torch.equal(store[lead + n * n:], kept[lead + n * n:]))
+        _log(f"accum check misaligned view m=2 n={n} rho=16 int32 data_ptr%16="
+             f"{x.data_ptr() % 16} vector={vector} launches={body.launches - before} "
+             f"equal={equal}")
+        if vector or body.launches - before != 1 or not equal:
+            self.fail(f"accum misaligned view n={n}")
+        del store, kept, x, want
 
     def _edm_cases(self, m, n, rho, kinds):
         torch, ops, engine = self.torch, self.ops, self.engine
@@ -1346,7 +1405,8 @@ class FlashSmoke:
             got = FL.kernel("folded", 128, d**-0.5, q, k, v)
             torch.cuda.synchronize()
             self.compare(f"serve shape {str(dtype)[6:]} folded shape={SERVE_SHAPE} block_q=128",
-                         "flash16", got, FL.plain("folded", 128, d**-0.5, q, k, v), v)
+                         self.fa.flash_route(128, dtype), got,
+                         FL.plain("folded", 128, d**-0.5, q, k, v), v)
             del q, k, v
         q, k, v = self.qkv(1, 4, 2, 256, 64, salt=70)
         bias = torch.randn((1, 4, 256, 256), generator=self.s.gen(71), device=self.s.dev)
@@ -1443,13 +1503,14 @@ class FlashSmoke:
         ok, err, agree = self.gate16(logits, ref, scale)
         self.stats["logit16_err"] = err
         self.stats["logit16_rel"] = err / scale
-        _log(f"hold16 flash16 vs chunked prefill: max_abs_err={err:.3e} max|logit|={scale:.3f} "
+        _log(f"hold16 flash16_wgmma vs chunked prefill: max_abs_err={err:.3e} "
+             f"max|logit|={scale:.3f} "
              f"rel={err / scale:.3e} gate {LOGIT16_TOL} * max|logit| and argmax_agree == 1 "
              f"chunked_prefill_s={self.stats['chunked16_s']:.4f} argmax_agree={agree:.3f} "
              f"min_top2_gap={gap:.3e} ok={ok}")
         if not ok:
-            self.s.fail(f"hold16: flash16 and chunked logits differ by {err} (max|logit| {scale}),"
-                        f" argmax agreeing on {agree}")
+            self.s.fail(f"hold16: flash16_wgmma and chunked logits differ by {err} (max|logit| "
+                        f"{scale}), argmax agreeing on {agree}")
         from repro_torch.models import attention as attn
         real = attn.flash_attention
         for name, round_p, see_next in (("mask sees next key", False, True),
@@ -1529,17 +1590,19 @@ class FlashSmoke:
     def timings(self) -> None:
         """Each flash kernel, its plain version and SDPA at the shapes the
         paths give it: ``flash_wgmma`` (folded and bb) at the serve shape
-        in float32, ``flash16`` at the serve shape in bfloat16 (the 16-bit
-        prefill's), and ``flash`` at a prompt of 2080 tokens, where the
-        tuner picks 32-row tiles."""
+        in float32, ``flash16_wgmma`` at the serve shape in bfloat16 (the
+        16-bit prefill's; folded and bb) and float16, and ``flash`` and
+        ``flash16`` (bfloat16) at a prompt of 2080 tokens, where the tuner
+        picks 32-row tiles."""
         torch, FL = self.torch, self.fa.FLASH
         b, hq, hkv, s, d = SERVE_SHAPE
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        for route, dtype, seq, bq, kinds in (("flash_wgmma", torch.float32, s, 128,
-                                              ("folded", "bb")),
-                                             ("flash16", torch.bfloat16, s, 128, ("folded",)),
-                                             ("flash", torch.float32, SMALL_TILE_S, 32,
-                                              ("folded",))):
+        for route, dtype, seq, bq, kinds in (
+                ("flash_wgmma", torch.float32, s, 128, ("folded", "bb")),
+                ("flash16_wgmma", torch.bfloat16, s, 128, ("folded", "bb")),
+                ("flash16_wgmma", torch.float16, s, 128, ("folded",)),
+                ("flash", torch.float32, SMALL_TILE_S, 32, ("folded",)),
+                ("flash16", torch.bfloat16, SMALL_TILE_S, 32, ("folded",))):
             q, k, v = (t.to(dtype) for t in self.qkv(b, hq, hkv, seq, d, salt=80))
             scale = d**-0.5
             kx = k.repeat_interleave(hq // hkv, dim=1)
@@ -1569,8 +1632,8 @@ class FlashSmoke:
             del q, k, v, kx, vx
             torch.cuda.empty_cache()
         for row in self.rows:
-            bb = next((r for r in self.rows if r["route"] == row["route"] and r["kind"] == "bb"),
-                      None)
+            bb = next((r for r in self.rows if r["route"] == row["route"]
+                       and r["dtype"] == row["dtype"] and r["kind"] == "bb"), None)
             _log(f"case test={row['route']} dtype={row['dtype']} kind={row['kind']} B={b} "
                  f"Hq={hq} Hkv={hkv} S={row['s']} D={d} block_q={row['block_q']} "
                  f"steps={row['steps']} ms={row['ms']:.4f} "
@@ -1715,6 +1778,7 @@ def main(argv=None) -> int:
     _log(f"phase flash tile sweep: {time.perf_counter() - t0:.1f} s, "
          f"launches {sweep_launches}")
     launches["flash"] = sweep_launches["flash"]
+    launches["flash16"] = sweep_launches["flash16"]
     for route in fa.ROUTES:
         if sweep_launches[route] != want[route] or want[route] <= 0:
             smoke.fail(f"flash sweep: {route} launched {sweep_launches[route]} times, "
@@ -1728,8 +1792,8 @@ def main(argv=None) -> int:
     _log(f"phase serve path: {time.perf_counter() - t0:.1f} s, launches {serve_launches}")
     launches["flash_wgmma"] = serve_launches["flash_wgmma"]
     n_layers = run.model.cfg.n_layers
-    if (serve_launches["flash_wgmma"] != n_layers or serve_launches["flash"]
-            or serve_launches["flash16"]):
+    if (serve_launches["flash_wgmma"] != n_layers
+            or any(serve_launches[r] for r in fa.ROUTES if r != "flash_wgmma")):
         smoke.fail(f"serve: prefill launched the flash kernels {serve_launches}, not "
                    f"flash_wgmma once per layer ({n_layers})")
     t0 = time.perf_counter()
@@ -1744,11 +1808,11 @@ def main(argv=None) -> int:
     p16_launches = counts()
     _log(f"phase 16-bit prefill path: {time.perf_counter() - t0:.1f} s, "
          f"launches {p16_launches}")
-    launches["flash16"] = p16_launches["flash16"]
+    launches["flash16_wgmma"] = p16_launches["flash16_wgmma"]
     n_layers = model16.cfg.n_layers
-    if (p16_launches["flash16"] != n_layers or p16_launches["flash"]
-            or p16_launches["flash_wgmma"]):
-        smoke.fail(f"prefill16: launched the flash kernels {p16_launches}, not flash16 "
+    if (p16_launches["flash16_wgmma"] != n_layers
+            or any(p16_launches[r] for r in fa.ROUTES if r != "flash16_wgmma")):
+        smoke.fail(f"prefill16: launched the flash kernels {p16_launches}, not flash16_wgmma "
                    f"once per layer ({n_layers})")
     t0 = time.perf_counter()
     flash.hold16(model16, prompts16, logits16)

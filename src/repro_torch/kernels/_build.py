@@ -49,8 +49,8 @@ _SIGNATURES = {
     # out, header, data, threads, stream
     "simplex_map_launch": (_P, _P, _P, _I, _P),
     # dtype: a code of policy.DTYPE_CODES (csrc/dtypes.cuh)
-    # x, dtype, header, data, n, rho, stream
-    "simplex_accum_launch": (_P, _I, _P, _P, _I, _I, _P),
+    # x, dtype, header, data, n, rho, vec (16-byte pieces), stream
+    "simplex_accum_launch": (_P, _I, _P, _P, _I, _I, _I, _P),
     # out, out dtype, float32 points, d, header, data, n, rho, stream
     "simplex_edm_launch": (_P, _I, _P, _I, _P, _P, _I, _I, _P),
     # out, in, dtype, periodic, header, data, n, rho, stream
@@ -62,6 +62,10 @@ _SIGNATURES = {
     # the float32 wgmma kernel (flash_wgmma.cu): as above without dtype
     "flash_wgmma_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _P),
+    # the 16-bit wgmma kernel (flash16_wgmma.cu): as flash_attention_launch,
+    # dtype 1 bfloat16 or 2 float16
+    "flash16_wgmma_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _F, _I, _P),
     # the frozen 2-D originals (legacy2d.cu); kind 0 hmap, 1 rb, 2 bb
     # out, kind, nb, chunk, rows, stream
     "legacy_map2d_launch": (_P, _I, _I, _I, _L, _P),

@@ -1,8 +1,9 @@
 // Causal flash attention forward on the 2-simplex of (q tile, kv tile)
-// pairs on mma.sync: float32 at 8-, 16- and 32-row tiles, bfloat16 and
-// float16 at every tile; float32 online softmax, GQA without a repeated
-// K/V tensor, optional additive float32 bias and segment ids.  The
-// float32 kernel at 64- and 128-row tiles is flash_wgmma.cu.
+// pairs on mma.sync: float32, bfloat16 and float16 at 8-, 16- and 32-row
+// tiles; float32 online softmax, GQA without a repeated K/V tensor,
+// optional additive float32 bias and segment ids.  The kernels at 64- and
+// 128-row tiles are on wgmma: flash_wgmma.cu (float32) and
+// flash16_wgmma.cu (bfloat16, float16).
 //
 // Replaces: the TPU kernel of repro/kernels/flash_attention.py
 // _flash_launch (kernel table row 5), a Pallas grid (B*Hq, pairs, nq+1)
@@ -273,19 +274,7 @@ template <typename T>
 struct Flash16Type;
 
 template <>
-struct Flash16Type<__nv_bfloat16> {
-  // hi/lo of two floats as two packed bf16 pairs, element a in the low half.
-  static __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const __nv_bfloat162 l =
-        __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = *reinterpret_cast<const uint32_t*>(&l);
-  }
-  static __device__ __forceinline__ uint32_t pack(float a, float b) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
+struct Flash16Type<__nv_bfloat16> : Flash16Parts<__nv_bfloat16> {
   static __device__ __forceinline__ void mma16(float* d, const uint32_t* a, const uint32_t* b) {
     asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -301,17 +290,7 @@ struct Flash16Type<__nv_bfloat16> {
 };
 
 template <>
-struct Flash16Type<__half> {
-  static __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-    const __half2 h = __floats2half2_rn(a, b);
-    const __half2 l = __floats2half2_rn(a - __low2float(h), b - __high2float(h));
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = *reinterpret_cast<const uint32_t*>(&l);
-  }
-  static __device__ __forceinline__ uint32_t pack(float a, float b) {
-    const __half2 h = __floats2half2_rn(a, b);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
+struct Flash16Type<__half> : Flash16Parts<__half> {
   static __device__ __forceinline__ void mma16(float* d, const uint32_t* a, const uint32_t* b) {
     asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -559,8 +538,12 @@ static int flash_dispatch_t(const FlashArgs& a, int dtype, long long blocks, cud
     case 0:
       if constexpr (BQ < 64) return flash_launch_f32<BQ, D>(a, blocks, st);
       return (int)cudaErrorInvalidValue;  // flash_wgmma.cu serves these tiles
-    case 1: return flash_launch_16<BQ, D, __nv_bfloat16>(a, blocks, st);
-    case 2: return flash_launch_16<BQ, D, __half>(a, blocks, st);
+    case 1:
+      if constexpr (BQ < 64) return flash_launch_16<BQ, D, __nv_bfloat16>(a, blocks, st);
+      return (int)cudaErrorInvalidValue;  // flash16_wgmma.cu serves these tiles
+    case 2:
+      if constexpr (BQ < 64) return flash_launch_16<BQ, D, __half>(a, blocks, st);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }

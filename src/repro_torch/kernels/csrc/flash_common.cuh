@@ -1,11 +1,11 @@
 // What the flash attention kernels share: their arguments, the walk of
 // the 2-simplex of (q tile, kv tile) pairs, and cp.async helpers.
 //
-// flash_attention.cu runs the mma.sync kernels (float32 below 64-row
-// tiles, bfloat16 and float16 at every tile), flash_wgmma.cu the float32
-// kernel on wgmma at 64- and 128-row tiles.  Both walk the schedule the
-// same way: one block per (b*Hq, pair p) for the folded schedule walks
-// j = 0..nq:
+// flash_attention.cu runs the mma.sync kernels (float32, bfloat16 and
+// float16 below 64-row tiles), flash_wgmma.cu (float32) and
+// flash16_wgmma.cu (bfloat16, float16) the kernels on wgmma at 64- and
+// 128-row tiles.  All walk the schedule the same way: one block per
+// (b*Hq, pair p) for the folded schedule walks j = 0..nq:
 //   j <= p: (q, kv) = (p, j);  j > p: (q, kv) = (nq-1-p, j-p-1),
 // resetting at j == 0 | j == p+1 and flushing at j == p | j == nq, so
 // each query tile's KV visits are consecutive and every block does
@@ -14,7 +14,10 @@
 // and walks its kv <= q tiles.  The KV row of bh is bh / (Hq/Hkv).
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define FLASH_NEG_INF (-1e30f)
 
@@ -29,7 +32,8 @@ struct FlashArgs {
   float scale;
 };
 
-// The arguments of flash_attention_launch and flash_wgmma_launch, checked.
+// The arguments of flash_attention_launch, flash_wgmma_launch and
+// flash16_wgmma_launch, checked.
 static inline bool flash_args(FlashArgs* a, void* o, const void* q, const void* k,
                               const void* v, const void* bias, int bias_b, int bias_h,
                               const void* seg, int b, int hq, int hkv, int s, int block_q,
@@ -112,9 +116,10 @@ static __device__ __forceinline__ FlashSlab flash_slab(const FlashArgs& a) {
   return sl;
 }
 
-// One sub-chunk's scores through the mask and the online softmax, as all
-// three kernels hold them: sc[nt][e] is row rl0 (e < 2) or rl0 + 8 of the
-// tile, tile-local key cbase + 8 nt + 2t + (e & 1).  The scores are
+// One sub-chunk's scores through the mask and the online softmax, as
+// flash, flash16 and flash_wgmma hold them (flash16_wgmma.cu has its
+// own): sc[nt][e] is row rl0 (e < 2) or rl0 + 8 of the tile, tile-local
+// key cbase + 8 nt + 2t + (e & 1).  The scores are
 // scaled (the 16-bit kernel's come unscaled; the others pass 1), the
 // bias added, the causal and segment masks and the rows past the tile
 // (block 8 pads a warp's 16 rows) applied; then the row max over the
@@ -177,3 +182,38 @@ static __device__ __forceinline__ void flash_softmax(float (*sc)[4], float scale
 static __device__ __forceinline__ bool flash_moved(const float* alpha) {
   return !__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f);
 }
+
+// P of the 16-bit kernels as two parts of the input type, hi = round(P)
+// and lo = round(P - hi), two floats packed a pair (element a in the low
+// half, the lower column), and the output's rounding.
+template <typename T>
+struct Flash16Parts;
+
+template <>
+struct Flash16Parts<__nv_bfloat16> {
+  static __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const __nv_bfloat162 l =
+        __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  }
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+};
+
+template <>
+struct Flash16Parts<__half> {
+  static __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+    const __half2 h = __floats2half2_rn(a, b);
+    const __half2 l = __floats2half2_rn(a - __low2float(h), b - __high2float(h));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  }
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+};

@@ -67,6 +67,7 @@ __all__ = [
     "accum_md",
     "grid_steps",
     "default_rho",
+    "accum_vector_access",
 ]
 
 # Elements per chunk of a plain version's tile gather (bounds its memory).
@@ -369,6 +370,22 @@ class MapBody(KernelBody):
         return self.plain(sched, device)
 
 
+def accum_vector_access(rho: int, itemsize: int, data_ptr: int) -> bool:
+    """Whether ``accum.cu`` reads and writes 16-byte pieces (else single
+    elements): a fixed rule, true when a tile row of ``rho`` elements of
+    ``itemsize`` bytes is a whole number of pieces and the array starts on
+    a 16-byte boundary (then every tile row does, since ``rho`` divides
+    the side).
+
+    Example:
+        >>> accum_vector_access(16, 4, 0), accum_vector_access(2, 4, 0)
+        (True, False)
+        >>> accum_vector_access(2, 8, 16), accum_vector_access(16, 4, 4)
+        (True, False)
+    """
+    return (rho * itemsize) % 16 == 0 and data_ptr % 16 == 0
+
+
 class AccumBody(KernelBody):
     """ACCUM: +1 on every simplex element (the memory-bound test)."""
 
@@ -385,15 +402,17 @@ class AccumBody(KernelBody):
             flat[off] = flat[off] + 1
 
     def kernel_(self, buf: torch.Tensor, sched, rho: int) -> None:
-        """+1 on the domain tiles ``sched`` visits, in place (``accum.cu``)."""
+        """+1 on the domain tiles ``sched`` visits, in place (``accum.cu``),
+        in 16-byte pieces where ``accum_vector_access`` says so."""
         check_operand(self.name, sched, rho, buf)
         card_operand(buf, self.name, ACCUM_DTYPES)
         desc = sched.device_descriptor(buf.device)
+        vec = accum_vector_access(rho, buf.element_size(), buf.data_ptr())
         lib = _build.library()
         with torch.cuda.device(buf.device):
             code = lib.simplex_accum_launch(
                 buf.data_ptr(), DTYPE_CODES[buf.dtype], desc.header.ctypes.data,
-                _ptr(desc.data), buf.shape[0], rho, _stream(buf),
+                _ptr(desc.data), buf.shape[0], rho, int(vec), _stream(buf),
             )
         _build.check(code, self.name)
         self.launches += 1

@@ -16,7 +16,7 @@ same output and rewrites it.
 
 Two versions of the forward compute the same function:
 
-* three CUDA kernels for CUDA tensors, each block walking one
+* four CUDA kernels for CUDA tensors, each block walking one
   ``(b*Hq, pair)`` (folded) or ``(b*Hq, q tile)`` (bb) in order, chosen
   by a fixed rule (``flash_route``):
 
@@ -26,9 +26,13 @@ Two versions of the forward compute the same function:
   - ``flash`` (``kernels/csrc/flash_attention.cu``): float32 at
     ``block_q`` 8, 16 and 32, where a warpgroup's 64-row tile does not
     fit, 3xTF32 ``mma.sync``;
+  - ``flash16_wgmma`` (``kernels/csrc/flash16_wgmma.cu``): bfloat16 and
+    float16 at ``block_q`` 64 and 128, ``wgmma`` in the input type on
+    Q, K and V in the 128-byte swizzle (V read MN-major), float32
+    accumulators, P kept float32-accurate as two 16-bit parts;
   - ``flash16`` (``kernels/csrc/flash_attention.cu``): bfloat16 and
-    float16 at every tile, ``mma.sync`` in the input type with float32
-    accumulators and P kept float32-accurate as two 16-bit parts;
+    float16 at ``block_q`` 8, 16 and 32, the same arithmetic on
+    ``mma.sync``;
 
   all compute the reference's float32 softmax and round only the output
   to q's dtype;
@@ -73,10 +77,12 @@ KERNEL_BLOCKS = (8, 16, 32, 64, 128)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # The kernels, by the name their launch counter goes under.
-ROUTES = ("flash", "flash16", "flash_wgmma")
+ROUTES = ("flash", "flash16", "flash16_wgmma", "flash_wgmma")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# Keys a chunk of flash_wgmma.cu (WG_BN).
+# Keys a chunk of flash_wgmma.cu (WG_BN) and of flash16_wgmma.cu (F16_BN,
+# F16_STAGES chunks in its ring).
 _WG_BN = 32
+_F16_BN, _F16_STAGES = 64, 3
 
 
 def flash_fold_pairs(nq_tiles: int) -> int:
@@ -156,17 +162,20 @@ def _bias_index(bias_shape, b: int, hq: int):
 def flash_route(block_q: int, dtype=torch.float32) -> str:
     """The CUDA kernel that serves ``(block_q, dtype)``: a fixed rule.
 
-    float32 at ``block_q >= 64`` runs ``flash_wgmma`` (a warpgroup's
-    64-row tile), float32 below it ``flash`` (3xTF32 ``mma.sync``), and
-    bfloat16 and float16 ``flash16`` at every tile.
+    At ``block_q >= 64`` (a warpgroup's 64-row tile) float32 runs
+    ``flash_wgmma`` and bfloat16 and float16 ``flash16_wgmma``; below it
+    float32 runs ``flash`` and the 16-bit types ``flash16`` (``mma.sync``).
 
     Example:
-        >>> flash_route(128), flash_route(32), flash_route(128, torch.bfloat16)
-        ('flash_wgmma', 'flash', 'flash16')
+        >>> flash_route(128), flash_route(32)
+        ('flash_wgmma', 'flash')
+        >>> flash_route(64, torch.bfloat16), flash_route(32, torch.float16)
+        ('flash16_wgmma', 'flash16')
     """
+    wide = block_q >= 64
     if dtype in (torch.bfloat16, torch.float16):
-        return "flash16"
-    return "flash_wgmma" if block_q >= 64 else "flash"
+        return "flash16_wgmma" if wide else "flash16"
+    return "flash_wgmma" if wide else "flash"
 
 
 def flash_smem_bytes(block_q: int, d: int, dtype=torch.float32) -> int:
@@ -182,14 +191,17 @@ def flash_smem_bytes(block_q: int, d: int, dtype=torch.float32) -> int:
       ``max(block_q, 16)``) padded to ``d+4`` floats, then two K
       sub-chunks padded to ``d+4`` and two V sub-chunks padded to ``d+8``
       (the ``cp.async`` double buffer), ``min(16, block_q)`` keys each.
-    * ``flash16``: the same rows in 2-byte elements, every row padded to
-      ``d+8`` elements.
+    * ``flash16_wgmma``: 1 KB of alignment slack, the Q tile and
+      ``_F16_STAGES`` chunks of K and of V (``_F16_BN`` keys each), all in
+      rows of 128-byte atoms, ``ceil(d/64)`` atoms a row.
+    * ``flash16``: the same rows as ``flash`` in 2-byte elements, every
+      row padded to ``d+8`` elements.
 
     Example:
         >>> flash_smem_bytes(128, 128), flash_smem_bytes(32, 128)
         (230416, 51200)
-        >>> flash_smem_bytes(128, 128, torch.bfloat16)
-        52224
+        >>> flash_smem_bytes(128, 128, torch.bfloat16), flash_smem_bytes(32, 128, torch.float16)
+        (132096, 26112)
     """
     route = flash_route(block_q, dtype)
     bc = min(16, block_q)
@@ -197,6 +209,9 @@ def flash_smem_bytes(block_q: int, d: int, dtype=torch.float32) -> int:
         atoms = (d + 31) // 32
         return (1024 + 2 * atoms * 128 * (block_q + _WG_BN) + 2 * d * 128
                 + 2 * _WG_BN * d * 4 + 16)
+    if route == "flash16_wgmma":
+        atoms = (d + 63) // 64
+        return 1024 + atoms * 128 * (block_q + 2 * _F16_STAGES * _F16_BN)
     if route == "flash16":
         return 2 * (d + 8) * (max(block_q, 16) + 4 * bc)
     return 4 * (max(block_q, 16) * (d + 4) + 2 * bc * (d + 4) + 2 * bc * (d + 8))
@@ -214,8 +229,8 @@ class FlashKernel:
 
     Attributes:
         launches: Launches of each CUDA kernel so far, by ``ROUTES`` name
-            (``flash``, ``flash16``, ``flash_wgmma``), never of the plain
-            version.
+            (``flash``, ``flash16``, ``flash16_wgmma``, ``flash_wgmma``),
+            never of the plain version.
     """
 
     name = "flash"
@@ -310,6 +325,8 @@ class FlashKernel:
             stream = torch.cuda.current_stream(q.device).cuda_stream
             if route == "flash_wgmma":
                 code = lib.flash_wgmma_launch(*args, stream)
+            elif route == "flash16_wgmma":
+                code = lib.flash16_wgmma_launch(*args, _DTYPE_CODES[q.dtype], stream)
             else:
                 code = lib.flash_attention_launch(*args, _DTYPE_CODES[q.dtype], stream)
         _build.check(code, route)
@@ -325,7 +342,7 @@ def launch_counts() -> dict:
 
     Example:
         >>> sorted(launch_counts())
-        ['flash', 'flash16', 'flash_wgmma']
+        ['flash', 'flash16', 'flash16_wgmma', 'flash_wgmma']
     """
     return dict(FLASH.launches)
 

@@ -136,12 +136,17 @@ def test_plain_vs_jax_kernel(case, dtype):
 
 def test_16bit_activations_take_the_flash_route():
     """The tuner maps the reduced prefill's shape for 16-bit activations
-    on the CPU and on the card's tables: no dtype sends it to chunked."""
+    on the CPU and on the card's tables: no dtype sends it to chunked.
+    The 16-bit route is ``flash16_wgmma`` at 64- and 128-row tiles and
+    ``flash16`` (``mma.sync``) below them."""
     for dtype in (torch.float32,) + DTYPES:
         assert TT.choose_attn_impl(64, 4, 16, device="cpu", dtype=dtype).impl == "flash"
         assert all(TF.kernel_fits(bq, d, dtype) for bq in TF.KERNEL_BLOCKS
                    for d in TF.KERNEL_HEAD_DIMS)
-    assert {TF.flash_route(bq, dt) for bq in TF.KERNEL_BLOCKS for dt in DTYPES} == {"flash16"}
+    assert TF.KERNEL_BLOCKS == (8, 16, 32, 64, 128)
+    for dt in DTYPES:
+        assert [TF.flash_route(bq, dt) for bq in TF.KERNEL_BLOCKS] == (
+            ["flash16"] * 3 + ["flash16_wgmma"] * 2)
 
 
 def test_reduced_prefill_at_the_config_dtype_matches_jax():
