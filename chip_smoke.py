@@ -65,12 +65,15 @@ coordinates into element origins.  This script
    points) through the engine's entry points at m=2 (n = 1024) and m=3
    (n = 64) and through the originals (``accum_md`` at m=4), ACCUM and
    CA bit-equal to their plain versions, EDM within step 3's gate plus
-   one ulp of a 16-bit output; a dtype no kernel takes must raise
+   one ulp of a 16-bit output; CA also on bfloat16 states of other values
+   than 0/1 at m=2 and m=3 (``CA_MIXED``), where only the reference's
+   order of adds is bit-equal; a dtype no kernel takes must raise
    ``ValueError``;
 9. the flash tile sweep: sets every counter to 0 and runs every
    ``(block_q, D)`` the kernels are built for (5 x 4) in float32,
    bfloat16 and float16 through ``flash_attention`` at small S, both
-   kinds, odd and even tile counts, some with a bias or segment ids;
+   kinds, odd and even tile counts, some with a bias (``bias_h`` 1 or
+   Hq), segment ids, ``Hkv == Hq`` or a group of 8;
    float32 within ``2e-5 + 2e-5 * max|p|`` of the plain version, 16-bit
    within one ulp of its type plus ``2^-15 * max|v|``; each kernel
    (``flash``, ``flash16``, ``flash16_wgmma``, ``flash_wgmma``) launched
@@ -90,7 +93,11 @@ coordinates into element origins.  This script
    the same model's chunked prefill within ``LOGIT16_TOL * max|logit|``
    with every row's argmax equal, then prefills it twice more with a
    wrong attention in the kernel's place (a mask one key too wide, which
-   must fail that gate, and P rounded once to bfloat16, reported);
+   must fail that gate, and P rounded once to bfloat16, reported); then,
+   every counter at 0 again, prefills the same model at a 2080-token
+   prompt, which the tuner maps to 32-row tiles: it must launch
+   ``flash16`` (the GQA group's heads stacked on ``wgmma``) once per
+   layer and no other flash kernel, its logits held by the same gate;
 13. holds the flash kernels against their plain version on the card at
    the serve shape (float32 folded and bb, bfloat16 and float16
    folded), at a 2080-token prompt with 32-row tiles (float32 folded and
@@ -110,9 +117,12 @@ coordinates into element origins.  This script
     ``scaled_dot_product_attention`` in the same dtype: ``flash_wgmma``
     (folded and bb) at the serve shape, ``flash16_wgmma`` in bfloat16
     (folded and bb) and float16 at the serve shape (bound at the 16-bit
-    rate, 989 TFLOP/s), ``flash`` and ``flash16`` (bfloat16) at a
-    2080-token prompt (32-row tiles); each timed output is held against
-    the plain version's on the same inputs (``equal=`` on its line);
+    rate, 989 TFLOP/s), ``flash`` at a 2080-token prompt (32-row tiles),
+    and ``flash16`` in bfloat16 and float16 at 2080 tokens, bfloat16 with
+    ``Hkv == Hq``, at 2064 (16-row tiles) and 2056 (8-row tiles), at one
+    and two warpgroups a block where the group fills two; each timed
+    output is held against the plain version's on the same inputs
+    (``equal=`` on its line);
 16. checks a small input against the dense oracles of ``kernels/ref.py``;
 17. prints the ``kernels`` JSON line, then the result line.
 
@@ -165,7 +175,7 @@ REPLACES = {
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in SIMPLEX}
 SOURCES["flash"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
-SOURCES["flash16"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCES["flash16"] = "src/repro_torch/kernels/csrc/flash16_stacked.cu"
 SOURCES["flash_wgmma"] = "src/repro_torch/kernels/csrc/flash_wgmma.cu"
 SOURCES["flash16_wgmma"] = "src/repro_torch/kernels/csrc/flash16_wgmma.cu"
 SOURCES["hmap_mxu"] = "src/repro_torch/kernels/csrc/hmap_mxu.cu"
@@ -214,8 +224,11 @@ LOGIT_TOL = dict(rtol=2e-3, atol=2e-4)
 PREFILL16_BATCH, PREFILL16_LEN = 4, 2048
 LOGIT16_TOL = 0.05
 # A prompt length the tuner maps with 32-row tiles (2080 = 65 * 32): the
-# float32 mma.sync kernel's shape on the prefill path, checked and timed.
+# shape of the float32 mma.sync kernel and of the 16-bit stacked kernel on
+# the prefill path, checked and timed; the 16-bit prefill also runs at it.
+# 2064 = 129 * 16 and 2056 = 257 * 8 give 16- and 8-row tiles.
 SMALL_TILE_S = 2080
+SMALL16_S, SMALL8_S = 2064, 2056
 
 # (m, n, rho, kinds) per domain test; each composite side gets its own bb.
 DOMAIN_CASES = {
@@ -1106,6 +1119,13 @@ DTYPE_EDGES = {"int8": (127, 126, -128), "uint8": (255, 254, 0), "int16": (32767
 # (m, n, rho, kind) of the engine's dtype cases; the originals run at the
 # same sides (accum_md at m=4).
 DTYPE_ENGINE = ((2, 1024, 16, "hmap"), (3, 64, 4, "octant"))
+# CA on bfloat16 states of other values than 0/1, where the order of the
+# neighbour count's roundings shows (256 + 0.5 rounds back to 256 in
+# bf16): the kernel must add in the reference's order to stay bit-equal
+# (tests/test_torch_ca_walk.py shows a reversed order failing on such a
+# state).  Values drawn from CA_MIXED; (m, n, rho, kind) per case.
+CA_MIXED = (0, 0, 1, 1, 1, 0.5, 1.5, 2, -1, 256, -256, 2048, -2048, 0.25)
+CA_MIXED_CASES = ((2, 1024, 16, "hmap"), (3, 64, 8, "octant"))
 
 
 def ulp16(torch, t, dtype):
@@ -1190,6 +1210,15 @@ class DtypeSmoke:
                 (L.CA2D if m == 2 else L.CA3D).plain_(want, st, sched, rho)
                 self.equal(f"legacy ca {name} m={m}", (L.ca2d if m == 2 else L.ca3d)(st, rho=rho),
                            want)
+        vals = torch.tensor(CA_MIXED, device=self.s.dev)
+        for m, n, rho, kind in CA_MIXED_CASES:
+            pick = torch.randint(0, len(CA_MIXED), (n,) * m, generator=self.s.gen(115 + m),
+                                 device=self.s.dev)
+            st = vals[pick].to(torch.bfloat16)
+            want = st.clone()
+            E.get_body("ca").plain_(want, st, E.schedule_for(m, n // rho, kind), rho)
+            fn = ops.simplex_ca2d if m == 2 else ops.simplex_ca3d
+            self.equal(f"ca bfloat16 mixed values m={m}", fn(st, rho=rho, kind=kind), want)
         for name in DTYPE_EDM:
             dt = getattr(torch, name)
             for m, n, rho, kind in DTYPE_ENGINE:
@@ -1207,7 +1236,8 @@ class DtypeSmoke:
                     self.edm(f"legacy edm2d {name}", old, want)
         self.refusals()
         torch.cuda.synchronize()
-        _log(f"dtype check: {self.cases} cases, ACCUM {DTYPE_ACCUM}, CA {DTYPE_CA}, "
+        _log(f"dtype check: {self.cases} cases, ACCUM {DTYPE_ACCUM}, CA {DTYPE_CA} and "
+             f"bfloat16 of values {CA_MIXED} at {CA_MIXED_CASES}, "
              f"EDM {DTYPE_EDM}")
 
     def edm(self, what, got, want) -> None:
@@ -1420,9 +1450,12 @@ class FlashSmoke:
         """Every tile the kernels are built for, at small S: each
         ``(block_q, D)`` of ``KERNEL_BLOCKS x KERNEL_HEAD_DIMS`` in
         float32, bfloat16 and float16 through ``flash_attention``, odd and
-        even tile counts, both kinds, a bias on every fourth case and
-        segment ids on every fourth (``block_q = 8`` has its own padded
-        rows), each held against the plain version.
+        even tile counts, both kinds, a bias of ``bias_h = Hq`` on every
+        fourth case and of ``bias_h = 1`` on every fourth, segment ids on
+        every fourth, ``Hkv == Hq`` on every fifth (``flash16``'s padding
+        slots) and a group of 8 on every fifth (``flash16`` on two
+        warpgroups at ``block_q`` 16 and 32), each held against the plain
+        version.
 
         Returns:
             The launches each route should have made.
@@ -1437,42 +1470,49 @@ class FlashSmoke:
                     i += 1
                     s = (3 if i % 2 else 4) * bq
                     kind = "bb" if i % 3 == 0 else "folded"
-                    q, k, v = (t.to(dtype) for t in self.qkv(1, 4, 2, s, d, salt=200 + i))
-                    bias = (torch.randn((1, 4, s, s), generator=self.s.gen(400 + i),
-                                        device=self.s.dev) if i % 4 == 1 else None)
+                    hq, hkv = {0: (4, 4), 3: (8, 1)}.get(i % 5, (4, 2))
+                    q, k, v = (t.to(dtype) for t in self.qkv(1, hq, hkv, s, d, salt=200 + i))
+                    lead = {1: (1, hq), 3: (1, 1)}.get(i % 4)
+                    bias = (None if lead is None else torch.randn(
+                        lead + (s, s), generator=self.s.gen(400 + i), device=self.s.dev))
                     seg = self.segments(1, s) if i % 4 == 2 else None
                     got = fa.flash_attention(q, k, v, bias=bias, segment_ids=seg, kind=kind,
                                              block_q=bq, block_kv=bq)
                     route = fa.flash_route(bq, dtype)
                     want_launches[route] += 1
-                    self.compare(f"sweep {name} block_q={bq} D={d} S={s} {kind} "
-                                 f"bias={bias is not None} segments={seg is not None}", route,
+                    self.compare(f"sweep {name} block_q={bq} D={d} S={s} Hq={hq} Hkv={hkv} "
+                                 f"{kind} bias={lead} segments={seg is not None}", route,
                                  got, fa.FLASH.plain(kind, bq, d**-0.5, q, k, v, bias, seg), v)
         torch.cuda.synchronize()
         _log(f"flash sweep: {i} cases, launches wanted {want_launches}")
         return want_launches
 
-    def prefill16(self):
+    def prefill16(self, model=None, length: int = PREFILL16_LEN):
         """Full-width yi-6b at its config's own dtypes (bfloat16
-        activations, float32 weights from ``--seed``): one prefill of the
-        serve batch.  Returns ``(model, prompts, last-token logits)``."""
+        activations, float32 weights from ``--seed``; built unless
+        ``model`` is given): one prefill of the serve batch at prompts of
+        ``length`` tokens.  Returns ``(model, prompts, last-token
+        logits)``."""
         torch = self.torch
         cfg = self.configs.config("yi-6b")
-        gen = torch.Generator(device=self.s.dev).manual_seed(self.s.seed)
-        model = self.model_cls(cfg, device=self.s.dev).init(gen)
-        prompts = torch.randint(0, cfg.vocab, (PREFILL16_BATCH, PREFILL16_LEN), generator=gen,
+        gen = torch.Generator(device=self.s.dev).manual_seed(
+            self.s.seed if model is None else self.s.seed + length)
+        if model is None:
+            model = self.model_cls(cfg, device=self.s.dev).init(gen)
+        prompts = torch.randint(0, cfg.vocab, (PREFILL16_BATCH, length), generator=gen,
                                 device=self.s.dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         logits, _ = model.prefill({"tokens": prompts})
         torch.cuda.synchronize()
-        self.stats["prefill16_s"] = time.perf_counter() - t0
-        self.stats["peak16_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        key = "" if length == PREFILL16_LEN else f"_{length}"
+        self.stats[f"prefill16{key}_s"] = time.perf_counter() - t0
+        self.stats[f"peak16{key}_gib"] = torch.cuda.max_memory_allocated() / 2**30
         _log(f"prefill16 {cfg.name}: act_dtype {cfg.act_dtype} param_dtype "
-             f"{cfg.param_dtype}, batch {PREFILL16_BATCH}, prompt {PREFILL16_LEN}: "
-             f"prefill_s={self.stats['prefill16_s']:.4f} "
-             f"peak_gib={self.stats['peak16_gib']:.3f} logits {tuple(logits.shape)} "
+             f"{cfg.param_dtype}, batch {PREFILL16_BATCH}, prompt {length}: "
+             f"prefill_s={self.stats[f'prefill16{key}_s']:.4f} "
+             f"peak_gib={self.stats[f'peak16{key}_gib']:.3f} logits {tuple(logits.shape)} "
              f"{logits.dtype}")
         if (logits.dtype != torch.bfloat16 or tuple(logits.shape) != (PREFILL16_BATCH, 1, cfg.vocab)
                 or not torch.isfinite(logits).all()):
@@ -1480,18 +1520,21 @@ class FlashSmoke:
                         "or misshapen")
         return model, prompts, logits
 
-    def hold16(self, model, prompts, logits) -> None:
+    def hold16(self, model, prompts, logits, route: str = "flash16_wgmma",
+               controls: bool = True) -> None:
         """The same 16-bit prefill with the chunked executor; last-token
         logits within ``LOGIT16_TOL * max|logit|`` with every row's argmax
-        equal (see its note), then the gate's two controls."""
+        equal (see its note), then (``controls``) the gate's two
+        controls.  ``route`` names the flash kernel the prefill ran."""
         torch = self.torch
+        key = "" if prompts.shape[1] == PREFILL16_LEN else f"_{prompts.shape[1]}"
         before = dict(self.fa.FLASH.launches)
         model.cfg = model.cfg.replace(attention_impl="chunked")
         try:
             t0 = time.perf_counter()
             chunked, _ = model.prefill({"tokens": prompts})
             torch.cuda.synchronize()
-            self.stats["chunked16_s"] = time.perf_counter() - t0
+            self.stats[f"chunked16{key}_s"] = time.perf_counter() - t0
         finally:
             model.cfg = model.cfg.replace(attention_impl="auto")
         if self.fa.FLASH.launches != before:
@@ -1501,16 +1544,18 @@ class FlashSmoke:
         top2 = ref.topk(2, dim=-1).values
         gap = (top2[..., 0] - top2[..., 1]).min().item()
         ok, err, agree = self.gate16(logits, ref, scale)
-        self.stats["logit16_err"] = err
-        self.stats["logit16_rel"] = err / scale
-        _log(f"hold16 flash16_wgmma vs chunked prefill: max_abs_err={err:.3e} "
+        self.stats[f"logit16{key}_err"] = err
+        self.stats[f"logit16{key}_rel"] = err / scale
+        _log(f"hold16 {route} prompt {prompts.shape[1]} vs chunked prefill: max_abs_err={err:.3e} "
              f"max|logit|={scale:.3f} "
              f"rel={err / scale:.3e} gate {LOGIT16_TOL} * max|logit| and argmax_agree == 1 "
-             f"chunked_prefill_s={self.stats['chunked16_s']:.4f} argmax_agree={agree:.3f} "
+             f"chunked_prefill_s={self.stats[f'chunked16{key}_s']:.4f} argmax_agree={agree:.3f} "
              f"min_top2_gap={gap:.3e} ok={ok}")
         if not ok:
-            self.s.fail(f"hold16: flash16_wgmma and chunked logits differ by {err} (max|logit| "
+            self.s.fail(f"hold16: {route} and chunked logits differ by {err} (max|logit| "
                         f"{scale}), argmax agreeing on {agree}")
+        if not controls:
+            return
         from repro_torch.models import attention as attn
         real = attn.flash_attention
         for name, round_p, see_next in (("mask sees next key", False, True),
@@ -1591,52 +1636,70 @@ class FlashSmoke:
         """Each flash kernel, its plain version and SDPA at the shapes the
         paths give it: ``flash_wgmma`` (folded and bb) at the serve shape
         in float32, ``flash16_wgmma`` at the serve shape in bfloat16 (the
-        16-bit prefill's; folded and bb) and float16, and ``flash`` and
-        ``flash16`` (bfloat16) at a prompt of 2080 tokens, where the tuner
-        picks 32-row tiles."""
+        16-bit prefill's; folded and bb) and float16, and, at prompts the
+        tuner maps to small tiles, ``flash`` (float32, 2080 tokens, 32-row
+        tiles) and ``flash16``: bfloat16 and float16 at 2080 tokens,
+        bfloat16 with ``Hkv == Hq``, at 2064 (16-row tiles) and at 2056
+        (8-row tiles), each at one and two warpgroups a block where the
+        group fills two (the fixed rule's first, then the other)."""
         torch, FL = self.torch, self.fa.FLASH
         b, hq, hkv, s, d = SERVE_SHAPE
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        for route, dtype, seq, bq, kinds in (
-                ("flash_wgmma", torch.float32, s, 128, ("folded", "bb")),
-                ("flash16_wgmma", torch.bfloat16, s, 128, ("folded", "bb")),
-                ("flash16_wgmma", torch.float16, s, 128, ("folded",)),
-                ("flash", torch.float32, SMALL_TILE_S, 32, ("folded",)),
-                ("flash16", torch.bfloat16, SMALL_TILE_S, 32, ("folded",))):
-            q, k, v = (t.to(dtype) for t in self.qkv(b, hq, hkv, seq, d, salt=80))
+        both = "both"
+        for route, dtype, seq, bq, kv, kinds, wgs in (
+                ("flash_wgmma", torch.float32, s, 128, hkv, ("folded", "bb"), (None,)),
+                ("flash16_wgmma", torch.bfloat16, s, 128, hkv, ("folded", "bb"), (None,)),
+                ("flash16_wgmma", torch.float16, s, 128, hkv, ("folded",), (None,)),
+                ("flash", torch.float32, SMALL_TILE_S, 32, hkv, ("folded",), (None,)),
+                ("flash16", torch.bfloat16, SMALL_TILE_S, 32, hkv, ("folded",), both),
+                ("flash16", torch.float16, SMALL_TILE_S, 32, hkv, ("folded",), both),
+                ("flash16", torch.bfloat16, SMALL_TILE_S, 32, hq, ("folded",), (1,)),
+                ("flash16", torch.bfloat16, SMALL16_S, 16, hkv, ("folded",), both),
+                ("flash16", torch.bfloat16, SMALL8_S, 8, hkv, ("folded",), both)):
+            if wgs == both:
+                rule = self.fa.flash16_warpgroups(bq, hq // kv)
+                wgs = (rule, 3 - rule)
+            q, k, v = (t.to(dtype) for t in self.qkv(b, hq, kv, seq, d, salt=80))
             scale = d**-0.5
-            kx = k.repeat_interleave(hq // hkv, dim=1)
-            vx = v.repeat_interleave(hq // hkv, dim=1)
+            kx = k.repeat_interleave(hq // kv, dim=1)
+            vx = v.repeat_interleave(hq // kv, dim=1)
             lib = self.s.time_ms(lambda: sdpa(q, kx, vx, is_causal=True, scale=scale))
             lib_err = (sdpa(q, kx, vx, is_causal=True, scale=scale).float()
                        - FL.plain("folded", bq, scale, q, k, v).float()).abs().max().item()
-            _log(f"library scaled_dot_product_attention {str(dtype)[6:]} S={seq} vs plain: "
-                 f"max_abs_err={lib_err:.3e}")
+            _log(f"library scaled_dot_product_attention {str(dtype)[6:]} S={seq} Hkv={kv} vs "
+                 f"plain: max_abs_err={lib_err:.3e}")
             rate = TF32X3_FLOPS if dtype == torch.float32 else BF16_FLOPS
-            bound_ms, bound_by = self.bound(b, hq, hkv, seq, d, rate, dtype.itemsize)
-            bound_f32_ms = self.bound(b, hq, hkv, seq, d, F32_FLOPS, dtype.itemsize)[0]
+            bound_ms, bound_by = self.bound(b, hq, kv, seq, d, rate, dtype.itemsize)
+            bound_f32_ms = self.bound(b, hq, kv, seq, d, F32_FLOPS, dtype.itemsize)[0]
+            # The plain version walks the schedule step by step in Python:
+            # below 32-row tiles one call takes seconds, so it is timed once.
+            plain_runs = (3, 1) if bq >= 32 else (1, 0)
             for kind in kinds:
-                got = FL.kernel(kind, bq, scale, q, k, v)
-                torch.cuda.synchronize()
-                equal = self.compare(f"timed {kind} shape={(b, hq, hkv, seq, d)} block_q={bq}",
-                                     route, got, FL.plain(kind, bq, scale, q, k, v), v)
-                del got
-                ms = self.s.time_ms(lambda: FL.kernel(kind, bq, scale, q, k, v))
-                plain = self.s.time_ms(lambda: FL.plain(kind, bq, scale, q, k, v), runs=3,
-                                       warm=1)
-                self.rows.append(dict(route=route, dtype=str(dtype)[6:], s=seq, block_q=bq,
-                                      kind=kind, ms=ms, plain_ms=plain, library_ms=lib,
-                                      bound_ms=bound_ms, bound_by=bound_by,
-                                      bound_f32_ms=bound_f32_ms, equal=equal,
-                                      steps=b * hq * self.fa.flash_grid_steps(seq // bq, kind)))
+                want = FL.plain(kind, bq, scale, q, k, v)
+                plain = self.s.time_ms(lambda: FL.plain(kind, bq, scale, q, k, v),
+                                       runs=plain_runs[0], warm=plain_runs[1])
+                for w in wgs:
+                    got = FL.kernel(kind, bq, scale, q, k, v, warpgroups=w)
+                    torch.cuda.synchronize()
+                    equal = self.compare(f"timed {kind} shape={(b, hq, kv, seq, d)} block_q={bq}"
+                                         + (f" warpgroups={w}" if w else ""), route, got, want, v)
+                    del got
+                    ms = self.s.time_ms(lambda: FL.kernel(kind, bq, scale, q, k, v, warpgroups=w))
+                    self.rows.append(dict(route=route, dtype=str(dtype)[6:], s=seq, block_q=bq,
+                                          hkv=kv, warpgroups=w, kind=kind, ms=ms, plain_ms=plain,
+                                          library_ms=lib, bound_ms=bound_ms, bound_by=bound_by,
+                                          bound_f32_ms=bound_f32_ms, equal=equal,
+                                          steps=b * hq * self.fa.flash_grid_steps(seq // bq, kind)))
+                del want
             del q, k, v, kx, vx
             torch.cuda.empty_cache()
         for row in self.rows:
             bb = next((r for r in self.rows if r["route"] == row["route"]
                        and r["dtype"] == row["dtype"] and r["kind"] == "bb"), None)
             _log(f"case test={row['route']} dtype={row['dtype']} kind={row['kind']} B={b} "
-                 f"Hq={hq} Hkv={hkv} S={row['s']} D={d} block_q={row['block_q']} "
-                 f"steps={row['steps']} ms={row['ms']:.4f} "
+                 f"Hq={hq} Hkv={row['hkv']} S={row['s']} D={d} block_q={row['block_q']} "
+                 + (f"warpgroups={row['warpgroups']} " if row["warpgroups"] else "")
+                 + f"steps={row['steps']} ms={row['ms']:.4f} "
                  f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
                  f"({row['bound_by']}) bound_share={row['bound_ms'] / row['ms']:.3f} "
                  f"{_f32(row)}library_ms={row['library_ms']:.4f} "
@@ -1778,7 +1841,6 @@ def main(argv=None) -> int:
     _log(f"phase flash tile sweep: {time.perf_counter() - t0:.1f} s, "
          f"launches {sweep_launches}")
     launches["flash"] = sweep_launches["flash"]
-    launches["flash16"] = sweep_launches["flash16"]
     for route in fa.ROUTES:
         if sweep_launches[route] != want[route] or want[route] <= 0:
             smoke.fail(f"flash sweep: {route} launched {sweep_launches[route]} times, "
@@ -1817,6 +1879,23 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     flash.hold16(model16, prompts16, logits16)
     _log(f"phase hold16: {time.perf_counter() - t0:.1f} s")
+    del prompts16, logits16
+    torch.cuda.empty_cache()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    _, prompts16, logits16 = flash.prefill16(model16, SMALL_TILE_S)
+    small_launches = counts()
+    _log(f"phase 16-bit prefill path at {SMALL_TILE_S} tokens: "
+         f"{time.perf_counter() - t0:.1f} s, launches {small_launches}")
+    launches["flash16"] = small_launches["flash16"]
+    if (small_launches["flash16"] != n_layers
+            or any(small_launches[r] for r in fa.ROUTES if r != "flash16")):
+        smoke.fail(f"prefill16 at {SMALL_TILE_S}: launched the flash kernels {small_launches}, "
+                   f"not flash16 once per layer ({n_layers})")
+    t0 = time.perf_counter()
+    flash.hold16(model16, prompts16, logits16, route="flash16", controls=False)
+    _log(f"phase hold16 at {SMALL_TILE_S} tokens: {time.perf_counter() - t0:.1f} s")
     del model16, prompts16, logits16
     torch.cuda.empty_cache()
 
@@ -1854,8 +1933,9 @@ def main(argv=None) -> int:
             "max_abs_err": flash.err[route], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "bound_f32_ms": head["bound_f32_ms"],
-            "shape": (f"{head['dtype']} B={b} Hq={hq} Hkv={hkv} S={head['s']} D={d} "
-                      f"block_q={head['block_q']} kind=folded"),
+            "shape": (f"{head['dtype']} B={b} Hq={hq} Hkv={head['hkv']} S={head['s']} D={d} "
+                      f"block_q={head['block_q']} kind=folded"
+                      + (f" warpgroups={head['warpgroups']}" if head["warpgroups"] else "")),
         })
     for name in LEGACY:
         head = next(r for r in old.rows if r["name"] == name and r["kind"] == "hmap")
@@ -1892,7 +1972,9 @@ def main(argv=None) -> int:
     _log(f"serve summary: prefill_s={st['prefill_s']:.4f} "
          f"decode_tok_s={st['decode_tok_s']:.2f} peak_gib={st['peak_gib']:.3f} "
          f"logit_err={st['logit_err']:.3e} prefill16_s={st['prefill16_s']:.4f} "
-         f"peak16_gib={st['peak16_gib']:.3f} logit16_rel={st['logit16_rel']:.3e}")
+         f"peak16_gib={st['peak16_gib']:.3f} logit16_rel={st['logit16_rel']:.3e} "
+         f"prefill16_{SMALL_TILE_S}_s={st[f'prefill16_{SMALL_TILE_S}_s']:.4f} "
+         f"logit16_{SMALL_TILE_S}_rel={st[f'logit16_{SMALL_TILE_S}_rel']:.3e}")
     _log(f"phase total: {time.perf_counter() - t_all:.1f} s")
     if smoke.failures:
         print(f"{len(smoke.failures)} failures: {smoke.failures}", file=sys.stderr)

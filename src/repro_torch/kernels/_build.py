@@ -53,19 +53,23 @@ _SIGNATURES = {
     "simplex_accum_launch": (_P, _I, _P, _P, _I, _I, _I, _P),
     # out, out dtype, float32 points, d, header, data, n, rho, stream
     "simplex_edm_launch": (_P, _I, _P, _I, _P, _P, _I, _I, _P),
-    # out, in, dtype, periodic, header, data, n, rho, stream
-    "simplex_ca_launch": (_P, _P, _I, _I, _P, _P, _I, _I, _P),
-    # o, q, k, v, bias, bias_b, bias_h, seg, b, hq, hkv, s, d, block_q,
-    # folded, scale, dtype (0 float32, 1 bfloat16, 2 float16), stream
+    # out, in, dtype, periodic, vec (16-byte pieces), header, data, n, rho, stream
+    "simplex_ca_launch": (_P, _P, _I, _I, _I, _P, _P, _I, _I, _P),
+    # the float32 kernels (flash_attention.cu below 64-row tiles,
+    # flash_wgmma.cu at 64 and 128): o, q, k, v, bias, bias_b, bias_h, seg,
+    # b, hq, hkv, s, d, block_q, folded, scale, stream
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _I, _P),
-    # the float32 wgmma kernel (flash_wgmma.cu): as above without dtype
+                               _I, _F, _P),
     "flash_wgmma_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _P),
-    # the 16-bit wgmma kernel (flash16_wgmma.cu): as flash_attention_launch,
-    # dtype 1 bfloat16 or 2 float16
+    # the 16-bit wgmma kernel (flash16_wgmma.cu): as above with dtype 1
+    # bfloat16 or 2 float16 before the stream
     "flash16_wgmma_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _I, _P),
+    # the stacked 16-bit kernel (flash16_stacked.cu): as flash16_wgmma_launch
+    # with the warpgroups a block (1 or 2) before the stream
+    "flash16_stacked_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _I, _I, _P),
     # the frozen 2-D originals (legacy2d.cu); kind 0 hmap, 1 rb, 2 bb
     # out, kind, nb, chunk, rows, stream
     "legacy_map2d_launch": (_P, _I, _I, _I, _L, _P),

@@ -1,12 +1,13 @@
 // Causal flash attention forward on the 2-simplex of (q tile, kv tile)
-// pairs on mma.sync: float32, bfloat16 and float16 at 8-, 16- and 32-row
-// tiles; float32 online softmax, GQA without a repeated K/V tensor,
-// optional additive float32 bias and segment ids.  The kernels at 64- and
-// 128-row tiles are on wgmma: flash_wgmma.cu (float32) and
-// flash16_wgmma.cu (bfloat16, float16).
+// pairs on mma.sync: float32 at 8-, 16- and 32-row tiles; float32 online
+// softmax, GQA without a repeated K/V tensor, optional additive float32
+// bias and segment ids.  The other flash kernels are on wgmma:
+// flash_wgmma.cu (float32 at 64- and 128-row tiles), flash16_wgmma.cu
+// (bfloat16, float16 at 64 and 128) and flash16_stacked.cu (bfloat16,
+// float16 at 8, 16 and 32).
 //
 // Replaces: the TPU kernel of repro/kernels/flash_attention.py
-// _flash_launch (kernel table row 5), a Pallas grid (B*Hq, pairs, nq+1)
+// _flash_launch (kernel table row 5a), a Pallas grid (B*Hq, pairs, nq+1)
 // or (B*Hq, nq, nq) whose sequential last axis carried the running max,
 // denominator and accumulator in VMEM scratch from one grid step to the
 // next.  The map on the GPU is flash_common.cuh's: blocks run in
@@ -51,37 +52,6 @@
 // term), and the softmax over sub-chunks of a tile is the same online
 // recurrence as over whole tiles, so the result differs from the plain
 // version by float32 rounding only.  Element offsets are 64-bit.
-//
-// BFLOAT16 AND FLOAT16 (flash16_fwd_kernel).
-//
-// The reference takes q's dtype and computes in float32 inside: q, k and
-// v are upcast, the scores, the softmax and P stay float32, and only the
-// output is rounded to q's dtype.  This kernel holds to that arithmetic
-// on the 16-bit tensor-core path, not to a 16-bit shortcut:
-//
-// - S = Q K^T is one mma.sync.m16n8k16 in the input type with a float32
-//   accumulator: the product of two bf16 or f16 values is exact in
-//   float32, so one pass is float32-accurate; the scale multiplies the
-//   float32 scores after the product.
-// - P stays float32-accurate: it is split into two parts of the input
-//   type, hi = round(P) and lo = round(P - hi), and O += lo V + hi V is
-//   two MMAs (m16n8k16, m16n8k8 at 8-key sub-chunks).  That keeps about
-//   16 bits of P (bf16; about 22 for f16, less where lo falls below
-//   f16's normal range, which costs at most 2^-24 absolute a term),
-//   against the output's 8 or 11; V is exact in its own type.  Rounding
-//   P to bf16 once, as most 16-bit flash kernels do, would be a different
-//   result from the reference's float32 P.  f16 never goes through TF32:
-//   its 11-bit mantissa does not fit TF32's 10.
-//
-// Layout: as the float32 kernel's, with the tiles kept in the input
-// type: rows padded to D+8 elements (4 words mod 32, so the 32-bit
-// fragment loads of Q and K hit 32 distinct banks), V's B fragments
-// read transposed by ldmatrix.trans, and P taken straight from the score
-// accumulators into the A fragment of the PV product (the accumulator's
-// columns 2t, 2t+1 are the A fragment's), with no shuffles.  The output
-// is o / l rounded to nearest even in the input type.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -265,243 +235,6 @@ flash_fwd_kernel(FlashArgs a) {
   }
 }
 
-
-// ---------------------------------------------------------------------------
-// bfloat16 and float16
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct Flash16Type;
-
-template <>
-struct Flash16Type<__nv_bfloat16> : Flash16Parts<__nv_bfloat16> {
-  static __device__ __forceinline__ void mma16(float* d, const uint32_t* a, const uint32_t* b) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ void mma8(float* d, const uint32_t* a, uint32_t b) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(b));
-  }
-};
-
-template <>
-struct Flash16Type<__half> : Flash16Parts<__half> {
-  static __device__ __forceinline__ void mma16(float* d, const uint32_t* a, const uint32_t* b) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ void mma8(float* d, const uint32_t* a, uint32_t b) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(b));
-  }
-};
-
-// Four (.x4) or two (.x2) 8x8 matrices of 16-bit elements, transposed:
-// lane l gives the row address of matrix l / 8 (row l % 8).
-static __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-static __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* row) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
-
-// kernels/flash_attention.py flash_smem_bytes mirrors SMEM_BYTES.
-template <int BQ, int D>
-struct Flash16Tile {
-  static constexpr int WARPS = BQ < 16 ? 1 : BQ / 16;  // 16 query rows each
-  static constexpr int NT = WARPS * 32;
-  static constexpr int QR = WARPS * 16;         // staged Q rows
-  static constexpr int BC = BQ < 16 ? BQ : 16;  // keys per sub-chunk
-  static constexpr int NCH = BQ / BC;
-  static constexpr int LD = D + 8;  // elements a row of Q, K and V
-  static constexpr int SMEM_BYTES = 2 * LD * (QR + 4 * BC);
-};
-
-template <int BQ, int D, typename T>
-__global__ void __launch_bounds__(Flash16Tile<BQ, D>::NT, 2)
-flash16_fwd_kernel(FlashArgs a) {
-  using Tile = Flash16Tile<BQ, D>;
-  using Ty = Flash16Type<T>;
-  constexpr int BC = Tile::BC, NCH = Tile::NCH, NT = Tile::NT, LD = Tile::LD;
-  constexpr int NKT = BC / 8;  // 8-key n-tiles of S
-  constexpr int NDT = D / 8;   // 8-column n-tiles of O
-  constexpr int V8 = D / 8;    // 16-byte pieces a row
-  extern __shared__ __align__(16) unsigned char smem16[];
-  T* q_s = reinterpret_cast<T*>(smem16);  // [QR][LD]     raw Q
-  T* k_s = q_s + Tile::QR * LD;           // [2][BC][LD]  K sub-chunks
-  T* v_s = k_s + 2 * BC * LD;             // [2][BC][LD]  V sub-chunks
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int s = a.s;
-  const FlashSlab sl = flash_slab(a);
-  const T* qb = (const T*)a.q + sl.bh * s * D;
-  const T* kb = (const T*)a.k + sl.kvh * s * D;
-  const T* vb = (const T*)a.v + sl.kvh * s * D;
-  T* ob = (T*)a.o + sl.bh * s * D;
-  const int p = sl.p;
-  const int items = sl.steps * NCH;  // (step, sub-chunk) in order
-
-  auto load_kv = [&](int it) {
-    int qt, kt;
-    bool st, la;
-    flash_step(a, p, it / NCH, qt, kt, st, la);
-    const long long k0 = (long long)kt * BQ + (it % NCH) * BC;
-    const T* ks = kb + k0 * D;
-    const T* vs = vb + k0 * D;
-    T* kd = k_s + (it & 1) * BC * LD;
-    T* vd = v_s + (it & 1) * BC * LD;
-    for (int e = tid; e < BC * V8; e += NT) {
-      const int r = e / V8, c8 = 8 * (e % V8);
-      cp_async16(kd + r * LD + c8, ks + r * D + c8);
-      cp_async16(vd + r * LD + c8, vs + r * D + c8);
-    }
-    cp_async_commit();
-  };
-
-  const int rl0 = warp * 16 + g, rl1 = rl0 + 8;  // the lane's tile-local rows
-  float o[NDT][4], mrow[2], lrow[2];
-  const T* qw = q_s + warp * 16 * LD;
-  load_kv(0);
-  for (int it = 0; it < items; ++it) {
-    const int c = it % NCH;
-    int qt, kt;
-    bool start, last;
-    flash_step(a, p, it / NCH, qt, kt, start, last);
-    cp_async_wait_all();
-    __syncthreads();  // item it's K, V visible; every warp is done with item it-1
-    if (it + 1 < items) load_kv(it + 1);
-    if (start && c == 0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mrow[h] = FLASH_NEG_INF;
-        lrow[h] = 0.f;
-      }
-#pragma unroll
-      for (int dt = 0; dt < NDT; ++dt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-      __syncwarp();  // the warp's reads of the previous Q tile are done
-      const T* qsrc = qb + (long long)qt * BQ * D;
-      for (int e = lane; e < 16 * V8; e += 32) {
-        const int r = e / V8, c8 = 8 * (e % V8), row = warp * 16 + r;
-        uint4 x = make_uint4(0u, 0u, 0u, 0u);  // padding rows of BQ = 8 stay zero
-        if (row < BQ) x = __ldg(reinterpret_cast<const uint4*>(qsrc + (long long)row * D + c8));
-        *reinterpret_cast<uint4*>(q_s + row * LD + c8) = x;
-      }
-      __syncwarp();
-    }
-    const T* kc = k_s + (it & 1) * BC * LD;
-    const T* vc = v_s + (it & 1) * BC * LD;
-
-    // S = Q K^T in the input type, float32 accumulators: exact products.
-    float sc[NKT][4];
-#pragma unroll
-    for (int nt = 0; nt < NKT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
-#pragma unroll 2
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const T* q0 = qw + g * LD + kd * 16 + 2 * t;
-      uint32_t fa[4];
-      fa[0] = *reinterpret_cast<const uint32_t*>(q0);
-      fa[1] = *reinterpret_cast<const uint32_t*>(q0 + 8 * LD);
-      fa[2] = *reinterpret_cast<const uint32_t*>(q0 + 8);
-      fa[3] = *reinterpret_cast<const uint32_t*>(q0 + 8 * LD + 8);
-#pragma unroll
-      for (int nt = 0; nt < NKT; ++nt) {
-        const T* k0 = kc + (nt * 8 + g) * LD + kd * 16 + 2 * t;
-        uint32_t fb[2];
-        fb[0] = *reinterpret_cast<const uint32_t*>(k0);
-        fb[1] = *reinterpret_cast<const uint32_t*>(k0 + 8);
-        Ty::mma16(sc[nt], fa, fb);
-      }
-    }
-
-    // Scale, bias and masks on the fragments, then the online softmax.
-    float alpha[2];
-    flash_softmax<NKT>(sc, a.scale, a, sl, BQ, qt, kt, rl0, c * BC, t, mrow, lrow, alpha);
-    if (flash_moved(alpha))
-#pragma unroll
-      for (int dt = 0; dt < NDT; ++dt) {
-        o[dt][0] *= alpha[0];
-        o[dt][1] *= alpha[0];
-        o[dt][2] *= alpha[1];
-        o[dt][3] *= alpha[1];
-      }
-
-    // O += lo V + hi V: the score accumulator's columns (2t, 2t+1) of each
-    // 8-key tile are the A fragment's, so P needs no shuffles.
-    if constexpr (BC == 16) {
-      uint32_t hi[4], lo[4];
-      Ty::split2(sc[0][0], sc[0][1], hi[0], lo[0]);  // row g,   keys 2t, 2t+1
-      Ty::split2(sc[0][2], sc[0][3], hi[1], lo[1]);  // row g+8, keys 2t, 2t+1
-      Ty::split2(sc[1][0], sc[1][1], hi[2], lo[2]);  // row g,   keys 2t+8, 2t+9
-      Ty::split2(sc[1][2], sc[1][3], hi[3], lo[3]);  // row g+8, keys 2t+8, 2t+9
-      // matrix lane / 8: keys (lane / 8 & 1) * 8 + lane % 8, columns of tile dt + lane / 16
-      const T* vrow = vc + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < NDT; dt += 2) {
-        uint32_t fb[4];
-        ldmatrix_x4_trans(fb, vrow + dt * 8);
-        Ty::mma16(o[dt], lo, fb);
-        Ty::mma16(o[dt + 1], lo, fb + 2);
-        Ty::mma16(o[dt], hi, fb);
-        Ty::mma16(o[dt + 1], hi, fb + 2);
-      }
-    } else {  // 8-key sub-chunks (BQ = 8): m16n8k8
-      uint32_t hi[2], lo[2];
-      Ty::split2(sc[0][0], sc[0][1], hi[0], lo[0]);
-      Ty::split2(sc[0][2], sc[0][3], hi[1], lo[1]);
-      // matrix (lane / 8) & 1: keys lane % 8, columns of tile dt + that
-      const T* vrow = vc + (lane & 7) * LD + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dt = 0; dt < NDT; dt += 2) {
-        uint32_t fb[2];
-        ldmatrix_x2_trans(fb, vrow + dt * 8);
-        Ty::mma8(o[dt], lo, fb[0]);
-        Ty::mma8(o[dt + 1], lo, fb[1]);
-        Ty::mma8(o[dt], hi, fb[0]);
-        Ty::mma8(o[dt + 1], hi, fb[1]);
-      }
-    }
-
-    if (last && c == NCH - 1) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float l = lrow[h];
-        l += __shfl_xor_sync(0xffffffffu, l, 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
-        const float li = l == 0.f ? 1.f : l;
-        const int rl = h ? rl1 : rl0;
-        if (rl < BQ) {
-          T* orow = ob + (long long)(qt * BQ + rl) * D + 2 * t;
-#pragma unroll
-          for (int dt = 0; dt < NDT; ++dt)
-            *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-                Ty::pack(o[dt][2 * h] / li, o[dt][2 * h + 1] / li);
-        }
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
@@ -522,49 +255,23 @@ static int flash_launch_f32(const FlashArgs& a, long long blocks, cudaStream_t s
   return (int)cudaGetLastError();
 }
 
-template <int BQ, int D, typename T>
-static int flash_launch_16(const FlashArgs& a, long long blocks, cudaStream_t st) {
-  const size_t smem = Flash16Tile<BQ, D>::SMEM_BYTES;
-  const int err = flash_set_smem(flash16_fwd_kernel<BQ, D, T>, smem);
-  if (err) return err;
-  flash16_fwd_kernel<BQ, D, T><<<(unsigned)blocks, Flash16Tile<BQ, D>::NT, smem, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// dtype 0 float32, 1 bfloat16, 2 float16 (kernels/flash_attention.py).
-template <int BQ, int D>
-static int flash_dispatch_t(const FlashArgs& a, int dtype, long long blocks, cudaStream_t st) {
-  switch (dtype) {
-    case 0:
-      if constexpr (BQ < 64) return flash_launch_f32<BQ, D>(a, blocks, st);
-      return (int)cudaErrorInvalidValue;  // flash_wgmma.cu serves these tiles
-    case 1:
-      if constexpr (BQ < 64) return flash_launch_16<BQ, D, __nv_bfloat16>(a, blocks, st);
-      return (int)cudaErrorInvalidValue;  // flash16_wgmma.cu serves these tiles
-    case 2:
-      if constexpr (BQ < 64) return flash_launch_16<BQ, D, __half>(a, blocks, st);
-      return (int)cudaErrorInvalidValue;
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 template <int BQ>
-static int flash_dispatch_d(const FlashArgs& a, int dtype, int d, long long blocks,
-                            cudaStream_t st) {
+static int flash_dispatch_d(const FlashArgs& a, int d, long long blocks, cudaStream_t st) {
   switch (d) {
-    case 16: return flash_dispatch_t<BQ, 16>(a, dtype, blocks, st);
-    case 32: return flash_dispatch_t<BQ, 32>(a, dtype, blocks, st);
-    case 64: return flash_dispatch_t<BQ, 64>(a, dtype, blocks, st);
-    case 128: return flash_dispatch_t<BQ, 128>(a, dtype, blocks, st);
+    case 16: return flash_launch_f32<BQ, 16>(a, blocks, st);
+    case 32: return flash_launch_f32<BQ, 32>(a, blocks, st);
+    case 64: return flash_launch_f32<BQ, 64>(a, blocks, st);
+    case 128: return flash_launch_f32<BQ, 128>(a, blocks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// float32 q, k, v, o at block_q 8, 16 or 32 (flash_wgmma.cu serves 64 and
+// 128, flash16_stacked.cu and flash16_wgmma.cu the 16-bit types).
 extern "C" int flash_attention_launch(void* o, const void* q, const void* k, const void* v,
                                       const void* bias, int bias_b, int bias_h,
                                       const void* seg, int b, int hq, int hkv, int s, int d,
-                                      int block_q, int folded, float scale, int dtype,
-                                      void* stream) {
+                                      int block_q, int folded, float scale, void* stream) {
   FlashArgs a;
   long long blocks;
   if (!flash_args(&a, o, q, k, v, bias, bias_b, bias_h, seg, b, hq, hkv, s, block_q, folded,
@@ -572,11 +279,9 @@ extern "C" int flash_attention_launch(void* o, const void* q, const void* k, con
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (block_q) {
-    case 8: return flash_dispatch_d<8>(a, dtype, d, blocks, st);
-    case 16: return flash_dispatch_d<16>(a, dtype, d, blocks, st);
-    case 32: return flash_dispatch_d<32>(a, dtype, d, blocks, st);
-    case 64: return flash_dispatch_d<64>(a, dtype, d, blocks, st);
-    case 128: return flash_dispatch_d<128>(a, dtype, d, blocks, st);
+    case 8: return flash_dispatch_d<8>(a, d, blocks, st);
+    case 16: return flash_dispatch_d<16>(a, d, blocks, st);
+    case 32: return flash_dispatch_d<32>(a, d, blocks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

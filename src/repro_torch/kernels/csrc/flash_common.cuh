@@ -1,10 +1,12 @@
 // What the flash attention kernels share: their arguments, the walk of
 // the 2-simplex of (q tile, kv tile) pairs, and cp.async helpers.
 //
-// flash_attention.cu runs the mma.sync kernels (float32, bfloat16 and
-// float16 below 64-row tiles), flash_wgmma.cu (float32) and
-// flash16_wgmma.cu (bfloat16, float16) the kernels on wgmma at 64- and
-// 128-row tiles.  All walk the schedule the same way: one block per
+// flash_attention.cu runs the float32 mma.sync kernel below 64-row
+// tiles, flash_wgmma.cu (float32) and flash16_wgmma.cu (bfloat16,
+// float16) the kernels on wgmma at 64- and 128-row tiles, and
+// flash16_stacked.cu the 16-bit kernel on wgmma below 64-row tiles, with
+// the heads of a GQA group stacked in a warpgroup's 64 rows (its blocks
+// take several heads; see there).  All walk the schedule the same way: one block per
 // (b*Hq, pair p) for the folded schedule walks j = 0..nq:
 //   j <= p: (q, kv) = (p, j);  j > p: (q, kv) = (nq-1-p, j-p-1),
 // resetting at j == 0 | j == p+1 and flushing at j == p | j == nq, so
@@ -32,8 +34,9 @@ struct FlashArgs {
   float scale;
 };
 
-// The arguments of flash_attention_launch, flash_wgmma_launch and
-// flash16_wgmma_launch, checked.
+// The arguments of flash_attention_launch, flash_wgmma_launch,
+// flash16_wgmma_launch and flash16_stacked_launch, checked; blocks is
+// one per (b*Hq, pair row).
 static inline bool flash_args(FlashArgs* a, void* o, const void* q, const void* k,
                               const void* v, const void* bias, int bias_b, int bias_h,
                               const void* seg, int b, int hq, int hkv, int s, int block_q,
@@ -61,6 +64,13 @@ static inline bool flash_args(FlashArgs* a, void* o, const void* q, const void* 
 static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+// The same copy of `bytes` (0 or 16) bytes from src, the rest of the 16
+// zero-filled: a key row past the sequence lands as zeros.
+static __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
 }
 
 static __device__ __forceinline__ void cp_async_commit() {
@@ -117,10 +127,10 @@ static __device__ __forceinline__ FlashSlab flash_slab(const FlashArgs& a) {
 }
 
 // One sub-chunk's scores through the mask and the online softmax, as
-// flash, flash16 and flash_wgmma hold them (flash16_wgmma.cu has its
-// own): sc[nt][e] is row rl0 (e < 2) or rl0 + 8 of the tile, tile-local
-// key cbase + 8 nt + 2t + (e & 1).  The scores are
-// scaled (the 16-bit kernel's come unscaled; the others pass 1), the
+// flash and flash_wgmma hold them (the 16-bit kernels have their own, in
+// wgmma16.cuh): sc[nt][e] is row rl0 (e < 2) or rl0 + 8 of the tile,
+// tile-local key cbase + 8 nt + 2t + (e & 1).  The scores are
+// scaled by `scale` (both pass 1: their Q is scaled before the product), the
 // bias added, the causal and segment masks and the rows past the tile
 // (block 8 pads a warp's 16 rows) applied; then the row max over the
 // quad, alpha = exp(old max - new max), the probabilities (masked ones

@@ -72,6 +72,8 @@ __all__ = [
 
 # Elements per chunk of a plain version's tile gather (bounds its memory).
 _CHUNK_ELEMS = 1 << 22
+# Schedule steps (warps) a block of ca.cu takes at most (CA_WARPS there).
+CA_WARPS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -598,9 +600,13 @@ class CABody(KernelBody):
     def kernel_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
         """Step the domain cells of the tiles ``sched`` visits from
         ``inp`` into ``out`` (``ca.cu``), in the state's own dtype (one of
-        ``CA_DTYPES``); ``out`` must not alias ``inp``."""
+        ``CA_DTYPES``); ``out`` must not alias ``inp``.  Halo rows and
+        results move in 16-byte pieces where ``vector_access`` says so."""
+        size = inp.element_size()
+        vec = (self.vector_access(rho, size, inp.data_ptr(), out.data_ptr())
+               and self.warp_bytes(sched.m, rho, size, True) <= SMEM_LIMIT)
         check_operand(self.name, sched, rho, inp,
-                      smem_bytes=self.smem_bytes(sched.m, rho, inp.element_size()))
+                      smem_bytes=self.smem_bytes(sched.m, rho, size, vec))
         if out.shape != inp.shape or out.dtype != inp.dtype:
             raise ValueError(f"ca: output {tuple(out.shape)} {out.dtype} and input "
                              f"{tuple(inp.shape)} {inp.dtype} differ")
@@ -613,23 +619,48 @@ class CABody(KernelBody):
         with torch.cuda.device(inp.device):
             code = lib.simplex_ca_launch(
                 out.data_ptr(), inp.data_ptr(), DTYPE_CODES[inp.dtype], int(inp.ndim == 2),
-                desc.header.ctypes.data, _ptr(desc.data), inp.shape[0], rho,
+                int(vec), desc.header.ctypes.data, _ptr(desc.data), inp.shape[0], rho,
                 _stream(inp),
             )
         _build.check(code, self.name)
         self.launches += 1
 
     @staticmethod
-    def smem_bytes(m: int, rho: int, itemsize: int = 4) -> int:
-        """Shared memory of one ``ca.cu`` block: the (rho+2)^m halo of
-        ``itemsize``-byte cells, rounded up to 4 bytes, and the 3^m - 1
-        neighbour offsets.
+    def vector_access(rho: int, itemsize: int, *data_ptrs: int) -> bool:
+        """Whether ``ca.cu`` moves 16-byte pieces (else single cells): the
+        rule of ``accum_vector_access`` on every buffer it touches.
 
         Example:
-            >>> CABody.smem_bytes(2, 16), CABody.smem_bytes(2, 16, 1)
-            (1328, 356)
+            >>> CABody.vector_access(16, 4, 0, 512), CABody.vector_access(16, 4, 0, 4)
+            (True, False)
         """
-        return ((rho + 2) ** m * itemsize + 3) // 4 * 4 + 4 * (3**m - 1)
+        return all(accum_vector_access(rho, itemsize, p) for p in data_ptrs)
+
+    @staticmethod
+    def warp_bytes(m: int, rho: int, itemsize: int, vector: bool) -> int:
+        """One warp's halo slice in ``ca.cu``: ``(rho+2)^(m-1)`` rows of
+        ``rho + 2L`` cells (``L`` = the cells of a 16-byte piece on the
+        vector path, else 1), rounded up to 16 bytes.
+
+        Example:
+            >>> CABody.warp_bytes(2, 16, 4, True), CABody.warp_bytes(2, 16, 4, False)
+            (1728, 1296)
+        """
+        lead = 16 // itemsize if vector else 1
+        return -(-((rho + 2) ** (m - 1) * (rho + 2 * lead) * itemsize) // 16) * 16
+
+    @staticmethod
+    def smem_bytes(m: int, rho: int, itemsize: int = 4, vector: bool = False) -> int:
+        """Shared memory of one ``ca.cu`` block: ``CA_WARPS`` warps'
+        halo slices (``warp_bytes``), fewer where they would not fit
+        ``SMEM_LIMIT``, never fewer than one.
+
+        Example:
+            >>> CABody.smem_bytes(2, 16), CABody.smem_bytes(2, 16, 1, True)
+            (10368, 6912)
+        """
+        w = CABody.warp_bytes(m, rho, itemsize, vector)
+        return max(1, min(CA_WARPS, SMEM_LIMIT // w)) * w
 
     def launch(self, kernel: "SimplexKernel", state, device: torch.device):
         """The stepped state; off-domain cells keep their input."""

@@ -17,8 +17,9 @@ same output and rewrites it.
 Two versions of the forward compute the same function:
 
 * four CUDA kernels for CUDA tensors, each block walking one
-  ``(b*Hq, pair)`` (folded) or ``(b*Hq, q tile)`` (bb) in order, chosen
-  by a fixed rule (``flash_route``):
+  ``(b*Hq, pair)`` (folded) or ``(b*Hq, q tile)`` (bb) in order (the
+  16-bit kernel below 64-row tiles several heads at once), chosen by a
+  fixed rule (``flash_route``):
 
   - ``flash_wgmma`` (``kernels/csrc/flash_wgmma.cu``): float32 at
     ``block_q`` 64 and 128, 3xTF32 ``wgmma`` with every operand split
@@ -30,9 +31,11 @@ Two versions of the forward compute the same function:
     float16 at ``block_q`` 64 and 128, ``wgmma`` in the input type on
     Q, K and V in the 128-byte swizzle (V read MN-major), float32
     accumulators, P kept float32-accurate as two 16-bit parts;
-  - ``flash16`` (``kernels/csrc/flash_attention.cu``): bfloat16 and
-    float16 at ``block_q`` 8, 16 and 32, the same arithmetic on
-    ``mma.sync``;
+  - ``flash16`` (``kernels/csrc/flash16_stacked.cu``): bfloat16 and
+    float16 at ``block_q`` 8, 16 and 32, the same arithmetic on ``wgmma``
+    with the query tiles of ``64 / block_q`` heads of a GQA group stacked
+    in each warpgroup's 64 rows (``flash16_warpgroups`` warpgroups a
+    block; a block per ``(b, KV head, head group, pair)``);
 
   all compute the reference's float32 softmax and round only the output
   to q's dtype;
@@ -68,6 +71,7 @@ __all__ = [
     "kernel_fits",
     "flash_smem_bytes",
     "flash_route",
+    "flash16_warpgroups",
     "launch_counts",
     "ROUTES",
 ]
@@ -79,8 +83,8 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # The kernels, by the name their launch counter goes under.
 ROUTES = ("flash", "flash16", "flash16_wgmma", "flash_wgmma")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# Keys a chunk of flash_wgmma.cu (WG_BN) and of flash16_wgmma.cu (F16_BN,
-# F16_STAGES chunks in its ring).
+# Keys a chunk of flash_wgmma.cu (WG_BN) and of the 16-bit wgmma kernels
+# (wgmma16.cuh F16_BN, F16_STAGES chunks in their ring).
 _WG_BN = 32
 _F16_BN, _F16_STAGES = 64, 3
 
@@ -164,7 +168,8 @@ def flash_route(block_q: int, dtype=torch.float32) -> str:
 
     At ``block_q >= 64`` (a warpgroup's 64-row tile) float32 runs
     ``flash_wgmma`` and bfloat16 and float16 ``flash16_wgmma``; below it
-    float32 runs ``flash`` and the 16-bit types ``flash16`` (``mma.sync``).
+    float32 runs ``flash`` (``mma.sync``) and the 16-bit types ``flash16``
+    (``wgmma``, the heads of a GQA group stacked in a warpgroup).
 
     Example:
         >>> flash_route(128), flash_route(32)
@@ -178,7 +183,22 @@ def flash_route(block_q: int, dtype=torch.float32) -> str:
     return "flash_wgmma" if wide else "flash"
 
 
-def flash_smem_bytes(block_q: int, d: int, dtype=torch.float32) -> int:
+def flash16_warpgroups(block_q: int, group: int) -> int:
+    """Warpgroups a block of ``flash16`` (``csrc/flash16_stacked.cu``): a
+    fixed rule.  A warpgroup stacks ``64 // block_q`` heads of a GQA
+    group of ``group = Hq / Hkv`` heads; a second warpgroup is taken only
+    when the group fills both.
+
+    Example:
+        >>> flash16_warpgroups(32, 8), flash16_warpgroups(16, 8), flash16_warpgroups(8, 8)
+        (2, 2, 1)
+        >>> flash16_warpgroups(32, 1)
+        1
+    """
+    return 2 if group >= 2 * (64 // block_q) else 1
+
+
+def flash_smem_bytes(block_q: int, d: int, dtype=torch.float32, warpgroups: int = 1) -> int:
     """Shared memory of one block of the kernel that serves ``(block_q,
     d, dtype)`` (``flash_route``).
 
@@ -194,14 +214,17 @@ def flash_smem_bytes(block_q: int, d: int, dtype=torch.float32) -> int:
     * ``flash16_wgmma``: 1 KB of alignment slack, the Q tile and
       ``_F16_STAGES`` chunks of K and of V (``_F16_BN`` keys each), all in
       rows of 128-byte atoms, ``ceil(d/64)`` atoms a row.
-    * ``flash16``: the same rows as ``flash`` in 2-byte elements, every
-      row padded to ``d+8`` elements.
+    * ``flash16``: as ``flash16_wgmma`` with a Q stack of 64 rows a
+      warpgroup (``warpgroups``, ``flash16_warpgroups``) in place of the Q
+      tile.
 
     Example:
         >>> flash_smem_bytes(128, 128), flash_smem_bytes(32, 128)
         (230416, 51200)
         >>> flash_smem_bytes(128, 128, torch.bfloat16), flash_smem_bytes(32, 128, torch.float16)
-        (132096, 26112)
+        (132096, 115712)
+        >>> flash_smem_bytes(8, 128, torch.bfloat16, warpgroups=2)
+        132096
     """
     route = flash_route(block_q, dtype)
     bc = min(16, block_q)
@@ -209,19 +232,19 @@ def flash_smem_bytes(block_q: int, d: int, dtype=torch.float32) -> int:
         atoms = (d + 31) // 32
         return (1024 + 2 * atoms * 128 * (block_q + _WG_BN) + 2 * d * 128
                 + 2 * _WG_BN * d * 4 + 16)
-    if route == "flash16_wgmma":
+    if route in ("flash16_wgmma", "flash16"):
         atoms = (d + 63) // 64
-        return 1024 + atoms * 128 * (block_q + 2 * _F16_STAGES * _F16_BN)
-    if route == "flash16":
-        return 2 * (d + 8) * (max(block_q, 16) + 4 * bc)
+        rows = block_q if route == "flash16_wgmma" else 64 * warpgroups
+        return 1024 + atoms * 128 * (rows + 2 * _F16_STAGES * _F16_BN)
     return 4 * (max(block_q, 16) * (d + 4) + 2 * bc * (d + 4) + 2 * bc * (d + 8))
 
 
 def kernel_fits(block_q: int, d: int, dtype=torch.float32) -> bool:
     """Whether a CUDA kernel is compiled for ``(block_q, d, dtype)`` and
-    its block fits the shared memory a Hopper block may use."""
+    its block fits the shared memory a Hopper block may use (``flash16``
+    at two warpgroups, its larger block)."""
     return (block_q in KERNEL_BLOCKS and d in KERNEL_HEAD_DIMS and dtype in KERNEL_DTYPES
-            and flash_smem_bytes(block_q, d, dtype) <= SMEM_LIMIT)
+            and flash_smem_bytes(block_q, d, dtype, warpgroups=2) <= SMEM_LIMIT)
 
 
 class FlashKernel:
@@ -286,12 +309,19 @@ class FlashKernel:
         return out.reshape(b, hq, s, d)
 
     def kernel(self, kind: str, block_q: int, scale: float, q, k, v, bias=None,
-               seg=None) -> torch.Tensor:
+               seg=None, warpgroups: Optional[int] = None) -> torch.Tensor:
         """The CUDA kernel ``flash_route(block_q, q.dtype)`` names, on CUDA
         tensors of one dtype in ``KERNEL_DTYPES``; the output is in that
-        dtype."""
+        dtype.  ``warpgroups`` sets ``flash16``'s warpgroups a block (1
+        or 2; None: ``flash16_warpgroups``); other routes take None."""
         b, hq, s, d = q.shape
         hkv = k.shape[1]
+        route = flash_route(block_q, q.dtype)
+        if warpgroups is None and route == "flash16":
+            warpgroups = flash16_warpgroups(block_q, hq // hkv)
+        bad = warpgroups not in (1, 2) if route == "flash16" else warpgroups is not None
+        if bad:
+            raise ValueError(f"flash kernel: warpgroups={warpgroups} for route {route}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.device.type != "cuda" or t.dtype not in KERNEL_DTYPES:
                 raise ValueError(f"flash kernel takes float32, bfloat16 or float16 CUDA "
@@ -315,7 +345,6 @@ class FlashKernel:
         if seg is not None:
             seg = seg.to(device=q.device, dtype=torch.int32).contiguous()
         out = torch.empty_like(q)
-        route = flash_route(block_q, q.dtype)
         args = [out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias is None else bias.data_ptr(), bias_b, bias_h,
                 None if seg is None else seg.data_ptr(), b, hq, hkv, s, d, block_q,
@@ -327,8 +356,11 @@ class FlashKernel:
                 code = lib.flash_wgmma_launch(*args, stream)
             elif route == "flash16_wgmma":
                 code = lib.flash16_wgmma_launch(*args, _DTYPE_CODES[q.dtype], stream)
+            elif route == "flash16":
+                code = lib.flash16_stacked_launch(*args, _DTYPE_CODES[q.dtype], warpgroups,
+                                                  stream)
             else:
-                code = lib.flash_attention_launch(*args, _DTYPE_CODES[q.dtype], stream)
+                code = lib.flash_attention_launch(*args, stream)
         _build.check(code, route)
         self.launches[route] += 1
         return out

@@ -3,8 +3,9 @@
 The reference's Pallas kernel takes q's dtype and computes in float32
 inside: q, k and v are upcast, the scores, the softmax and P stay
 float32, and only the output is rounded to q's dtype.  On the card the
-port's ``flash16`` kernel (``csrc/flash_attention.cu``) keeps that
-arithmetic on the 16-bit tensor cores: S = Q K^T is one MMA in the input
+port's 16-bit kernels (``flash16``, ``csrc/flash16_stacked.cu``, below
+64-row tiles; ``flash16_wgmma`` at 64 and 128) keep that arithmetic on
+the 16-bit tensor cores: S = Q K^T is one MMA in the input
 type (the products of two 16-bit values are exact in float32), and P is
 split into two parts of the input type, ``hi = round(P)`` and
 ``lo = round(P - hi)``, so that O += lo V + hi V keeps P float32-accurate.
@@ -15,10 +16,12 @@ Here:
   interpret mode, and the reduced yi-6b prefill at the config's own
   ``act_dtype`` (bfloat16) against the JAX model with the same weights
   (``params_from_jax``);
-* an emulation of the kernel's recurrence (16-key sub-chunks, exact
-  16-bit products summed in float32, the two-part P) against the plain
-  version, and the two-part P product against float32 P, beside a single
-  16-bit rounding of P on the same tiles.
+* an emulation of the 16-bit arithmetic's recurrence over key
+  sub-chunks smaller than a tile (exact 16-bit products summed in
+  float32, the two-part P) against the plain version, and the two-part P
+  product against float32 P, beside a single 16-bit rounding of P on the
+  same tiles (the kernels' own walks are emulated in
+  ``test_torch_flash16_wgmma.py`` and ``test_torch_flash16_stacked.py``).
 
 Gates, with their reasons:
 
@@ -138,7 +141,7 @@ def test_16bit_activations_take_the_flash_route():
     """The tuner maps the reduced prefill's shape for 16-bit activations
     on the CPU and on the card's tables: no dtype sends it to chunked.
     The 16-bit route is ``flash16_wgmma`` at 64- and 128-row tiles and
-    ``flash16`` (``mma.sync``) below them."""
+    ``flash16`` (the GQA group's heads stacked on ``wgmma``) below them."""
     for dtype in (torch.float32,) + DTYPES:
         assert TT.choose_attn_impl(64, 4, 16, device="cpu", dtype=dtype).impl == "flash"
         assert all(TF.kernel_fits(bq, d, dtype) for bq in TF.KERNEL_BLOCKS
@@ -186,7 +189,7 @@ def one_part(p: torch.Tensor, v: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def flash16_emulation(q, k, v, block_q, scale, bias=None, seg=None, kind="folded"):
-    """The kernel's recurrence: per query tile, KV sub-chunks of
+    """The 16-bit recurrence: per query tile, KV sub-chunks of
     ``min(16, block_q)`` keys, ``S = (Q K^T) * scale`` from exact 16-bit
     products, bias and masks on the scores, the online max and sum,
     ``O = alpha O + two_part(P, V)``, the output rounded once."""

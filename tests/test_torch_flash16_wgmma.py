@@ -1,5 +1,6 @@
-"""The 16-bit flash forward on warpgroup MMA (``csrc/flash16_wgmma.cu``),
-its shared-memory layouts and register fragments emulated on the CPU.
+"""The 16-bit flash forward on warpgroup MMA (``csrc/flash16_wgmma.cu``,
+its layouts and products in ``csrc/wgmma16.cuh``), its shared-memory
+layouts and register fragments emulated on the CPU.
 
 The kernel lands Q, K and V in shared memory as they are, in wgmma's
 128-byte swizzle, and reads them through wgmma descriptors: Q and K as
@@ -39,7 +40,9 @@ from repro.kernels import flash_attention as RF
 from repro_torch.kernels import flash_attention as TF
 from test_torch_flash16 import _inputs, _segments, within_one_ulp
 
-SRC = (pathlib.Path(TF.__file__).parent / "csrc" / "flash16_wgmma.cu").read_text()
+# The kernel and the header that holds its layout, descriptors and products.
+SRC = "".join((pathlib.Path(TF.__file__).parent / "csrc" / name).read_text()
+              for name in ("flash16_wgmma.cu", "wgmma16.cuh"))
 DTYPES = (torch.bfloat16, torch.float16)
 
 
@@ -59,9 +62,10 @@ def _fn(args: str, expr: str):
 BN = int(_expr(r"#define F16_BN (\d+)"))
 # The swizzled byte offset of 16-byte piece c of row r (f16_swz).
 SWZ = _fn("r, c, rows", _expr(r"int f16_swz\(int r, int c, int rows\) \{\s*return (.*?);"))
-# The start of k-step ks of warpgroup wg's rows of Q, and of a K chunk.
-Q_START = _fn("ks, wg, BQ", _expr(r"const int qo = (.*?);"))
-K_START = _fn("ks, BN", _expr(r"const int ko = (.*?);"))
+# The start of k-step ks of warpgroup wg's rows of Q (QROWS rows: the
+# kernel's BQ), and of a K chunk.
+Q_START = _fn("ks, wg, QROWS", _expr(r"const int qo = (.*?);"))
+K_START = _fn("ks, F16_BN", _expr(r"const int ko = (.*?);"))
 # The V descriptor of 16-key step j: its start and its LBO; SBO is f16_desc's.
 V_START = _fn("j", _expr(r"f16_desc\(vc \+ (.*?), .*?\)"))
 V_LBO = _fn("F16_BN", _expr(r"f16_desc\(vc \+ .*?, (.*?)\)"))(BN)
