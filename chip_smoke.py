@@ -16,10 +16,15 @@ coordinates into element origins.  This script
 2. builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together, then one link) and logs
    each source's compile time and what ptxas reports per kernel
-   (registers, stack, spills, shared memory);
+   (registers, stack, spills, shared memory), then the ``map_frame``
+   line: the stack frame of every kernel of a source that includes
+   ``simplex_maps.cuh``, which must be 0 bytes for the engine's MAP,
+   ACCUM, CA and EDM kernels at m = 2 and 3 (``FRAMELESS``);
 3. sets every launch counter to 0, drives the public entry points of
    ``repro_torch.kernels.ops`` (MAP, ACCUM, EDM, CA at m=2 and m=3, plus
-   ACCUM, EDM and MAP at m=4; ACCUM and EDM also with ``split=True``,
+   ACCUM, EDM and MAP at m=4, and MAP at m = 5..8 on small sides, so that
+   every instantiation of the device map runs; ACCUM and EDM also with
+   ``split=True``,
    one launch per composite piece) at the paper's sizes, and holds each
    output against the body's plain version on the same card: integers
    bit-equal, EDM within ``|k - p| <= 1e-5 + 1e-5 * max|p|`` (float32
@@ -140,6 +145,7 @@ import argparse
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -241,7 +247,17 @@ MAP_CASES = {
         (16000, ("composite", "bb"))],
     3: [(512, ("octant", "bb")), (128, ("table", "bb")), (480, ("composite", "bb"))],
     4: [(16, ("hmap", "bb")), (15, ("composite", "bb"))],
+    # small, so that every M instantiation of the device map runs on the card
+    5: [(16, ("hmap", "table", "bb")), (12, ("composite", "bb"))],
+    6: [(16, ("hmap", "table", "bb")), (12, ("composite", "bb"))],
+    7: [(8, ("hmap", "table", "bb")), (10, ("composite", "bb"))],
+    8: [(8, ("hmap", "table", "bb")), (9, ("composite", "bb"))],
 }
+# The engine kernels whose device map must keep no stack frame at these m
+# (the map_frame line; ptxas reports a frame in local memory per kernel).
+FRAMELESS = ("simplex_map_kernel", "simplex_accum_kernel", "simplex_ca_kernel",
+             "simplex_edm_kernel")
+FRAMELESS_M = (2, 3)
 # EDM on points with exact and near duplicates: (m, n, rho, kind).
 EDM_DUPLICATE_CASES = ((2, 16384, 16, "hmap"), (3, 1024, 8, "octant"))
 # (test, m) whose composite cases also run split=True: one launch per piece.
@@ -259,13 +275,11 @@ def _log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def ptxas_summary(log: str, cufilt: pathlib.Path) -> list:
-    """One line per kernel and resource footprint from ``-Xptxas -v``:
-    registers, stack frame, spill stores/loads and static shared memory.
-    Instantiations of one kernel with the same footprint share a line,
-    their template arguments joined by ``;`` (names demangled with
-    ``cufilt`` where it exists)."""
-    groups: dict = {}
+def ptxas_records(log: str) -> list:
+    """One dict per kernel that ``-Xptxas -v`` reports: its source, its
+    mangled name, registers, stack frame, spill stores/loads and static
+    shared memory."""
+    records = []
     src = name = props = None
     info: dict = {}
     for line in log.splitlines():
@@ -282,9 +296,21 @@ def ptxas_summary(log: str, cufilt: pathlib.Path) -> list:
             words = line.replace(",", " ").split()
             info["registers"] = int(words[words.index("Used") + 1])
             info["smem"] = int(words[words.index("smem") - 2]) if "smem" in words else 0
-            groups.setdefault((src, tuple(sorted(info.items()))), []).append(name)
+            records.append(dict(src=src, name=name, **info))
             name = None
-    names = sorted({n for ns in groups.values() for n in ns})
+    return records
+
+
+def ptxas_summary(records: list, cufilt: pathlib.Path) -> list:
+    """One line per kernel and resource footprint: registers, stack frame,
+    spill stores/loads and static shared memory.  Instantiations of one
+    kernel with the same footprint share a line, their template arguments
+    joined by ``;`` (names demangled with ``cufilt`` where it exists)."""
+    groups: dict = {}
+    for r in records:
+        info = tuple(sorted((k, v) for k, v in r.items() if k not in ("src", "name")))
+        groups.setdefault((r["src"], info), []).append(r["name"])
+    names = sorted({r["name"] for r in records})
     readable = dict(zip(names, names))
     if cufilt.exists() and names:
         out = subprocess.run([str(cufilt)], input="\n".join(names), capture_output=True,
@@ -304,6 +330,31 @@ def ptxas_summary(log: str, cufilt: pathlib.Path) -> list:
         stats = " ".join(f"{k}={v}" for k, v in info)
         lines.append(f"ptxas {src} {what}: {stats}")
     return lines
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<M>`` of a kernel templated on its leading int (``name``
+    otherwise), read from its Itanium-mangled name."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    start = m.end()
+    base = mangled[start:start + int(m.group(1))]
+    rest = mangled[start + int(m.group(1)):]
+    arg = re.match(r"ILi(\d+)E", rest)
+    return f"{base}<{arg.group(1)}>" if arg else base
+
+
+def map_frames(records: list, csrc: pathlib.Path) -> dict:
+    """``{source: {kernel: stack bytes}}`` for every kernel of a source
+    that includes ``simplex_maps.cuh``."""
+    users = {p.name for p in csrc.glob("*.cu")
+             if '#include "simplex_maps.cuh"' in p.read_text()}
+    frames: dict = {}
+    for r in records:
+        if r["src"] in users:
+            frames.setdefault(r["src"], {})[kernel_name(r["name"])] = r["stack"]
+    return {src: dict(sorted(k.items())) for src, k in sorted(frames.items())}
 
 
 def _f32(row) -> str:
@@ -1748,8 +1799,11 @@ def main(argv=None) -> int:
     for line in _build.build_log().splitlines():
         if line.startswith("== "):
             _log(f"build {line[3:]}")
-    for line in ptxas_summary(_build.build_log(), _build.CUDA_HOME / "bin" / "cu++filt"):
+    records = ptxas_records(_build.build_log())
+    for line in ptxas_summary(records, _build.CUDA_HOME / "bin" / "cu++filt"):
         _log(line)
+    frames = map_frames(records, _build.CSRC)
+    _log(f"map_frame {json.dumps(frames)}")
 
     def zero_counts():
         for name in engine.registered_bodies():
@@ -1764,6 +1818,11 @@ def main(argv=None) -> int:
                     **hmap_mxu.launch_counts())
 
     smoke = Smoke(torch, engine, ops, ref, args.seed)
+    for kernel in FRAMELESS:
+        for m in FRAMELESS_M:
+            stack = [f[f"{kernel}<{m}>"] for f in frames.values() if f"{kernel}<{m}>" in f]
+            if stack != [0]:
+                smoke.fail(f"ptxas: {kernel}<{m}> keeps a stack frame {stack} (want [0])")
     old = LegacySmoke(smoke, legacy)
     old_md = LegacyMdSmoke(smoke, legacy)
     mxu = MxuSmoke(smoke, hmap_mxu, hmap)

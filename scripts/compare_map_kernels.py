@@ -1,0 +1,184 @@
+#!/usr/bin/env python3
+"""Time every kernel on the device map from two source trees in turns on
+one card: MAP, ACCUM, CA, EDM and the m >= 3 originals.
+
+Two calls to the card may land on two cards with other power limits, so
+a change to ``kernels/csrc/simplex_maps.cuh`` or to one of its users is
+compared with its base inside one process: the users' sources
+(``map.cu``, ``accum.cu``, ``ca.cu``, ``edm.cu``, ``legacy_md.cu``) of
+each tree are compiled into a library of their own, and each case runs
+base, change, change, base, its time the median of ``RUNS`` CUDA-event
+timed runs after warm-up.  The Python side is this tree's, so the base
+must export the same C entry points (``kernels/_build.py``).  Every
+case's outputs must agree between the trees (integers bit for bit, EDM
+within ``1e-5 + 1e-5 * max|p|``); the script exits 1 where they do not.
+
+The cases are the head cases of ``chip_smoke.py`` (int32, EDM in
+float32 with d = 64): MAP at m=2 hmap nb=16384, m=3 octant nb=512 and
+m=4 hmap nb=16; ACCUM, CA and EDM at m=2 hmap n=16384 rho=16 and m=3
+octant n=1024 rho=8, ACCUM and EDM also at m=4 hmap n=64 rho=4;
+``accum3d``, ``accum_md`` and ``ca3d`` at m=3 hmap n=1024 rho=8.  Each
+prints ``compare <case> base=<ms>/<ms> change=<ms>/<ms>`` (both runs of
+each) and the change's time over the base's.
+
+Run from the repository root on a card, with the base unpacked into a
+git-ignored directory::
+
+    mkdir -p build/base && git archive <ref> src/repro_torch/kernels/csrc | tar -x -C build/base
+    python3 scripts/compare_map_kernels.py --base build/base
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import pathlib
+import statistics
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+USERS = ("map.cu", "accum.cu", "ca.cu", "edm.cu", "legacy_md.cu")
+RUNS = 10
+
+
+def build(csrc: pathlib.Path, out: pathlib.Path, nvcc: str, flags) -> ctypes.CDLL:
+    """Compile the map's users of ``csrc`` (in parallel) into one library."""
+    out.mkdir(parents=True)
+    procs = [subprocess.Popen([nvcc, *flags, "-c", str(csrc / cu), "-o", str(out / f"{cu}.o")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cu in USERS]
+    for cu, proc in zip(USERS, procs):
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {csrc / cu}:\n{log}")
+    lib = out / "lib.so"
+    subprocess.run([nvcc, *flags, "-shared", *(str(out / f"{cu}.o") for cu in USERS),
+                    "-o", str(lib)], check=True, capture_output=True)
+    return ctypes.CDLL(str(lib))
+
+
+def main(argv=None) -> int:
+    """Build both trees, run every case in turns, print one line a case."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--base", required=True, type=pathlib.Path,
+                    help="a tree holding src/repro_torch/kernels/csrc")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("compare_map_kernels.py: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build, engine, legacy
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    nvcc = _build.nvcc_path()
+    libs = {}
+    for tag, csrc in (("base", args.base / "src/repro_torch/kernels/csrc"),
+                      ("change", _build.CSRC)):
+        lib = build(csrc, tmp / tag, nvcc, _build.NVCC_FLAGS)
+        for name, argtypes in _build._SIGNATURES.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = list(argtypes)
+                getattr(lib, name).restype = ctypes.c_int
+        libs[tag] = lib
+
+    def time_ms(fn) -> float:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(RUNS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    failures = []
+
+    def compare(label, fn, result, reset=None) -> None:
+        """Run ``fn`` from each tree in turns; ``result()`` reads its
+        output after one call from the state ``reset()`` restores."""
+        times = {"base": [], "change": []}
+        outs = {}
+        for tag in ("base", "change", "change", "base"):
+            _build._LIB = libs[tag]
+            if reset:
+                reset()
+            fn()
+            torch.cuda.synchronize()
+            outs.setdefault(tag, result())
+            times[tag].append(time_ms(fn))
+        a, b = outs["base"], outs["change"]
+        if a.dtype.is_floating_point:
+            same = (a - b).abs().max().item() <= 1e-5 + 1e-5 * a.abs().max().item()
+        else:
+            same = torch.equal(a, b)
+        if not same:
+            failures.append(label)
+        base, change = statistics.mean(times["base"]), statistics.mean(times["change"])
+        print(f"compare {label} base={times['base'][0]:.4f}/{times['base'][1]:.4f} "
+              f"change={times['change'][0]:.4f}/{times['change'][1]:.4f} "
+              f"change/base={change / base:.3f} agree={same}", flush=True)
+
+    mapb = engine.get_body("map")
+    for m, nb, kind in ((2, 16384, "hmap"), (3, 512, "octant"), (4, 16, "hmap")):
+        sched = engine.schedule_for(m, nb, kind)
+        box = {}
+        compare(f"map m={m} nb={nb} kind={kind}",
+                lambda: box.__setitem__("out", mapb.kernel(sched, 128, dev)),
+                lambda: box.pop("out"))
+    for m, n, rho, kind in ((2, 16384, 16, "hmap"), (3, 1024, 8, "octant"), (4, 64, 4, "hmap")):
+        sched = engine.schedule_for(m, n // rho, kind)
+        x = torch.randint(0, 100, (n,) * m, generator=gen, device=dev, dtype=torch.int32)
+        buf = x.clone()
+        compare(f"accum m={m} n={n} kind={kind}",
+                lambda: engine.get_body("accum").kernel_(buf, sched, rho),
+                lambda: buf.clone(), lambda: buf.copy_(x))
+        del x, buf
+        if m <= 3:
+            st = (torch.rand((n,) * m, generator=gen, device=dev) < 0.4).to(torch.int32)
+            out = st.clone()
+            compare(f"ca m={m} n={n} kind={kind}",
+                    lambda: engine.get_body("ca").kernel_(out, st, sched, rho),
+                    lambda: out.clone())
+            del st, out
+        p = torch.randn((n, 64), generator=gen, device=dev)
+        out = torch.zeros((n,) * m, device=dev)
+        compare(f"edm m={m} n={n} kind={kind}",
+                lambda: engine.get_body("edm").kernel_(out, p, sched, rho),
+                lambda: out.clone())
+        del p, out
+        torch.cuda.empty_cache()
+    n, rho = 1024, 8
+    sched = legacy._schedule(3, n // rho, "hmap")
+    x = torch.randint(0, 100, (n,) * 3, generator=gen, device=dev, dtype=torch.int32)
+    buf = x.clone()
+    for name, k in (("accum3d", legacy.ACCUM3D), ("accum_md", legacy.ACCUM_MD)):
+        compare(f"{name} m=3 n={n} kind=hmap", lambda: k.kernel_(buf, sched, rho),
+                lambda: buf.clone(), lambda: buf.copy_(x))
+    del x, buf
+    st = (torch.rand((n,) * 3, generator=gen, device=dev) < 0.35).to(torch.int32)
+    out = st.clone()
+    compare(f"ca3d m=3 n={n} kind=hmap", lambda: legacy.CA3D.kernel_(out, st, sched, rho),
+            lambda: out.clone())
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"card: {card}")
+    if failures:
+        print(f"outputs differ between the trees: {failures}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

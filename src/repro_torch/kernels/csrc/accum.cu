@@ -109,13 +109,13 @@ static __device__ __forceinline__ void accum_tile(T* __restrict__ x, const int* 
 // dtype: a code of dtypes.cuh; vec: 16-byte pieces (see the note above).
 template <int M>
 __global__ void __launch_bounds__(ACCUM_WARPS * 32, ACCUM_BLOCKS)
-simplex_accum_kernel(void* __restrict__ x, int dtype, SimplexMap map, int n, int rho,
-                     int shift, int vec) {
+simplex_accum_kernel(void* __restrict__ x, int dtype, const __grid_constant__ SimplexMap map,
+                     int n, int rho, int shift, int vec) {
   const long long step = (long long)blockIdx.x * ACCUM_WARPS + (threadIdx.x >> 5);
   if (step >= map.steps) return;  // the whole warp
-  int xs[SIMPLEX_MAX_M];
+  int xs[M];
   int valid = 0;
-  if ((threadIdx.x & 31) == 0) valid = simplex_map(map, (int)step, xs);
+  if ((threadIdx.x & 31) == 0) valid = simplex_map<M>(map, (int)step, xs);
   if (!__shfl_sync(0xffffffffu, valid, 0)) return;
   int blk[M];  // array-axis order
 #pragma unroll
@@ -131,8 +131,8 @@ simplex_accum_kernel(void* __restrict__ x, int dtype, SimplexMap map, int n, int
 // the type to be a whole number of pieces and x 16-byte aligned.
 extern "C" int simplex_accum_launch(void* x, int dtype, const long long* header,
                                     const void* data, int n, int rho, int vec, void* stream) {
-  SimplexMap M = simplex_map_from_header(header, (const int*)data);
-  if (!simplex_map_ok(M) || rho < 1 || n % rho || !dt_accum_ok(dtype))
+  SimplexMap M;
+  if (!simplex_map_unpack(header, data, &M) || rho < 1 || n % rho || !dt_accum_ok(dtype))
     return (int)cudaErrorInvalidValue;
   if (vec && (((uintptr_t)x & 15) || (rho * dt_bytes(dtype)) % 16))
     return (int)cudaErrorInvalidValue;

@@ -283,15 +283,16 @@ static __device__ __forceinline__ void ca_tile(T* __restrict__ out, const T* __r
 template <int M>
 __global__ void __launch_bounds__(CA_WARPS * 32, CA_BLOCKS)
 simplex_ca_kernel(void* __restrict__ out, const void* __restrict__ in, int dtype,
-                  SimplexMap map, int n, int rho, int shift, int periodic, int vec,
+                  const __grid_constant__ SimplexMap map, int n, int rho, int shift,
+                  int periodic, int vec,
                   int warp_bytes) {
   extern __shared__ __align__(16) unsigned char smem_ca[];
   const int warp = threadIdx.x >> 5;
   const long long step = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (step >= map.steps) return;  // the whole warp
-  int xs[SIMPLEX_MAX_M];
+  int xs[M];
   int valid = 0;
-  if ((threadIdx.x & 31) == 0) valid = simplex_map(map, (int)step, xs);
+  if ((threadIdx.x & 31) == 0) valid = simplex_map<M>(map, (int)step, xs);
   if (!__shfl_sync(0xffffffffu, valid, 0)) return;
   int blk[M];  // array-axis order
 #pragma unroll
@@ -317,8 +318,8 @@ simplex_ca_kernel(void* __restrict__ out, const void* __restrict__ in, int dtype
 extern "C" int simplex_ca_launch(void* out, const void* in, int dtype, int periodic, int vec,
                                  const long long* header, const void* data, int n, int rho,
                                  void* stream) {
-  SimplexMap M = simplex_map_from_header(header, (const int*)data);
-  if (!simplex_map_ok(M) || rho < 1 || n % rho || !dt_ca_ok(dtype))
+  SimplexMap M;
+  if (!simplex_map_unpack(header, data, &M) || rho < 1 || n % rho || !dt_ca_ok(dtype))
     return (int)cudaErrorInvalidValue;
   const int size = dt_bytes(dtype);
   if (vec && ((((uintptr_t)out | (uintptr_t)in) & 15) || (rho * size) % 16))

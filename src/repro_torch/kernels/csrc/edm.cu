@@ -153,7 +153,8 @@ static __device__ __forceinline__ float edm_distance(float s, float nr, float nc
 template <int M>
 __global__ void __launch_bounds__(EDM_WARPS * 32)
 simplex_edm_kernel(void* __restrict__ out, int out_dtype, const float* __restrict__ p,
-                   SimplexMap map, int n, int rho, int shift, int d, int ld, int warp_floats) {
+                   const __grid_constant__ SimplexMap map, int n, int rho, int shift, int d,
+                   int ld, int warp_floats) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -171,8 +172,8 @@ simplex_edm_kernel(void* __restrict__ out, int out_dtype, const float* __restric
   const long long base = ((long long)blockIdx.x * nwarps + warp) * EDM_RUN;
   const int last = (int)min((long long)map.steps, base + EDM_RUN);
   for (int step = (int)base; step < last; ++step) {
-    int x[SIMPLEX_MAX_M];
-    if (!simplex_map(map, step, x)) continue;  // the same answer in every lane
+    int x[M];
+    if (!simplex_map<M>(map, step, x)) continue;  // the same answer in every lane
     int blk[M];
 #pragma unroll
     for (int j = 0; j < M; ++j) blk[j] = x[M - 1 - j];
@@ -275,8 +276,9 @@ simplex_edm_kernel(void* __restrict__ out, int out_dtype, const float* __restric
 extern "C" int simplex_edm_launch(void* out, int out_dtype, const void* p, int d,
                                   const long long* header, const void* data, int n, int rho,
                                   void* stream) {
-  SimplexMap M = simplex_map_from_header(header, (const int*)data);
-  if (!simplex_map_ok(M) || rho < 1 || n % rho || d < 1 || !dt_float_ok(out_dtype))
+  SimplexMap M;
+  if (!simplex_map_unpack(header, data, &M) || rho < 1 || n % rho || d < 1 ||
+      !dt_float_ok(out_dtype))
     return (int)cudaErrorInvalidValue;
   if (M.steps == 0) return 0;
   const int ld = simplex_edm_ld(M.m, rho, d);

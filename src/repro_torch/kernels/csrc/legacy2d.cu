@@ -5,11 +5,10 @@
 // edm2d and ca2d (kernel table rows 7-10).  They are the independent
 // differential baseline of the engine kernels (map.cu, accum.cu, edm.cu,
 // ca.cu), so they share nothing with them beyond the m=2 map functions
-// of the schedule subsystem: no linear-index simplex_map, no
-// simplex_block_shared, no stencil table, no staging code.  Block
-// (blockIdx.x, blockIdx.y) is the grid point (wx, wy) and goes through
-// the map H: Z^2 -> Z^2 to its (column, row) tile, the paper's CUDA
-// formulation.  gridDim.y is capped at 65535, so a block loops over
+// of the schedule subsystem: no linear-index simplex_map, no stencil
+// table, no staging code.  Block (blockIdx.x, blockIdx.y) is the grid
+// point (wx, wy) and goes through the map H: Z^2 -> Z^2 to its
+// (column, row) tile, the paper's CUDA formulation.  gridDim.y is capped at 65535, so a block loops over
 // wy = blockIdx.y, blockIdx.y + gridDim.y, ... (the hmap/rb grid is
 // (nb/2, nb+1) and nb reaches 65536 at rho = 1).
 //

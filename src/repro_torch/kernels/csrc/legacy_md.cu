@@ -8,9 +8,9 @@
 // ca.cu), so they share nothing with them beyond the schedule subsystem:
 // the SimplexMap, its host unpacking and simplex_map, which the
 // reference's legacy kernels call too (its sched.map).  No
-// simplex_block_shared, simplex_in_domain, simplex_offset, simplex_split,
-// simplex_ipow, stencil table or engine entry: the domain test, the
-// offsets and the halo are written out here.  Block blockIdx.x is step
+// simplex_in_domain, simplex_offset, simplex_split, simplex_ipow,
+// stencil table or engine entry: the domain test, the offsets and the
+// halo are written out here.  Block blockIdx.x is step
 // blockIdx.x of the schedule; every thread evaluates the map itself and
 // gets the same math-order block coordinates (x_0, ..., x_{m-1}) and
 // validity flag, so an invalid step returns in every thread at once.
@@ -51,8 +51,7 @@
 // and the operand's side n = nb * rho.  Sets the threads per block.
 static bool legacy_md_setup(const long long* header, const void* data, int m, int n,
                             int rho, SimplexMap* map, int* threads) {
-  *map = simplex_map_from_header(header, (const int*)data);
-  if (!simplex_map_ok(*map) || map->m < 3 || (m && map->m != m) || rho < 1 ||
+  if (!simplex_map_unpack(header, data, map) || map->m < 3 || (m && map->m != m) || rho < 1 ||
       (long long)map->n * rho != n)
     return false;
   long long tile = 1;
@@ -66,10 +65,10 @@ static bool legacy_md_setup(const long long* header, const void* data, int m, in
 // ACCUM3D: +1 on T(n) = {x + y + z < n} of an (n, n, n) array, in place.
 // ---------------------------------------------------------------------------
 
-__global__ void legacy_accum3d_kernel(void* __restrict__ x, int dtype, SimplexMap map, int n,
-                                      int rho) {
-  int c[SIMPLEX_MAX_M];
-  if (!simplex_map(map, (int)blockIdx.x, c)) return;
+__global__ void legacy_accum3d_kernel(void* __restrict__ x, int dtype,
+                                      const __grid_constant__ SimplexMap map, int n, int rho) {
+  int c[3];
+  if (!simplex_map<3>(map, (int)blockIdx.x, c)) return;
   const int z0 = c[2] * rho, y0 = c[1] * rho, x0 = c[0] * rho;
   const int rr = rho * rho;
   for (int e = threadIdx.x; e < rr * rho; e += blockDim.x) {
@@ -99,10 +98,11 @@ extern "C" int legacy_accum3d_launch(void* x, int dtype, const long long* header
 // ---------------------------------------------------------------------------
 
 template <int M>
-__global__ void legacy_accum_md_kernel(void* __restrict__ x, int dtype, SimplexMap map, int n,
-                                       int rho, int tile) {
-  int c[SIMPLEX_MAX_M];
-  if (!simplex_map(map, (int)blockIdx.x, c)) return;
+__global__ void legacy_accum_md_kernel(void* __restrict__ x, int dtype,
+                                       const __grid_constant__ SimplexMap map, int n, int rho,
+                                       int tile) {
+  int c[M];
+  if (!simplex_map<M>(map, (int)blockIdx.x, c)) return;
   int origin[M];  // per array axis; axis j holds x_{M-1-j}
 #pragma unroll
   for (int j = 0; j < M; ++j) origin[j] = c[M - 1 - j] * rho;
@@ -192,10 +192,11 @@ static __device__ __forceinline__ void legacy_ca3d_tile(T* __restrict__ out,
 }
 
 __global__ void legacy_ca3d_kernel(void* __restrict__ out, const void* __restrict__ in,
-                                   int dtype, SimplexMap map, int n, int rho) {
+                                   int dtype, const __grid_constant__ SimplexMap map, int n,
+                                   int rho) {
   extern __shared__ __align__(16) unsigned char s_raw[];
-  int c[SIMPLEX_MAX_M];
-  if (!simplex_map(map, (int)blockIdx.x, c)) return;  // uniform in the block
+  int c[3];
+  if (!simplex_map<3>(map, (int)blockIdx.x, c)) return;  // uniform in the block
   const int z0 = c[2] * rho, y0 = c[1] * rho, x0 = c[0] * rho;
 #define LEGACY_CA3D_TILE(T) \
   legacy_ca3d_tile<T>(static_cast<T*>(out), static_cast<const T*>(in), z0, y0, x0, n, rho, s_raw)

@@ -1,18 +1,35 @@
 // Device side of repro_torch/core: the paper's block map H and its
 // comparison maps, as functions of a launch's linear block index.
 //
-// One CUDA block (or, for MAP, one thread) takes the linear step index
-// `lin`, evaluates the schedule's map in int32 and gets the math-order
-// block coordinates (x_0, ..., x_{m-1}) plus a validity flag.  Array
-// axis j of a domain array holds x_{m-1-j}.  The host packs a schedule
-// into a SimplexMap with SimplexSchedule.device_descriptor(); the header
+// One CUDA block, warp or thread takes the linear step index `lin`,
+// evaluates the schedule's map in int32 and gets the math-order block
+// coordinates (x_0, ..., x_{m-1}) plus a validity flag.  Array axis j of
+// a domain array holds x_{m-1-j}.  The host packs a schedule into an
+// int64 header with SimplexSchedule.device_descriptor(); the header
 // layout and the map codes below match core/schedule.py (HEADER_LEN,
-// MAP_CODES).  Every grid here is below 2^31 steps, so map arithmetic is
-// int32 except the level prefixes of the recursion; element offsets in
-// the kernels are int64.
+// MAP_CODES).  Every grid here is below 2^31 steps, so all map
+// arithmetic is int32; element offsets in the kernels are int64.
+//
+// A map evaluation lives in registers (ptxas: no stack frame):
+// - simplex_map is templated on the compile-time dimension M, as every
+//   kernel that calls it is (SIMPLEX_DISPATCH_M), so x[M] and every loop
+//   over the coordinates unroll; the map code stays a run-time switch.
+// - The kernel takes the map as a small `const __grid_constant__`
+//   SimplexMap with no table in it: the recursion's levels are walked
+//   arithmetically (every side is a power of two, so each division by a
+//   side or a cube volume is a shift), and the host checks that the
+//   header's level table is the one that walk gives.  A division by a
+//   power of two known only at run time is a shift too.
+// - Coordinates go into x through loops over the compile-time positions
+//   with a run-time test (a composite factor's positions, the axis a
+//   recursion path digit moves), never through a run-time index into an
+//   array.  The tests select values rather than guard stores: a store
+//   under `q == first` lets the compiler rewrite x[q] as x[first], a
+//   run-time index, and at m = 8 in EDM that put x in local memory.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #define SIMPLEX_MAX_M 8
@@ -29,47 +46,68 @@ enum SimplexMapCode {
   MAP_TABLE = 6       // int32 (steps, m) table
 };
 
-struct SimplexLevels {
-  int K;
-  long long prefix[SIMPLEX_MAX_LEVELS + 1];
-  int side[SIMPLEX_MAX_LEVELS];
-};
-
+// What a kernel needs of a schedule: the header's scalars and the int32
+// payload (the level table stays on the host).
 struct SimplexMap {
-  int code, m, n, steps, w, npieces, flip;
-  SimplexLevels lv;
+  int code, m, n, steps;
+  int w;  // the 2-D grid's width (axis 0)
+  int K;  // recursion levels, n = 2^K
+  int npieces, flip;
   const int* data;  // table or packed pieces (device), else nullptr
 };
 
-// Host: unpack the int64 header of core/schedule.py into the struct that
-// is passed to the kernel by value.
-static inline SimplexMap simplex_map_from_header(const long long* h,
-                                                 const int* data) {
-  SimplexMap M;
-  M.code = (int)h[0];
-  M.m = (int)h[1];
-  M.n = (int)h[2];
-  M.steps = (int)h[3];
-  M.w = (int)h[4];
-  M.lv.K = (int)h[5];
-  M.npieces = (int)h[6];
-  M.flip = (int)h[7];
-  for (int k = 0; k <= SIMPLEX_MAX_LEVELS; ++k) M.lv.prefix[k] = h[8 + k];
-  for (int k = 0; k < SIMPLEX_MAX_LEVELS; ++k)
-    M.lv.side[k] = (int)h[8 + SIMPLEX_MAX_LEVELS + 1 + k];
-  M.data = data;
-  return M;
+// Host: whether the header's level table (prefix[0..K], side[0..K-1],
+// core/hmap.py::recursive_levels) is the one the device walks for
+// n = 2^K at dimension m: level k holds m^k cubes of side 2^lg,
+// lg = max(K - 1 - k, 1), so prefix[k+1] = prefix[k] + m^k 2^(m lg).
+static inline bool simplex_levels_ok(const long long* h, int m, int n, int K, int steps) {
+  if (K < 1 || K > SIMPLEX_MAX_LEVELS || (1LL << K) != n) return false;
+  const long long* prefix = h + 8;
+  const long long* side = h + 8 + SIMPLEX_MAX_LEVELS + 1;
+  long long at = 0, cubes = 1;
+  for (int k = 0; k < K; ++k) {
+    const int lg = K - 1 - k > 1 ? K - 1 - k : 1;
+    if (side[k] != (1LL << lg) || prefix[k] != at || m * lg > 31 || cubes > INT_MAX)
+      return false;
+    at += cubes << (m * lg);
+    if (at > INT_MAX) return false;
+    cubes *= m;
+  }
+  return prefix[K] == at && at == steps;
 }
 
-// Host: reject a header the device maps cannot serve.
-static inline bool simplex_map_ok(const SimplexMap& M) {
-  return M.m >= 2 && M.m <= SIMPLEX_MAX_M && M.steps >= 0 &&
-         M.code >= MAP_HMAP2 && M.code <= MAP_TABLE &&
-         M.lv.K >= 0 && M.lv.K <= SIMPLEX_MAX_LEVELS;
-}
-
-static __device__ __forceinline__ int simplex_pow2_floor(int y) {
-  return 1 << (31 - __clz(y));  // Eq. 17/18; y >= 1
+// Host: unpack the int64 header of core/schedule.py and reject what the
+// device maps cannot serve.
+static inline bool simplex_map_unpack(const long long* h, const void* data, SimplexMap* M) {
+  M->code = (int)h[0];
+  M->m = (int)h[1];
+  M->n = (int)h[2];
+  M->steps = (int)h[3];
+  M->w = (int)h[4];
+  M->K = (int)h[5];
+  M->npieces = (int)h[6];
+  M->flip = (int)h[7];
+  M->data = (const int*)data;
+  if (h[1] < 2 || h[1] > SIMPLEX_MAX_M || h[3] < 0 || h[3] > INT_MAX || h[2] < 1 ||
+      h[2] > INT_MAX || h[4] < 0 || h[4] > INT_MAX)
+    return false;
+  if (M->steps > 0 && (M->code == MAP_COMPOSITE || M->code == MAP_TABLE) && !data)
+    return false;
+  switch (M->code) {
+    case MAP_HMAP2:
+    case MAP_RB2:
+    case MAP_BB2:
+      return M->m == 2 && M->w >= 1;
+    case MAP_BBMD:
+    case MAP_TABLE:
+      return true;
+    case MAP_HREC:
+      return M->m >= 3 && simplex_levels_ok(h, M->m, M->n, M->K, M->steps);
+    case MAP_COMPOSITE:
+      return M->npieces >= 1;
+    default:
+      return false;
+  }
 }
 
 // hmap2_full: zero-waste inclusive-diagonal map, grid (n/2, n+1).
@@ -82,180 +120,177 @@ static __device__ __forceinline__ void simplex_hmap2_full(int wx, int wy, int n,
     *x = n / 2 + wx;
     *y = n / 2 + wx;
   } else {
-    int b = simplex_pow2_floor(wy);
-    int q = wx / b;
-    *x = wx + q * b;
-    *y = wy + 2 * q * b;
+    const int lb = 31 - __clz(wy);  // b = 2^lb, the power of two below wy (Eq. 17/18)
+    const int qb = (wx >> lb) << lb;
+    *x = wx + qb;
+    *y = wy + 2 * qb;
   }
 }
 
-// The orthant recursion's level table for a power-of-two side (the host
-// builds the same table as core/hmap.py::recursive_levels).
-static __device__ void simplex_make_levels(int n, int m, SimplexLevels* L) {
-  int K = 31 - __clz(n);
-  L->K = K;
-  L->prefix[0] = 0;
-  long long cnt = 1;
-  for (int k = 0; k < K; ++k) {
-    int s = (k == K - 1) ? 2 : (n >> (k + 1));
-    long long vol = 1;
-    for (int j = 0; j < m; ++j) vol *= s;
-    L->side[k] = s;
-    L->prefix[k + 1] = L->prefix[k] + cnt * vol;
-    cnt *= m;
-  }
+// a / d for a >= 0, d >= 1: a shift where d is a power of two.
+static __device__ __forceinline__ int simplex_div(int a, int d) {
+  return (d & (d - 1)) ? a / d : a >> (__ffs(d) - 1);
 }
 
-// hmap_m_recursive: linear idx -> (x_0..x_{m-1}), valid.
-static __device__ bool simplex_hrec(int idx, int n, int m, const SimplexLevels& L,
-                                    int* x) {
-  int K = L.K;
-  int level = 0;
-  for (int k = 1; k < K; ++k)
-    if ((long long)idx >= L.prefix[k]) ++level;
-  int s = L.side[level];
-  int bound = (level == K - 1) ? 2 : 2 * s;
-  long long vol = 1;
-  for (int j = 0; j < m; ++j) vol *= s;
-  long long rem = (long long)idx - L.prefix[level];
-  long long c = rem / vol;
-  long long p = rem - c * vol;
+// hmap_m_recursive over T^dim(2^K) at index idx, walked without a table,
+// added into the zeros at positions first .. first + dim - 1 of x (the
+// cell's coordinate j at position first + j).  Level k holds dim^k cubes
+// of side 2^lg, lg = max(K - 1 - k, 1): idx's level, the cube's number c
+// and the index p inside it (coordinate j is bits [j lg, (j+1) lg) of p)
+// come from shifts, and base-dim digit i of c moves its axis by
+// 2^(K-1) >> i.  Returns the cell's validity.
+template <int M>
+static __device__ __forceinline__ bool simplex_hrec(int idx, int K, int dim, int first,
+                                                    int (&x)[M]) {
+  int base = 0, cubes = 1, level = 0;
+  for (; level < K - 1; ++level) {
+    const int size = cubes << (dim * (K - 1 - level));  // side 2^(K-1-level) here
+    if (idx - base < size) break;
+    base += size;
+    cubes *= dim;
+  }
+  const int lg = max(K - 1 - level, 1), rem = idx - base;
+  int c = rem >> (dim * lg);
+  const int p = rem - (c << (dim * lg)), mask = (1 << lg) - 1;
   int lsum = 0;
-  for (int j = 0; j < m; ++j) {  // x_0 fastest
-    int l = (int)(p % s);
-    p /= s;
-    x[j] = l;
-    lsum += l;
+#pragma unroll
+  for (int q = 0; q < M; ++q) {
+    const int j = q - first;
+    if (j >= 0 && j < dim) {
+      const int l = (p >> (j * lg)) & mask;
+      x[q] += l;
+      lsum += l;
+    }
   }
-  for (int j = 0; j < K - 1 && j < level; ++j) {
-    int d = (int)(c % m);
-    x[d] += n >> (j + 1);
-    c /= m;
+  for (int i = 0; i < level; ++i) {
+    const int cq = c / dim, d = first + c - cq * dim;
+#pragma unroll
+    for (int q = 0; q < M; ++q) x[q] += q == d ? (1 << (K - 1)) >> i : 0;
+    c = cq;
   }
-  return lsum < bound;
+  return lsum < (level == K - 1 ? 2 : 2 << lg);
 }
 
-// hmap_factor: one T^dim(side) factor of a composite piece.
-static __device__ bool simplex_factor(int idx, int side, int dim, int* cs) {
-  if (side == 1) {
-    for (int j = 0; j < dim; ++j) cs[j] = 0;
-    return true;
-  }
-  if (dim == 1) {
-    cs[0] = idx;
-    return true;
-  }
+// hmap_factor: one T^dim(side) factor of a composite piece, added into
+// the zeros at positions first .. first + dim - 1 of x: a point (side
+// 1), an interval (dim 1), a triangle (dim 2) or the recursion.
+template <int M>
+static __device__ __forceinline__ bool simplex_factor(int idx, int side, int dim, int first,
+                                                      int (&x)[M]) {
+  if (side == 1) return true;
+  if (dim >= 3) return simplex_hrec<M>(idx, 31 - __clz(side), dim, first, x);
+  int a = idx, b = 0;
   if (dim == 2) {
-    int w = side / 2;
-    int wy = idx / w;
-    int wx = idx - wy * w;
-    int col, row;
-    simplex_hmap2_full(wx, wy, side, &col, &row);
-    cs[0] = col;
-    cs[1] = side - 1 - row;
-    return true;
+    const int wy = simplex_div(idx, side / 2);
+    int row;
+    simplex_hmap2_full(idx - wy * (side / 2), wy, side, &a, &row);
+    b = side - 1 - row;
   }
-  SimplexLevels L;
-  simplex_make_levels(side, dim, &L);
-  return simplex_hrec(idx, side, dim, L, cs);
+#pragma unroll
+  for (int q = 0; q < M; ++q) x[q] = q == first ? a : (q == first + 1 && dim == 2 ? b : x[q]);
+  return true;
 }
 
 // composite_map / piece_map: find the piece, decode its factor chain as
-// trapezoids.py::_decode_piece does, pin invalid steps to the origin,
-// and flip (u, v) -> (u, n-1-v) at m=2.
-static __device__ bool simplex_composite(const SimplexMap& M, int lin, int* x) {
-  const int P = M.npieces;
-  const int* prefix = M.data;
-  int lo = 0, hi = P - 1;  // last piece with prefix <= lin
+// trapezoids.py::_decode_piece does (factor g fills the positions
+// top - dim + 1 .. top, the first factor the highest), pin invalid steps
+// to the origin, and flip (u, v) -> (u, n-1-v) at m=2.
+template <int M>
+static __device__ __forceinline__ bool simplex_composite(const SimplexMap& map, int lin,
+                                                         int (&x)[M]) {
+  const int* prefix = map.data;
+  int lo = 0, hi = map.npieces - 1;  // last piece with prefix <= lin
   while (lo < hi) {
-    int mid = (lo + hi + 1) >> 1;
+    const int mid = (lo + hi + 1) >> 1;
     if (prefix[mid] <= lin) lo = mid; else hi = mid - 1;
   }
-  const int m = M.m;
-  const int* rec = M.data + (P + 1) + lo * (1 + 4 * m);
-  const int ng = rec[0];
-  int rem = lin - prefix[lo];
-  int dyn = 0;
-  int top = m - 1;
+  const int* rec = map.data + (map.npieces + 1) + lo * (1 + 4 * M);
+  const int groups = rec[0];
+  int rem = lin - prefix[lo], dyn = 0, top = M - 1;
   bool valid = true;
-  for (int g = 0; g < ng; ++g) {
+#pragma unroll
+  for (int q = 0; q < M; ++q) x[q] = 0;
+  for (int g = 0; g < groups; ++g) {
     const int dim = rec[1 + 4 * g], side = rec[2 + 4 * g], delta = rec[3 + 4 * g];
     int stride = 1;
-    for (int h = g + 1; h < ng; ++h) stride *= rec[4 + 4 * h];
-    int idx = rem / stride;
+    for (int h = g + 1; h < groups; ++h) stride *= rec[4 + 4 * h];
+    const int idx = simplex_div(rem, stride);
     rem -= idx * stride;
-    int cs[SIMPLEX_MAX_M];
-    valid = simplex_factor(idx, side, dim, cs) && valid;
+    const int first = top - (dim - 1);
+    valid = simplex_factor<M>(idx, side, dim, first, x) && valid;
     int sumz = 0;
-    for (int j = 0; j < dim; ++j) sumz += cs[j];
-    for (int j = 0; j < dim; ++j)
-      x[top - (dim - 1) + j] = cs[j] + (j == dim - 1 ? dyn + delta : 0);
+#pragma unroll
+    for (int q = 0; q < M; ++q) {
+      if (q >= first && q <= top) sumz += x[q];
+      x[q] += q == top ? dyn + delta : 0;
+    }
     dyn = side - sumz;
     top -= dim;
   }
-  if (!valid)
-    for (int j = 0; j < m; ++j) x[j] = 0;
-  if (M.flip) x[1] = M.n - 1 - x[1];
+  if (!valid) {
+#pragma unroll
+    for (int q = 0; q < M; ++q) x[q] = 0;
+  }
+  if (map.flip) x[1] = map.n - 1 - x[1];
   return valid;
 }
 
 // The schedule's map: linear step lin -> math-order block coordinates.
-static __device__ bool simplex_map(const SimplexMap& M, int lin, int* x) {
-  const int n = M.n;
-  switch (M.code) {
-    case MAP_HMAP2: {
-      int wy = lin / M.w, wx = lin - wy * M.w;
-      simplex_hmap2_full(wx, wy, n, &x[0], &x[1]);
-      return true;
-    }
-    case MAP_RB2: {
-      int wy = lin / M.w, wx = lin - wy * M.w;
-      bool fold = wy <= wx;
-      x[0] = fold ? n / 2 + wy : wx;
-      x[1] = fold ? n / 2 + wx : wy - 1;
-      return true;
-    }
+// M is the schedule's m (the host dispatches on it).
+template <int M>
+static __device__ __forceinline__ bool simplex_map(const SimplexMap& map, int lin,
+                                                   int (&x)[M]) {
+  const int n = map.n;
+  switch (map.code) {
+    case MAP_HMAP2:
+    case MAP_RB2:
     case MAP_BB2: {
-      int wy = lin / M.w, wx = lin - wy * M.w;
-      x[0] = wx;
-      x[1] = wy;
-      return wx <= wy;
+      if constexpr (M == 2) {
+        const int wy = simplex_div(lin, map.w), wx = lin - wy * map.w;
+        if (map.code == MAP_HMAP2) {
+          simplex_hmap2_full(wx, wy, n, &x[0], &x[1]);
+          return true;
+        }
+        if (map.code == MAP_RB2) {
+          const bool fold = wy <= wx;
+          x[0] = fold ? n / 2 + wy : wx;
+          x[1] = fold ? n / 2 + wx : wy - 1;
+          return true;
+        }
+        x[0] = wx;
+        x[1] = wy;
+        return wx <= wy;
+      }
+      return false;  // the host sends 2-D codes at m = 2 only
     }
     case MAP_BBMD: {
       int rem = lin, sum = 0;
-      for (int j = 0; j < M.m; ++j) {
-        x[j] = rem % n;
-        rem /= n;
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        const int q = simplex_div(rem, n);
+        x[j] = rem - q * n;
+        rem = q;
         sum += x[j];
       }
       return sum < n;
     }
-    case MAP_HREC:
-      return simplex_hrec(lin, n, M.m, M.lv, x);
+    case MAP_HREC: {
+      if constexpr (M >= 3) {
+#pragma unroll
+        for (int j = 0; j < M; ++j) x[j] = 0;
+        return simplex_hrec<M>(lin, map.K, M, 0, x);
+      }
+      return false;  // the host sends the recursion at m >= 3 only
+    }
     case MAP_COMPOSITE:
-      return simplex_composite(M, lin, x);
+      return simplex_composite<M>(map, lin, x);
     default: {  // MAP_TABLE
-      const int* row = M.data + (long long)lin * M.m;
-      for (int j = 0; j < M.m; ++j) x[j] = row[j];
+      const int* row = map.data + (long long)lin * M;
+#pragma unroll
+      for (int j = 0; j < M; ++j) x[j] = row[j];
       return true;
     }
   }
-}
-
-// Thread 0 evaluates the map for this block and the block shares it
-// through s_blk (a __shared__ int[SIMPLEX_MAX_M + 1] of the kernel):
-// array-axis block coordinates, then the valid flag.  Returns false for
-// an invalid step, uniformly across the block, so the block can return.
-static __device__ __forceinline__ bool simplex_block_shared(const SimplexMap& M,
-                                                            int* s_blk) {
-  if (threadIdx.x == 0) {
-    int x[SIMPLEX_MAX_M];
-    bool valid = simplex_map(M, (int)blockIdx.x, x);
-    for (int j = 0; j < M.m; ++j) s_blk[j] = x[M.m - 1 - j];
-    s_blk[SIMPLEX_MAX_M] = valid;
-  }
-  __syncthreads();
-  return s_blk[SIMPLEX_MAX_M] != 0;
 }
 
 // Host: log2(rho) when rho is a power of two, else -1 (divide instead).

@@ -3,10 +3,11 @@
 One launcher serves every simplex workload at every dimension: a kernel
 *body* (MAP / ACCUM / EDM / CA) is combined with any
 ``core.schedule.SimplexSchedule`` and launched as one CUDA kernel per
-launch piece, one block per schedule step.  The block evaluates the
-schedule's map on ``blockIdx.x`` (``kernels/csrc/simplex_maps.cuh``), an
-invalid step returns at once, and the block's threads cover the
-``rho^m`` tile the map names — the paper's design, which on a GPU needs
+launch piece, one warp per schedule step (MAP: a thread per step).  The
+warp evaluates the schedule's map on its step index
+(``kernels/csrc/simplex_maps.cuh``), an invalid step returns at once,
+and the warp's lanes cover the ``rho^m`` tile the map names — the
+paper's design (a block per step there), which on a GPU needs
 none of the TPU launcher's trash tile or input/output aliasing.
 
 Every body has two versions of its work on one schedule:
@@ -342,8 +343,8 @@ class MapBody(KernelBody):
         )
 
     def kernel(self, sched, chunk: int, device) -> torch.Tensor:
-        """The walk table from ``map.cu``: one thread per step, ``chunk``
-        threads per block."""
+        """The walk table from ``map.cu``: ``chunk`` threads a block, a few
+        steps a thread, each block's rows stored as 16-byte pieces."""
         if not 1 <= chunk <= 1024:
             raise ValueError(f"map: chunk={chunk} threads must lie in 1..1024")
         device = torch.device(device)
