@@ -129,7 +129,31 @@ coordinates into element origins.  This script
     output is held against the plain version's on the same inputs
     (``equal=`` on its line);
 16. checks a small input against the dense oracles of ``kernels/ref.py``;
-17. prints the ``kernels`` JSON line, then the result line.
+17. tuner: measures the constants of ``roofline/analysis.py`` as its
+    comments say (``tuner constant`` lines, each beside the model's value
+    and the card's name and power limit); then for ACCUM, EDM and CA at
+    m=2 n=16384 and 16000 (rho 16), m=3 n=1024 and 960 (rho 8), m=4 n=64
+    and 60 (rho 4; CA at m <= 3) times every kind of
+    ``autotune.candidate_kinds`` and, where it is composite, its fused
+    walk and its one launch per piece (back-to-back calls, so a
+    launch-bound case times its host work too), and prints the tuner's
+    decision (kind, source, scores), its ``split=None`` choice and the
+    pick's time over the fastest (``tuner case`` lines); fails when that
+    exceeds 1.10 for ACCUM or 1.25 for EDM and CA, or when the entry
+    point's defaults (``kind='auto'``, ``split=None``) do not launch the
+    pick;
+18. attn_tuner: at the serve shape in float32 and bfloat16 and at S 2080
+    in bfloat16, prints ``choose_attn_impl``'s decision, times
+    ``simplex_attention`` with ``impl`` flash-folded, flash-bb and
+    chunked, and fails when the pick is more than 1.10x the fastest or
+    the default dispatch does not launch it;
+19. xla: ``executor='xla'`` (the fused executors as torch ops) against
+    ``executor='kernel'``, bit for bit, for ACCUM int32 at m=2 n=16384
+    rho 16, m=3 n=1024 rho 8 and m=4 n=64 rho 4, and for MAP at nb=16384
+    (m=2) and 512 (m=3), both timed (``xla check`` lines);
+20. prints the ``kernels`` JSON line, then the result line.
+
+The tuner's decisions go to a private cache in a temporary directory.
 
 Any mismatch, build failure or launch error exits non-zero without the
 result line.  Run from the repository root::
@@ -144,11 +168,13 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -729,17 +755,19 @@ class Smoke:
             msk = ref.simplex_mask(m, n, torch.bool, self.dev)
             x = torch.randint(0, 9, (n,) * m, generator=g, device=self.dev, dtype=torch.int32)
             a = ops.map_table(n // rho, m=m, kind="hmap" if m == 2 else "octant")
-            acc = (ops.simplex_accum2d if m == 2 else ops.simplex_accum3d)(x, rho=rho)
+            acc = (ops.simplex_accum2d if m == 2 else ops.simplex_accum3d)(x, rho=rho,
+                                                                           kind="hmap")
             want = ref.accum_md(x)
             if not (torch.equal(acc[msk], want[msk]) and torch.equal(acc[~msk], x[~msk])):
                 self.fail(f"oracle accum m={m}")
             s = (x > 5).to(torch.int32) * msk
-            st = (ops.simplex_ca2d if m == 2 else ops.simplex_ca3d)(s, rho=rho)
+            st = (ops.simplex_ca2d if m == 2 else ops.simplex_ca3d)(s, rho=rho, kind="hmap")
             want = ref.ca2d_step(s) if m == 2 else ref.ca3d_step(s)
             if not torch.equal(st[msk], want[msk]):
                 self.fail(f"oracle ca m={m}")
             p = torch.randn((n, 5), generator=g, device=self.dev)
-            e = ops.simplex_edm2d(p, rho=rho) if m == 2 else ops.simplex_edm3d(p, rho=rho)
+            e = (ops.simplex_edm2d(p, rho=rho, kind="hmap") if m == 2 else
+                 ops.simplex_edm3d(p, rho=rho, kind="hmap"))
             if not (torch.isfinite(e).all() and
                     torch.allclose(e, ref.edm_md(p, m), rtol=1e-5, atol=1e-5)):
                 self.fail(f"oracle edm m={m}")
@@ -1243,11 +1271,11 @@ class DtypeSmoke:
                 sched = L._schedule(m, n // rho, "hmap")
                 want = x.clone()
                 (L.ACCUM2D if m == 2 else L.ACCUM3D).plain_(want, sched, rho)
-                self.equal(f"legacy accum {name} m={m}", old(x, rho=rho), want)
+                self.equal(f"legacy accum {name} m={m}", old(x, rho=rho, kind="hmap"), want)
             x = self.data((16,) * 4, dt, 104, "accum")
             want = x.clone()
             L.ACCUM_MD.plain_(want, L._schedule(4, 8, "hmap"), 2)
-            self.equal(f"legacy accum_md {name} m=4", L.accum_md(x, rho=2), want)
+            self.equal(f"legacy accum_md {name} m=4", L.accum_md(x, rho=2, kind="hmap"), want)
         for name in DTYPE_CA:
             dt = getattr(torch, name)
             for m, n, rho, kind in DTYPE_ENGINE:
@@ -1259,8 +1287,8 @@ class DtypeSmoke:
                 sched = L._schedule(m, n // rho, "hmap")
                 want = st.clone()
                 (L.CA2D if m == 2 else L.CA3D).plain_(want, st, sched, rho)
-                self.equal(f"legacy ca {name} m={m}", (L.ca2d if m == 2 else L.ca3d)(st, rho=rho),
-                           want)
+                self.equal(f"legacy ca {name} m={m}",
+                           (L.ca2d if m == 2 else L.ca3d)(st, rho=rho, kind="hmap"), want)
         vals = torch.tensor(CA_MIXED, device=self.s.dev)
         for m, n, rho, kind in CA_MIXED_CASES:
             pick = torch.randint(0, len(CA_MIXED), (n,) * m, generator=self.s.gen(115 + m),
@@ -1281,7 +1309,7 @@ class DtypeSmoke:
                 E.get_body("edm").plain_(want, p, E.schedule_for(m, n // rho, kind), rho)
                 self.edm(f"edm {name} m={m}", got, want)
                 if m == 2:
-                    old = L.edm2d(p, rho=rho)
+                    old = L.edm2d(p, rho=rho, kind="hmap")
                     want = torch.zeros_like(old)
                     L.EDM2D.plain_(want, p, L._schedule(2, n // rho, "hmap"), rho)
                     self.edm(f"legacy edm2d {name}", old, want)
@@ -1759,6 +1787,271 @@ class FlashSmoke:
                  + f"equal={row['equal']}")
 
 
+# The tuner phase: (m, n, rho) per case, PERF.md's sizes; CA at m <= 3.
+TUNER_CASES = ((2, 16384, 16), (2, 16000, 16), (3, 1024, 8), (3, 960, 8), (4, 64, 4),
+               (4, 60, 4))
+# The pick's time over the fastest candidate's, at most: the tuner's rule
+# is body-independent and ACCUM is what its model describes.
+TUNER_GATE = {"accum": 1.10, "edm": 1.25, "ca": 1.25}
+# A timed sample of a tuner candidate runs back-to-back calls for at
+# least this long, so that a launch-bound case times its host work too;
+# the candidates of a case take turns, TUNER_ROUNDS samples each, and the
+# median sample counts (the host's clock drifts between candidates).
+TUNER_SAMPLE_MS = 5.0
+TUNER_ROUNDS = 9
+# The attention tuner: (B, Hq, Hkv, S, D) and dtype; the pick within 1.10x.
+ATTN_TUNER_CASES = (((4, 32, 4, 2048, 128), "float32"), ((4, 32, 4, 2048, 128), "bfloat16"),
+                    ((4, 32, 4, SMALL_TILE_S, 128), "bfloat16"))
+ATTN_TUNER_GATE = 1.10
+# executor='xla' against the kernels: ACCUM int32 (m, n, rho), MAP (m, nb).
+XLA_ACCUM_CASES = ((2, 16384, 16), (3, 1024, 8), (4, 64, 4))
+XLA_MAP_CASES = ((2, 16384), (3, 512))
+
+
+class TunerSmoke:
+    """The autotuner on the card: the cost model's constants measured
+    the way ``roofline/analysis.py`` says, every candidate the tuner ranks
+    timed against its pick, the attention executors likewise, and the
+    fused torch executors (``executor='xla'``) against the kernels.
+
+    Shares the simplex ``Smoke``'s generators, timer and failure list.
+    """
+
+    def __init__(self, smoke: Smoke, card: str):
+        from repro_torch.autotune import tuner
+        from repro_torch.roofline import analysis
+
+        self.s, self.card = smoke, card
+        self.torch, self.engine, self.ops = smoke.torch, smoke.engine, smoke.ops
+        self.tuner, self.analysis = tuner, analysis
+
+    def batch_ms(self, fns: dict) -> dict:
+        """Per function of ``fns``, the median time of one call over
+        ``TUNER_ROUNDS`` samples of back-to-back calls that last at least
+        ``TUNER_SAMPLE_MS`` each, the functions taking turns."""
+        reps = {}
+        for key, fn in fns.items():
+            one = self.s.time_ms(fn, runs=3, warm=1)
+            reps[key] = max(1, min(200, math.ceil(TUNER_SAMPLE_MS / max(one, 1e-3))))
+        samples = {key: [] for key in fns}
+        for _ in range(TUNER_ROUNDS):
+            for key, fn in fns.items():
+                n = reps[key]
+                samples[key].append(
+                    self.s.time_ms(lambda: [fn() for _ in range(n)], runs=1, warm=0) / n)
+        return {key: statistics.median(v) for key, v in samples.items()}
+
+    def constants(self) -> None:
+        """Measure each constant of the cost model and print it beside the
+        model's value."""
+        torch, engine, A = self.torch, self.engine, self.analysis
+        from repro_torch.core.schedule import SimplexSchedule
+
+        dev = self.s.dev
+        got = {}
+        a = torch.empty(1 << 28, device=dev)
+        b = torch.empty_like(a)
+        got["HBM_BW"] = 2 * a.numel() * 4 / (self.s.time_ms(lambda: b.copy_(a)) / 1e3)
+        del a, b
+        body = engine.get_body("accum")
+        x = torch.zeros((256,) * 3, dtype=torch.int32, device=dev)
+        per_step = {}
+        for kind in ("bb", "table", "hmap", "composite"):
+            sched = engine.schedule_for(3, 256, kind)
+            ms = self.s.time_ms(lambda: body.kernel_(x, sched, 1))
+            per_step[kind] = ms / 1e3 / sched.steps
+            _log(f"tuner step accum m=3 n=256 rho=1 kind={kind} steps={sched.steps} "
+                 f"ms={ms:.4f} ns_per_step={per_step[kind] * 1e9:.4f}")
+        del x
+        got["PREDICATE_S"] = per_step["bb"]
+        got["SMEM_READ_S"] = per_step["table"]
+        got["SELECT_S"] = per_step["hmap"] / (255).bit_length()
+        x = torch.zeros((60,) * 4, dtype=torch.int32, device=dev)
+        pieces = len(engine.launch_plan(4, 15, "composite", True, True))
+        fused, split = self.batch_ms({
+            split: (lambda split=split: engine.accum_(x, rho=4, kind="composite", split=split))
+            for split in (False, True)}).values()
+        got["LAUNCH_OVERHEAD_S"] = (split - fused) / 1e3 / (pieces - 1)
+        _log(f"tuner step accum_ m=4 n=60 rho=4 composite fused_ms={fused:.4f} "
+             f"split_ms={split:.4f} launches={pieces}")
+        del x
+        fresh = SimplexSchedule(3, 256, "table")
+        t0 = time.perf_counter()
+        fresh.prefetch
+        got["HOST_ENUM_S"] = (time.perf_counter() - t0) / fresh.useful
+        peaks = {}
+        for name in A.ATTN_PEAK_FLOPS:
+            m = torch.randn((8192, 8192), device=dev).to(getattr(torch, name))
+            peaks[name] = 2 * 8192**3 / (self.s.time_ms(lambda: m @ m, runs=5) / 1e3)
+            del m
+        for name, value in got.items():
+            _log(f"tuner constant {name} measured={value:.4e} model={getattr(A, name):.4e} "
+                 f"card={self.card}")
+        for name, value in peaks.items():
+            _log(f"tuner constant ATTN_PEAK_FLOPS[{name}] measured={value:.4e} "
+                 f"model={A.ATTN_PEAK_FLOPS[name]:.4e} card={self.card}")
+        torch.cuda.empty_cache()
+
+    def kinds(self) -> None:
+        """Every candidate of every case timed; the tuner's pick (kind and
+        ``split=None`` choice) within ``TUNER_GATE`` of the fastest, and the
+        entry points' defaults launching that pick."""
+        for test in ("accum", "edm", "ca"):
+            for m, n, rho in TUNER_CASES:
+                if test == "ca" and m > 3:
+                    continue
+                self.case(test, m, n, rho)
+                self.torch.cuda.empty_cache()
+
+    def data(self, test, m, n):
+        """The input of (test, m, n): int32 values, points, or a 0/1 state
+        on the simplex."""
+        torch, s = self.torch, self.s
+        if test == "accum":
+            return torch.randint(0, 100, (n,) * m, generator=s.gen(200 + m), device=s.dev,
+                                 dtype=torch.int32)
+        if test == "edm":
+            return torch.randn((n, EDM_D), generator=s.gen(210 + m), device=s.dev)
+        msk = s.ref.simplex_mask(m, n, torch.int32, s.dev)
+        return (torch.rand((n,) * m, generator=s.gen(220 + m), device=s.dev)
+                < CA_DENSITY[m]).to(torch.int32) * msk
+
+    def default_call(self, test, m, x, rho, **kw):
+        """The entry point of ``ops`` for (test, m) with ``kw`` on top of
+        its defaults."""
+        ops = self.ops
+        if test == "accum":
+            fn = {2: ops.simplex_accum2d, 3: ops.simplex_accum3d}.get(m, ops.simplex_accum_md)
+            return fn(x, rho=rho, **kw)
+        if test == "edm":
+            return (ops.simplex_edm2d(x, rho=rho, **kw) if m == 2 else
+                    ops.simplex_edm_md(x, m, rho=rho, **kw))
+        return (ops.simplex_ca2d if m == 2 else ops.simplex_ca3d)(x, rho=rho, **kw)
+
+    def case(self, test, m, n, rho) -> None:
+        """One (test, m, n): every candidate's launches timed, the pick
+        against the fastest, the default call against the pick."""
+        torch, engine, tuner = self.torch, self.engine, self.tuner
+        body = engine.get_body(test)
+        nb, dev = n // rho, self.s.dev
+        x = self.data(test, m, n)
+        out = torch.zeros((n,) * m, device=dev) if test == "edm" else x.clone()
+
+        def launch(sched):
+            if test == "accum":
+                body.kernel_(out, sched, rho)
+            else:
+                body.kernel_(out, x, sched, rho)
+
+        def walk(kind, split):
+            for sched in engine.launch_plan(m, nb, kind, split, body.element_local,
+                                            device=dev):
+                launch(sched)
+
+        variants = [(kind, split) for kind in tuner.candidate_kinds(m, nb)
+                    for split in ((False, True) if kind == "composite" and body.element_local
+                                  else (False,))]
+        times = self.batch_ms({v: (lambda v=v: walk(*v)) for v in variants})
+        del out
+        dec = tuner.choose_kind(m, nb, dev)
+        plan = engine.launch_plan(m, nb, "auto", None, body.element_local, device=dev)
+        pick = (dec.kind, len(plan) > 1)
+        before = body.launches
+        got = self.default_call(test, m, x, rho)
+        torch.cuda.synchronize()
+        launched = body.launches - before
+        want = self.default_call(test, m, x, rho, kind=pick[0],
+                                 **({"split": pick[1]} if m > 2 and test != "ca" else {}))
+        same = torch.equal(got, want)
+        del got, want, x
+        best = min(times, key=times.get)
+        ratio = times[pick] / times[best]
+        gate = TUNER_GATE[test]
+        ok = ratio <= gate and same and launched == len(plan)
+        scores = {k: round(v, 3) for k, v in dec.scores_us.items()}
+        cands = " ".join(f"{k}{'+split' if sp else ''}={t:.4f}" for (k, sp), t in times.items())
+        _log(f"tuner case test={test} m={m} n={n} rho={rho} nb={nb} decision kind={dec.kind} "
+             f"source={dec.source} split={pick[1]} scores_us={json.dumps(scores)} "
+             f"candidates_ms {cands} pick_ms={times[pick]:.4f} fastest={best[0]}"
+             f"{'+split' if best[1] else ''} ratio={ratio:.3f} gate={gate:.2f} "
+             f"default_launches={launched} default_equal={same} ok={ok}")
+        if not ok:
+            self.s.fail(f"tuner {test} m={m} n={n}: pick {pick} at {ratio:.3f}x the fastest "
+                        f"{best} (gate {gate}), default call equal={same}, "
+                        f"launches {launched} for a plan of {len(plan)}")
+
+    def attention(self) -> None:
+        """At each shape: ``choose_attn_impl``'s decision, the three
+        executors timed through ``simplex_attention``, the pick within
+        ``ATTN_TUNER_GATE`` of the fastest, and the default dispatch
+        launching the pick's flash kernel (or none, for chunked)."""
+        torch, tuner = self.torch, self.tuner
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.models.attention import simplex_attention
+
+        for (b, hq, hkv, s, d), name in ATTN_TUNER_CASES:
+            dt = getattr(torch, name)
+            g = self.s.gen(230 + s % 97)
+            q, k, v = (torch.randn((b, h, s, d), generator=g, device=self.s.dev).to(dt)
+                       for h in (hq, hkv, hkv))
+            dec = tuner.choose_attn_impl(s, hq, d, self.s.dev, dt)
+            times = self.batch_ms({
+                impl: (lambda impl=impl: simplex_attention(q, k, v, impl=impl))
+                for impl in ("flash-folded", "flash-bb", "chunked")})
+            pick = "chunked" if dec.impl == "chunked" else f"flash-{dec.kind}"
+            before = sum(fa.launch_counts().values())
+            simplex_attention(q, k, v)
+            torch.cuda.synchronize()
+            launched = sum(fa.launch_counts().values()) - before
+            best = min(times, key=times.get)
+            ratio = times[pick] / times[best]
+            ok = ratio <= ATTN_TUNER_GATE and launched == (pick != "chunked")
+            scores = {kk: round(vv, 3) for kk, vv in dec.scores_us.items()}
+            _log(f"attn_tuner case B={b} Hq={hq} Hkv={hkv} S={s} D={d} {name} decision "
+                 f"impl={dec.impl} kind={dec.kind} block_q={dec.block_q} source={dec.source} "
+                 f"scores_us={json.dumps(scores)} "
+                 + " ".join(f"{kk}_ms={vv:.4f}" for kk, vv in times.items())
+                 + f" pick={pick} fastest={best} ratio={ratio:.3f} "
+                 f"gate={ATTN_TUNER_GATE:.2f} default_launches={launched} ok={ok}")
+            if not ok:
+                self.s.fail(f"attn_tuner S={s} {name}: pick {pick} at {ratio:.3f}x the "
+                            f"fastest {best}, {launched} flash launches")
+            del q, k, v
+            torch.cuda.empty_cache()
+
+    def xla(self) -> None:
+        """``executor='xla'`` (torch ops) bit-equal to ``executor='kernel'``
+        for ACCUM and MAP, both timed through the engine."""
+        torch, engine = self.torch, self.engine
+        for m, n, rho in XLA_ACCUM_CASES:
+            x = self.data("accum", m, n)
+            got = engine.accum(x, rho=rho, executor="xla")
+            want = engine.accum(x, rho=rho)
+            same = torch.equal(got, want)
+            del got, want
+            ms = {ex: self.s.time_ms(lambda: engine.accum(x, rho=rho, executor=ex), runs=5)
+                  for ex in ("xla", "kernel")}
+            kind = engine.schedule_for(m, n // rho, "auto", self.s.dev).kind
+            _log(f"xla check accum int32 m={m} n={n} rho={rho} kind={kind} "
+                 f"xla_ms={ms['xla']:.4f} kernel_ms={ms['kernel']:.4f} equal={same}")
+            if not same:
+                self.s.fail(f"xla accum m={m} n={n}: executor='xla' differs from the kernel")
+            del x
+            torch.cuda.empty_cache()
+        for m, nb in XLA_MAP_CASES:
+            got = engine.map_table(nb, m=m, executor="xla")
+            want = engine.map_table(nb, m=m)
+            same = torch.equal(got, want)
+            del got, want
+            ms = {ex: self.s.time_ms(lambda: engine.map_table(nb, m=m, executor=ex), runs=5)
+                  for ex in ("xla", "kernel")}
+            _log(f"xla check map m={m} nb={nb} kind=hmap xla_ms={ms['xla']:.4f} "
+                 f"kernel_ms={ms['kernel']:.4f} equal={same}")
+            if not same:
+                self.s.fail(f"xla map m={m} nb={nb}: executor='xla' differs from the kernel")
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     """Run every phase; 0 only when every check passed."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1777,6 +2070,9 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
+    # The tuner's decisions go to a private cache that ends with the run.
+    cache_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir.name, "autotune.json")
     from repro_torch.configs import ALL as configs
     from repro_torch.core import hmap
     from repro_torch.kernels import _build, engine, legacy, ops, ref
@@ -1969,6 +2265,33 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     smoke.oracle_check()
     _log(f"phase oracle: {time.perf_counter() - t0:.1f} s")
+
+    tune = TunerSmoke(smoke, card)
+    zero_counts()
+    t0 = time.perf_counter()
+    tune.constants()
+    tune.kinds()
+    tuner_launches = counts()
+    _log(f"phase tuner: {time.perf_counter() - t0:.1f} s, launches {tuner_launches}")
+    for name in ("accum", "edm", "ca"):
+        if tuner_launches[name] <= 0:
+            smoke.fail(f"kernel {name} was never launched on the tuner path")
+    zero_counts()
+    t0 = time.perf_counter()
+    tune.attention()
+    attn_launches = counts()
+    _log(f"phase attn_tuner: {time.perf_counter() - t0:.1f} s, launches {attn_launches}")
+    for route in ("flash_wgmma", "flash16_wgmma", "flash16"):
+        if attn_launches[route] <= 0:
+            smoke.fail(f"kernel {route} was never launched on the attn_tuner path")
+    zero_counts()
+    t0 = time.perf_counter()
+    tune.xla()
+    xla_launches = counts()
+    _log(f"phase xla: {time.perf_counter() - t0:.1f} s, launches {xla_launches}")
+    for name in ("accum", "map"):
+        if xla_launches[name] <= 0:
+            smoke.fail(f"kernel {name} was never launched on the xla path")
 
     kernels = []
     for name in SIMPLEX:

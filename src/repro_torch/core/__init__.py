@@ -10,6 +10,7 @@ from .schedule import (
     resolve_kind,
 )
 from .simplex import simplex_volume, tet, tri
+from .trapezoids import Trapezoid, decompose, total_grid_cells, trapezoid_map
 
 __all__ = [
     "general_m",
@@ -19,12 +20,16 @@ __all__ = [
     "simplex",
     "trapezoids",
     "Schedule2D",
+    "Trapezoid",
     "SimplexSchedule",
     "folded_causal_pairs",
+    "decompose",
     "grid_steps",
     "registered_kinds",
     "resolve_kind",
     "simplex_volume",
     "tet",
+    "total_grid_cells",
+    "trapezoid_map",
     "tri",
 ]

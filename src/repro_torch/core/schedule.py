@@ -24,8 +24,8 @@ Registered kinds
   ``table``, ``bb``, ``composite``.
 * m>=4: ``hmap`` (orthant recursion), ``table``, ``bb``, ``composite``.
 
-``kind='auto'`` belongs to the autotuner, which this package does not
-have yet: ``resolve_kind`` raises ``NotImplementedError`` for it.
+``kind='auto'`` asks the autotuner (``autotune.choose_kind``) through
+``resolve_kind``, for the device the kernel runs on.
 """
 
 from __future__ import annotations
@@ -163,18 +163,20 @@ def registered_kinds(m: int) -> Tuple[str, ...]:
     return tuple(sorted(kinds))
 
 
-def resolve_kind(m: int, n: int, kind: str) -> str:
+def resolve_kind(m: int, n: int, kind: str, device=None) -> str:
     """Kernel-facing kind resolution (the §4.1 power-of-two constraint).
 
     'hmap' needs a power-of-two tile count.  At m >= 3 a non-pow2 n
     resolves the recursion to ``'composite'``; at m = 2 it falls back to
-    RB (even n) or BB (odd n).  ``'auto'`` raises: it needs the
-    autotuner, which is not ported yet.
+    RB (even n) or BB (odd n).  ``'auto'`` asks the autotuner
+    (``autotune.choose_kind``) for the device the kernel runs on, so a
+    decision made for the CPU never serves the card.
 
     Args:
         m: Simplex dimension of the kernel's domain.
         n: Tile count per side.
-        kind: Requested schedule kind.
+        kind: Requested schedule kind, or ``'auto'``.
+        device: Where the kernel runs, for ``'auto'``; None is the card.
 
     Returns:
         The kind actually constructible at this (m, n).
@@ -186,11 +188,9 @@ def resolve_kind(m: int, n: int, kind: str) -> str:
         ('hmap', 'rb')
     """
     if kind == "auto":
-        raise NotImplementedError(
-            "kind='auto' needs the autotuner, which the PyTorch port does "
-            "not have yet (ROADMAP, queue A: the autotuner slice); pass an "
-            "explicit kind such as 'hmap'"
-        )
+        from ..autotune.tuner import choose_kind
+
+        kind = choose_kind(m, n, device).kind
     pow2 = n >= 2 and (n & (n - 1)) == 0
     if m == 2:
         if kind == "hmap" and not pow2:

@@ -1,8 +1,15 @@
-"""General-n simplex domains as chains of power-of-two pieces (§4.2).
+"""General-n simplex domains as power-of-two pieces (§4.2).
 
 The paper's map H needs a power-of-two n (§4.1) and serves general n by
-decomposing the domain into exactly-schedulable pieces (§4.2).  For any
-dimension m >= 2 and any side n the strict simplex splits as
+decomposing the domain into exactly-schedulable pieces (§4.2).  Two
+generations of that idea live here:
+
+* **2-simplex trapezoids** (the paper's concurrent-kernel scheme):
+  power-of-two triangles along the diagonal, each completed by the box
+  to its left; ``decompose`` / ``trapezoid_map`` keep one ``(w, h)``
+  grid per piece.  Host-side only: no kernel launches over them.
+* **General-m composite pieces**: for any dimension m >= 2 and any side
+  n the strict simplex splits as
 
     T^m(n) = T^m(p)  ⊎  ⊎_{k=0}^{m-1}  T^k(p) ⋉ T^{m-k}(q),
     p = pow2_floor(n),  q = n - p
@@ -25,9 +32,13 @@ from typing import Any, List, Sequence, Tuple
 
 import numpy as np
 
-from .hmap import _as_index, _xp, hmap_factor, hmap_factor_grid_size
+from .hmap import _as_index, _xp, hmap2_full, hmap_factor, hmap_factor_grid_size
 
 __all__ = [
+    "Trapezoid",
+    "decompose",
+    "trapezoid_map",
+    "total_grid_cells",
     "SimplexPiece",
     "decompose_simplex",
     "composite_grid_size",
@@ -35,6 +46,137 @@ __all__ = [
     "piece_map",
     "pack_pieces",
 ]
+
+
+@dataclass(frozen=True)
+class Trapezoid:
+    """One piece of the 2-simplex concurrent-trapezoid decomposition.
+
+    A trapezoid covers data rows ``[offset, offset + side)`` of the
+    inclusive lower triangle: the power-of-two triangle of side ``side``
+    on the diagonal plus the ``side x offset`` box completing its rows to
+    the left.
+
+    Attributes:
+        offset: First data row covered; also the width of the box part.
+        side: Triangle side length (a power of two).
+        overshoot: Rows beyond n covered by a rounded-up final piece
+            (``trapezoid_map`` flags them invalid).
+
+    Example:
+        >>> t = Trapezoid(offset=4, side=2, overshoot=0)
+        >>> t.grid_shape, t.grid_cells, t.data_tiles
+        ((1, 11), 11, 11)
+    """
+
+    offset: int
+    side: int
+    overshoot: int
+
+    @property
+    def grid_shape(self) -> Tuple[int, int]:
+        """(width, height) of this piece's grid: ``(s/2, (s+1) + 2*o)``,
+        or ``(1, o+1)`` for a side-1 piece (one data row)."""
+        if self.side == 1:
+            return 1, self.offset + 1
+        return self.side // 2, (self.side + 1) + 2 * self.offset
+
+    @property
+    def grid_cells(self) -> int:
+        """Total grid cells launched for this piece (width * height)."""
+        w, h = self.grid_shape
+        return w * h
+
+    @property
+    def data_tiles(self) -> int:
+        """Tiles inside the simplex (overshoot rows excluded)."""
+        s, o = self.side, self.offset
+        full = o * s + s * (s + 1) // 2
+        for y in range(s - self.overshoot, s):
+            full -= o + y + 1
+        return full
+
+
+def decompose(n: int, threshold: int = 4) -> List[Trapezoid]:
+    """Split the side-n lower triangle into concurrent trapezoids.
+
+    Paper §4.2 option 3: approach n from below with power-of-two
+    triangles; once the remainder drops under ``threshold`` it is
+    rounded *up* to the next power of two (one final trapezoid whose
+    excess rows are invalid).
+
+    Args:
+        n: Side of the triangle domain (rows), n >= 1.
+        threshold: Remainder below which the tail is rounded up.
+
+    Returns:
+        ``Trapezoid`` pieces covering rows ``[0, n)`` exactly.
+
+    Example:
+        >>> [(t.offset, t.side, t.overshoot) for t in decompose(7)]
+        [(0, 4, 0), (4, 4, 1)]
+    """
+    if n < 1:
+        raise ValueError(f"need n >= 1, got {n}")
+    pieces: List[Trapezoid] = []
+    offset, remaining = 0, n
+    while remaining > 0:
+        p = 1 << (remaining.bit_length() - 1)
+        if remaining < threshold and p != remaining:
+            p_up = 1 << remaining.bit_length()
+            pieces.append(Trapezoid(offset, p_up, p_up - remaining))
+            return pieces
+        pieces.append(Trapezoid(offset, p, 0))
+        offset += p
+        remaining -= p
+    return pieces
+
+
+def trapezoid_map(t: Trapezoid, wx, wy) -> Tuple[Any, Any, Any]:
+    """Map grid coordinates of one trapezoid to global data tiles.
+
+    Grid rows ``[0, side]`` walk the power-of-two triangle through
+    ``hmap2_full``; rows above fold the box, two grid rows per
+    ``side/2``-wide strip, with the paper's Eq. 19 mask
+    ``k = (h1 - wy) >> 31`` as a 0/1 selector.  Numpy or torch.
+
+    Args:
+        t: The piece (from ``decompose``).
+        wx: Grid column index/array in ``[0, grid_shape[0])``.
+        wy: Grid row index/array in ``[0, grid_shape[1])``.
+
+    Returns:
+        ``(x, y, valid)`` global tile coordinates; ``valid`` is false
+        only on the overshoot rows of a rounded-up final piece.
+
+    Example:
+        >>> t = Trapezoid(offset=4, side=2, overshoot=0)
+        >>> x, y, v = trapezoid_map(t, np.zeros(11, np.int64), np.arange(11))
+        >>> sorted(zip(y.tolist(), x.tolist()))[:3]
+        [(4, 0), (4, 1), (4, 2)]
+    """
+    s, o = t.side, t.offset
+    xp = _xp(wx, wy)
+    wx, wy = _as_index(wx), _as_index(wy)
+    if s == 1:  # one data row: tile (wy, offset)
+        return wy, o + xp.zeros_like(wy), xp.zeros_like(wx) == 0
+    k = ((s - wy) >> 31) & 1  # 1 on the box rows above the triangle
+    tx, ty = hmap2_full(wx, xp.clip(wy, 0, s), s)
+    lin = (wy - (s + 1)) * (s // 2) + wx  # the box's linear cell
+    width = max(o, 1)
+    x = xp.where(k == 1, lin % width, o + tx)
+    y_local = xp.where(k == 1, lin // width, ty)
+    return x, o + y_local, y_local < (s - t.overshoot)
+
+
+def total_grid_cells(n: int, threshold: int = 4) -> int:
+    """Grid cells of every trapezoid of ``decompose(n, threshold)``.
+
+    Example:
+        >>> total_grid_cells(6)  # tri(6) = 21: no waste at even n
+        21
+    """
+    return sum(t.grid_cells for t in decompose(n, threshold))
 
 
 @dataclass(frozen=True)

@@ -25,6 +25,12 @@ Dispatch follows the tensor (``policy.on_card``); nothing falls back.
 The write discipline is the reference's: ACCUM and CA keep their input
 off the domain, EDM keeps its zeros seed.  CA reads one buffer and
 writes another, because blocks run in no order.
+
+``kind='auto'`` (the default) resolves through the autotuner for the
+device the operand lives on, and ``split=None`` asks it whether to launch
+a composite walk one piece at a time.  ``executor='xla'`` runs the
+reference's fused executors (``kernels/compiled.py``) as torch
+gather/scatter on the operand's device, for MAP and ACCUM.
 """
 
 from __future__ import annotations
@@ -35,8 +41,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..autotune.tuner import should_split_pieces
 from ..core.schedule import SimplexSchedule, resolve_kind
-from . import _build
+from . import _build, compiled
 from .policy import (ACCUM_DTYPES, CA_DTYPES, DTYPE_CODES, EDM_DTYPES, SMEM_LIMIT,
                      card_operand, check_tile, on_card, resolve_device)
 
@@ -113,22 +120,26 @@ def domain_mask(m: int, n: int, coords: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 @lru_cache(maxsize=64)
-def schedule_for(m: int, nb: int, kind: str) -> SimplexSchedule:
-    """The resolved schedule of ``(m, nb, kind)``, built once and cached
-    (with it its device descriptor, built once per device)."""
-    return SimplexSchedule(m, nb, resolve_kind(m, nb, kind))
+def _schedule(m: int, nb: int, kind: str) -> SimplexSchedule:
+    return SimplexSchedule(m, nb, kind)
+
+
+def schedule_for(m: int, nb: int, kind: str, device=None) -> SimplexSchedule:
+    """The resolved schedule of ``(m, nb, kind)`` (``'auto'`` for
+    ``device``, None the card), built once per concrete kind and cached,
+    with it its device descriptor, built once per device."""
+    return _schedule(m, nb, resolve_kind(m, nb, kind, device))
 
 
 def launch_plan(m: int, nb: int, kind: str, split: Optional[bool],
-                element_local: bool, schedule=None) -> list:
+                element_local: bool, schedule=None, device=None) -> list:
     """Schedules to launch, one kernel launch each.
 
-    A composite schedule splits into one launch per piece when
-    ``split`` is true and the body is element-local (pieces cover
-    disjoint tiles).  ``split=None`` launches the fused walk: the
-    autotuner that would decide it is not ported yet, and the outputs
-    are identical either way.  An explicit ``schedule`` bypasses kind
-    resolution and splitting.
+    A composite schedule splits into one launch per piece when the body
+    is element-local (pieces cover disjoint tiles) and ``split`` is true,
+    or, for ``split=None``, when ``autotune.should_split_pieces`` says so.
+    ``kind='auto'`` resolves for ``device``.  An explicit ``schedule``
+    bypasses kind resolution and splitting.
     """
     if schedule is not None:
         if schedule.m != m or schedule.n != nb:
@@ -137,10 +148,12 @@ def launch_plan(m: int, nb: int, kind: str, split: Optional[bool],
                 f"but the launch needs (m={m}, nb={nb})"
             )
         return [schedule]
-    sched = schedule_for(m, nb, kind)
-    if sched.kind == "composite" and element_local and split:
+    sched = schedule_for(m, nb, kind, device)
+    if sched.kind == "composite" and element_local:
         subs = sched.split_pieces()
-        if len(subs) > 1:
+        if split is None:
+            split = should_split_pieces(len(subs), sched.steps)
+        if split and len(subs) > 1:
             return list(subs)
     return [sched]
 
@@ -288,6 +301,11 @@ class KernelBody:
         """Run the body on operand ``x`` through ``kernel``'s plan."""
         raise NotImplementedError
 
+    def xla_executor(self, kernel: "SimplexKernel", x, device: torch.device):
+        """The reference's fused executor (``executor='xla'``); None if
+        the body has none."""
+        return None
+
 
 _BODIES: Dict[str, KernelBody] = {}
 
@@ -365,12 +383,18 @@ class MapBody(KernelBody):
         """The schedule of ``(kernel.m, nb, kernel.kind)`` (or
         ``kernel.schedule``) as a table on ``device``."""
         (sched,) = launch_plan(kernel.m, nb, kernel.kind, None, False,
-                               schedule=kernel.schedule)
+                               schedule=kernel.schedule, device=device)
         if device.type == "cuda":
             return self.kernel(sched, kernel.chunk, device)
         if device.type != "cpu":
             raise ValueError(f"map: no kernel for {device}")
         return self.plain(sched, device)
+
+    def xla_executor(self, kernel: "SimplexKernel", nb: int, device: torch.device):
+        """The walk as one vectorised torch program
+        (``compiled.schedule_coords_compiled``)."""
+        kind = resolve_kind(kernel.m, nb, kernel.kind, device)
+        return compiled.schedule_coords_compiled(kernel.m, nb, kind, device=device)
 
 
 def accum_vector_access(rho: int, itemsize: int, data_ptr: int) -> bool:
@@ -429,7 +453,8 @@ class AccumBody(KernelBody):
         if not buf.is_contiguous():
             raise ValueError(f"{self.name}: in-place operand must be contiguous")
         for sched in launch_plan(m, n // rho, kernel.kind, kernel.split,
-                                 self.element_local, schedule=kernel.schedule):
+                                 self.element_local, schedule=kernel.schedule,
+                                 device=buf.device):
             if card:
                 self.kernel_(buf, sched, rho)
             else:
@@ -440,6 +465,13 @@ class AccumBody(KernelBody):
         """A copy of ``x`` with +1 on the domain; ``x`` is untouched."""
         x = torch.as_tensor(x, device=device)
         return self.run_(kernel, x.contiguous().clone())
+
+    def xla_executor(self, kernel: "SimplexKernel", x, device: torch.device):
+        """``compiled.accum2d_compiled`` at m=2, ``accum_md_compiled`` beyond."""
+        x = torch.as_tensor(x, device=device)
+        if kernel.m == 2:
+            return compiled.accum2d_compiled(x, rho=kernel.rho, kind=kernel.kind)
+        return compiled.accum_md_compiled(x, rho=kernel.rho, kind=kernel.kind)
 
 
 class EDMBody(KernelBody):
@@ -546,7 +578,8 @@ class EDMBody(KernelBody):
         card = on_card(out, self.name)
         p = p.contiguous()
         for sched in launch_plan(m, n // rho, kernel.kind, kernel.split,
-                                 self.element_local, schedule=kernel.schedule):
+                                 self.element_local, schedule=kernel.schedule,
+                                 device=out.device):
             if card:
                 self.kernel_(out, p, sched, rho)
             else:
@@ -672,7 +705,8 @@ class CABody(KernelBody):
         out = inp.clone()
         card = on_card(inp, self.name)
         for sched in launch_plan(m, n // rho, kernel.kind, kernel.split,
-                                 self.element_local, schedule=kernel.schedule):
+                                 self.element_local, schedule=kernel.schedule,
+                                 device=inp.device):
             if card:
                 self.kernel_(out, inp, sched, rho)
             else:
@@ -699,13 +733,16 @@ class SimplexKernel:
             a ``KernelBody`` instance.
         m: Simplex dimension (m >= 2).
         rho: Tile side (default ``default_rho(m)``).
-        kind: Schedule kind; ``'auto'`` raises until the autotuner is
-            ported.
+        kind: Schedule kind, ``'auto'`` for the autotuner's pick on the
+            operand's device.
         split: True launches a composite schedule one piece at a time
-            (element-local bodies); None and False launch it fused.
+            (element-local bodies), False fused; None asks
+            ``autotune.should_split_pieces``.
         chunk: MAP body only — threads (steps) per block.
-        executor: ``'kernel'``; ``'xla'`` (the reference's fused
-            executors) raises ``NotImplementedError`` until ported.
+        executor: ``'kernel'`` (default) or ``'xla'``: the reference's
+            fused executors (``kernels/compiled.py``) as torch ops on the
+            operand's device, for MAP and ACCUM; other bodies raise
+            ``NotImplementedError``, as in the reference.
         schedule: An explicit schedule object to launch instead of
             resolving ``kind``; must match the operand's (m, nb).
         device: None for the card (raises without one), or a device;
@@ -719,7 +756,7 @@ class SimplexKernel:
     """
 
     def __init__(self, body, m: int, *, rho: Optional[int] = None,
-                 kind: str = "hmap", split: Optional[bool] = None,
+                 kind: str = "auto", split: Optional[bool] = None,
                  chunk: int = 128, executor: str = "kernel", schedule=None,
                  device=None):
         if m < 2:
@@ -739,12 +776,16 @@ class SimplexKernel:
     def __call__(self, x):
         """Launch the body on operand ``x`` (domain array, points, or
         tile count for the MAP body)."""
+        device = resolve_device(self.device)
         if self.executor == "xla":
-            raise NotImplementedError(
-                "executor='xla' (the reference's fused executors, "
-                "kernels/compiled.py) is not ported yet; see ROADMAP queue A"
-            )
-        return self.body.launch(self, x, resolve_device(self.device))
+            out = self.body.xla_executor(self, x, device)
+            if out is None:
+                raise NotImplementedError(
+                    f"body {self.body.name!r} has no fused executor; use "
+                    "executor='kernel'"
+                )
+            return out
+        return self.body.launch(self, x, device)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (
@@ -771,7 +812,7 @@ def map_table(nb: int, m: int = 2, kind: str = "hmap", chunk: int = 128,
                          executor=executor)(nb)
 
 
-def accum(x, rho: Optional[int] = None, kind: str = "hmap",
+def accum(x, rho: Optional[int] = None, kind: str = "auto",
           split: Optional[bool] = None, device=None,
           executor: str = "kernel") -> torch.Tensor:
     """+1 on every simplex element of the m-cube ``x`` (m = x.ndim).
@@ -784,10 +825,10 @@ def accum(x, rho: Optional[int] = None, kind: str = "hmap",
             the array's own type (integers wrap, 16-bit floats round to
             nearest even).
         rho: Tile side (default per dimension).
-        kind: Schedule kind.
-        split: Composite per-piece launches (None = fused).
+        kind: Schedule kind or ``'auto'``.
+        split: Composite per-piece launches (None = autotuned).
         device: None for the card, ``'cpu'`` for the plain version.
-        executor: 'kernel' ('xla' is not ported yet).
+        executor: 'kernel' or 'xla' (the fused torch executor).
 
     Returns:
         A new tensor: ``x`` with +1 on the domain, its input elsewhere.
@@ -796,7 +837,7 @@ def accum(x, rho: Optional[int] = None, kind: str = "hmap",
                          device=device, executor=executor)(x)
 
 
-def accum_(x: torch.Tensor, rho: Optional[int] = None, kind: str = "hmap",
+def accum_(x: torch.Tensor, rho: Optional[int] = None, kind: str = "auto",
            split: Optional[bool] = None) -> torch.Tensor:
     """In-place ``accum``: +1 on the domain of ``x`` itself, where it lies.
 
@@ -812,7 +853,7 @@ def accum_(x: torch.Tensor, rho: Optional[int] = None, kind: str = "hmap",
     return body.run_(kernel, x)
 
 
-def edm(p, m: int = 2, rho: Optional[int] = None, kind: str = "hmap",
+def edm(p, m: int = 2, rho: Optional[int] = None, kind: str = "auto",
         split: Optional[bool] = None, device=None) -> torch.Tensor:
     """Pairwise-distance field over the m-simplex: the EDM test.
 
@@ -824,8 +865,8 @@ def edm(p, m: int = 2, rho: Optional[int] = None, kind: str = "hmap",
             the card); the distances are computed in float32.
         m: Simplex dimension of the output field.
         rho: Tile side (default per dimension).
-        kind: Schedule kind.
-        split: Composite per-piece launches (None = fused).
+        kind: Schedule kind or ``'auto'``.
+        split: Composite per-piece launches (None = autotuned).
         device: None for the card, ``'cpu'`` for the plain version.
 
     Returns:
@@ -835,7 +876,7 @@ def edm(p, m: int = 2, rho: Optional[int] = None, kind: str = "hmap",
                          device=device)(p)
 
 
-def ca(state, rho: Optional[int] = None, kind: str = "hmap",
+def ca(state, rho: Optional[int] = None, kind: str = "auto",
        device=None) -> torch.Tensor:
     """One Game-of-Life step on the m-simplex (m = state.ndim).
 
@@ -845,7 +886,7 @@ def ca(state, rho: Optional[int] = None, kind: str = "hmap",
             bfloat16, float16, float32); neighbours are counted in its
             own dtype.
         rho: Tile side (default per dimension).
-        kind: Schedule kind.
+        kind: Schedule kind or ``'auto'``.
         device: None for the card, ``'cpu'`` for the plain version.
 
     Returns:
@@ -855,20 +896,20 @@ def ca(state, rho: Optional[int] = None, kind: str = "hmap",
                          device=device)(state)
 
 
-def edm2d(p, rho: Optional[int] = None, kind: str = "hmap",
+def edm2d(p, rho: Optional[int] = None, kind: str = "auto",
           device=None) -> torch.Tensor:
     """The m=2 EDM — ``out[i, j] = ||p_i - p_j||`` on the inclusive
     lower triangle (see ``edm``)."""
     return edm(p, 2, rho=rho, kind=kind, device=device)
 
 
-def edm3d(p, rho: Optional[int] = None, kind: str = "hmap",
+def edm3d(p, rho: Optional[int] = None, kind: str = "auto",
           split: Optional[bool] = None, device=None) -> torch.Tensor:
     """The m=3 EDM: per-cell triangle perimeter on T(n) (see ``edm``)."""
     return edm(p, 3, rho=rho, kind=kind, split=split, device=device)
 
 
-def edm_md(p, m: int, rho: Optional[int] = None, kind: str = "hmap",
+def edm_md(p, m: int, rho: Optional[int] = None, kind: str = "auto",
            split: Optional[bool] = None, device=None) -> torch.Tensor:
     """The general-m EDM (m >= 3; ``edm2d`` serves the triangle)."""
     if m < 3:
@@ -876,7 +917,7 @@ def edm_md(p, m: int, rho: Optional[int] = None, kind: str = "hmap",
     return edm(p, m, rho=rho, kind=kind, split=split, device=device)
 
 
-def ca_md(state, rho: Optional[int] = None, kind: str = "hmap",
+def ca_md(state, rho: Optional[int] = None, kind: str = "auto",
           device=None) -> torch.Tensor:
     """The general-m CA: (3^m - 1)-neighbour Game of Life on T(n), free
     boundaries (m = state.ndim >= 3; ``ca`` at m=2 wraps)."""
@@ -885,7 +926,7 @@ def ca_md(state, rho: Optional[int] = None, kind: str = "hmap",
     return ca(state, rho=rho, kind=kind, device=device)
 
 
-def accum_md(x, rho: Optional[int] = None, kind: str = "hmap",
+def accum_md(x, rho: Optional[int] = None, kind: str = "auto",
              split: Optional[bool] = None, device=None) -> torch.Tensor:
     """The general-m ACCUM (m = x.ndim >= 3; see ``accum``)."""
     if x.ndim < 3:
@@ -893,13 +934,13 @@ def accum_md(x, rho: Optional[int] = None, kind: str = "hmap",
     return accum(x, rho=rho, kind=kind, split=split, device=device)
 
 
-def grid_steps(nb: int, kind: str, m: int = 2) -> int:
+def grid_steps(nb: int, kind: str, m: int = 2, device=None) -> int:
     """Grid steps the engine launches for ``(m, nb, kind)`` after
-    kernel-facing kind resolution.
+    kernel-facing kind resolution (``'auto'`` for ``device``).
 
     Example:
         >>> grid_steps(16, "hmap"), grid_steps(16, "bb")
         (136, 256)
     """
-    return schedule_for(m, nb, kind).steps
+    return schedule_for(m, nb, kind, device).steps
 

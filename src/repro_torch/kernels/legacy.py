@@ -33,8 +33,10 @@ The write discipline is the reference's: ACCUM and CA keep their input
 off the domain, EDM keeps its zeros seed.  The TPU kernels flushed every
 grid step back through input/output aliasing, parking invalid steps on a
 trash tile; here an invalid step writes nothing, and CA writes a second
-buffer because blocks run in no order.  ``kind='auto'`` needs the
-autotuner, which is not ported yet, so the default kind is ``'hmap'``.
+buffer because blocks run in no order.  ``kind='auto'`` (the default of
+every entry point but ``map2d``) resolves through the autotuner for the
+device the operand lives on; ``split=None`` asks it whether to launch a
+composite walk one piece at a time.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from ..autotune.tuner import should_split_pieces
 from ..core.schedule import SimplexSchedule, resolve_kind
 from . import _build
 from .policy import (ACCUM_DTYPES, CA_DTYPES, DTYPE_CODES, EDM_DTYPES, card_operand,
@@ -78,15 +81,16 @@ _KIND_CODES = {"hmap": 0, "rb": 1, "bb": 2}
 # ---------------------------------------------------------------------------
 
 
-def _schedule(m: int, nb: int, kind: str) -> SimplexSchedule:
-    """Resolve the schedule, enforcing the legacy 2D kind restriction."""
+def _schedule(m: int, nb: int, kind: str, device=None) -> SimplexSchedule:
+    """Resolve the schedule (``'auto'`` for ``device``, None the card),
+    enforcing the legacy 2D kind restriction."""
     if m == 2 and kind in ("table", "composite"):
         raise ValueError(
             f"the 2D kernels launch a (w, h) grid; kind={kind!r} (linear "
             "walk) is only wired for the m >= 3 kernels — use kind='hmap', "
             "'rb', or 'bb'"
         )
-    return SimplexSchedule(m, nb, resolve_kind(m, nb, kind))
+    return SimplexSchedule(m, nb, resolve_kind(m, nb, kind, device))
 
 
 def grid_steps_2d(nb: int, kind: str) -> int:
@@ -262,7 +266,7 @@ def map2d(nb: int, kind: str = "hmap", chunk: int = 128, device=None) -> torch.T
         [[0, 0, 1], [0, 1, 1], [1, 1, 1]]
     """
     device = resolve_device(device)
-    sched = _schedule(2, nb, kind)
+    sched = _schedule(2, nb, kind, device)
     if device.type == "cuda":
         return MAP2D.kernel(sched, chunk, device)
     if device.type != "cpu":
@@ -298,14 +302,14 @@ class Accum2DKernel(_Legacy):
 ACCUM2D = Accum2DKernel()
 
 
-def accum2d(x, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
+def accum2d(x, rho: int = 8, kind: str = "auto", device=None) -> torch.Tensor:
     """+1 on the inclusive lower triangle of ``x`` (n x n, rho | n).
 
     Args:
         x: ``(n, n)`` array or tensor (on the card any of
             ``policy.ACCUM_DTYPES``; +1 in its own type).
         rho: Tile side.
-        kind: ``'hmap'``, ``'rb'`` or ``'bb'``.
+        kind: ``'hmap'``, ``'rb'``, ``'bb'`` or ``'auto'``.
         device: None for the card, ``'cpu'`` for the plain version.
 
     Returns:
@@ -318,7 +322,7 @@ def accum2d(x, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
     """
     buf = torch.as_tensor(x, device=resolve_device(device)).contiguous().clone()
     n = _check_square(ACCUM2D.name, buf, rho)
-    sched = _schedule(2, n // rho, kind)
+    sched = _schedule(2, n // rho, kind, buf.device)
     if on_card(buf, ACCUM2D.name):
         ACCUM2D.kernel_(buf, sched, rho)
     else:
@@ -374,14 +378,14 @@ class EDM2DKernel(_Legacy):
 EDM2D = EDM2DKernel()
 
 
-def edm2d(p, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
+def edm2d(p, rho: int = 8, kind: str = "auto", device=None) -> torch.Tensor:
     """``out[i, j] = ||p_i - p_j||`` on the inclusive lower triangle.
 
     Args:
         p: ``(n, d)`` points (float16, bfloat16, float32 or float64 on
             the card); the distances are computed in float32.
         rho: Tile side.
-        kind: ``'hmap'``, ``'rb'`` or ``'bb'``.
+        kind: ``'hmap'``, ``'rb'``, ``'bb'`` or ``'auto'``.
         device: None for the card, ``'cpu'`` for the plain version.
 
     Returns:
@@ -397,7 +401,7 @@ def edm2d(p, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
         raise ValueError(f"edm2d: expected (n, d) points, got {tuple(p.shape)}")
     n, d = p.shape
     check_tile(EDM2D.name, 2, n, rho, EDM2D.smem_bytes(rho, d))
-    sched = _schedule(2, n // rho, kind)
+    sched = _schedule(2, n // rho, kind, p.device)
     out = torch.zeros((n, n), dtype=p.dtype, device=p.device)
     if on_card(out, EDM2D.name):
         EDM2D.kernel_(out, p, sched, rho)
@@ -465,7 +469,7 @@ class CA2DKernel(_Legacy):
 CA2D = CA2DKernel()
 
 
-def ca2d(state, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
+def ca2d(state, rho: int = 8, kind: str = "auto", device=None) -> torch.Tensor:
     """One Game-of-Life step on the inclusive lower triangle (periodic
     underlying square).
 
@@ -473,7 +477,7 @@ def ca2d(state, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
         state: ``(n, n)`` 0/1 array (on the card any of
             ``policy.CA_DTYPES``; neighbours counted in its own type).
         rho: Tile side.
-        kind: ``'hmap'``, ``'rb'`` or ``'bb'``.
+        kind: ``'hmap'``, ``'rb'``, ``'bb'`` or ``'auto'``.
         device: None for the card, ``'cpu'`` for the plain version.
 
     Returns:
@@ -487,7 +491,7 @@ def ca2d(state, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
     """
     inp = torch.as_tensor(state, device=resolve_device(device)).contiguous()
     n = _check_square(CA2D.name, inp, rho, CA2D.smem_bytes(rho, inp.element_size()))
-    sched = _schedule(2, n // rho, kind)
+    sched = _schedule(2, n // rho, kind, inp.device)
     out = inp.clone()
     if on_card(inp, CA2D.name):
         CA2D.kernel_(out, inp, sched, rho)
@@ -501,22 +505,24 @@ def ca2d(state, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _launch_plan(m: int, nb: int, kind: str, split: Optional[bool] = None) -> list:
+def _launch_plan(m: int, nb: int, kind: str, split: Optional[bool] = None,
+                 device=None) -> list:
     """Schedules to launch, one kernel launch each.
 
     The schedule carries what the reference's ``_sched_linear`` returned
     (its steps, its map and, for the ``table`` kind, the table, on the
     card as ``device_descriptor().data``).  A composite schedule splits
-    into one launch per piece when ``split`` is true; pieces cover
-    disjoint tiles, so the launches chain on one buffer exactly.
-    ``split=None`` launches the fused walk: the reference asks the
-    autotuner here, which is not ported yet, and the outputs are
-    bit-equal either way.
+    into one launch per piece when ``split`` is true, or, for
+    ``split=None``, when ``autotune.should_split_pieces`` says so; pieces
+    cover disjoint tiles, so the launches chain on one buffer exactly.
+    ``kind='auto'`` resolves for ``device``.
     """
-    sched = _schedule(m, nb, kind)
-    if sched.kind == "composite" and split:
+    sched = _schedule(m, nb, kind, device)
+    if sched.kind == "composite":
         subs = sched.split_pieces()
-        if len(subs) > 1:
+        if split is None:
+            split = should_split_pieces(len(subs), sched.steps)
+        if split and len(subs) > 1:
             return list(subs)
     return [sched]
 
@@ -622,7 +628,7 @@ class _LinearAccum(_Legacy):
         buf = torch.as_tensor(x, device=device).contiguous().clone()
         n = _check_cube(self.name, buf, m, rho)
         card = on_card(buf, self.name)
-        for sched in _launch_plan(m, n // rho, kind, split):
+        for sched in _launch_plan(m, n // rho, kind, split, buf.device):
             if card:
                 self.kernel_(buf, sched, rho)
             else:
@@ -651,7 +657,7 @@ ACCUM3D = Accum3DKernel()
 ACCUM_MD = AccumMDKernel()
 
 
-def accum3d(x, rho: int = 4, kind: str = "hmap", split: Optional[bool] = None,
+def accum3d(x, rho: int = 4, kind: str = "auto", split: Optional[bool] = None,
             device=None) -> torch.Tensor:
     """+1 on T(n) = {x+y+z < n}; axes (z, y, x); rho | n.
 
@@ -661,8 +667,9 @@ def accum3d(x, rho: int = 4, kind: str = "hmap", split: Optional[bool] = None,
         rho: Tile side.
         kind: ``'hmap'``, ``'octant'``, ``'bb'``, ``'table'`` or
             ``'composite'`` (``'hmap'`` resolves to ``'composite'`` at a
-            non-power-of-two tile count).
-        split: True launches a composite schedule one piece at a time.
+            non-power-of-two tile count), or ``'auto'``.
+        split: True launches a composite schedule one piece at a time,
+            False fused; None asks the autotuner.
         device: None for the card, ``'cpu'`` for the plain version.
 
     Returns:
@@ -676,7 +683,7 @@ def accum3d(x, rho: int = 4, kind: str = "hmap", split: Optional[bool] = None,
     return ACCUM3D.run(x, 3, rho, kind, split, resolve_device(device))
 
 
-def accum_md(x, rho: int = 2, kind: str = "hmap", split: Optional[bool] = None,
+def accum_md(x, rho: int = 2, kind: str = "auto", split: Optional[bool] = None,
              device=None) -> torch.Tensor:
     """+1 on T(n) = {sum(coords) < n} for an m-cube input of shape (n,)*m.
 
@@ -686,8 +693,9 @@ def accum_md(x, rho: int = 2, kind: str = "hmap", split: Optional[bool] = None,
     Args:
         x: ``(n,)*m`` array or tensor (dtypes as ``accum3d``).
         rho: Tile side.
-        kind: ``'hmap'``, ``'bb'``, ``'table'`` or ``'composite'``.
-        split: True launches a composite schedule one piece at a time.
+        kind: ``'hmap'``, ``'bb'``, ``'table'``, ``'composite'`` or ``'auto'``.
+        split: True launches a composite schedule one piece at a time,
+            False fused; None asks the autotuner.
         device: None for the card, ``'cpu'`` for the plain version.
 
     Returns:
@@ -771,7 +779,7 @@ class CA3DKernel(_Legacy):
 CA3D = CA3DKernel()
 
 
-def ca3d(state, rho: int = 4, kind: str = "hmap", device=None) -> torch.Tensor:
+def ca3d(state, rho: int = 4, kind: str = "auto", device=None) -> torch.Tensor:
     """One 26-neighbour Game-of-Life step on T(n), free boundaries.
 
     Args:
@@ -779,8 +787,8 @@ def ca3d(state, rho: int = 4, kind: str = "hmap", device=None) -> torch.Tensor:
             ``policy.CA_DTYPES``; neighbours counted in its own type);
             cells off T(n) are dead as neighbours whatever they hold.
         rho: Tile side.
-        kind: ``'hmap'``, ``'octant'``, ``'bb'``, ``'table'`` or
-            ``'composite'``.
+        kind: ``'hmap'``, ``'octant'``, ``'bb'``, ``'table'``,
+            ``'composite'`` or ``'auto'``.
         device: None for the card, ``'cpu'`` for the plain version.
 
     Returns:
@@ -794,7 +802,7 @@ def ca3d(state, rho: int = 4, kind: str = "hmap", device=None) -> torch.Tensor:
     """
     inp = torch.as_tensor(state, device=resolve_device(device)).contiguous()
     n = _check_cube(CA3D.name, inp, 3, rho, CA3D.smem_bytes(rho, inp.element_size()))
-    sched = _schedule(3, n // rho, kind)
+    sched = _schedule(3, n // rho, kind, inp.device)
     out = inp.clone()
     if on_card(inp, CA3D.name):
         CA3D.kernel_(out, inp, sched, rho)

@@ -2,10 +2,11 @@
 
 Each resolves its schedule kind, then runs the engine body on the card
 (``device=None``) or, with ``device="cpu"``, through the body's plain
-PyTorch version.  The defaults follow the JAX package's ``kernels/ops.py``
-except ``kind``: ``'auto'`` needs the autotuner, which is not ported
-yet, so the default kind is ``'hmap'`` (resolved to ``rb``/``bb`` at a
-non-power-of-two m=2 side and to ``composite`` at m >= 3).
+PyTorch version.  The defaults follow the JAX package's ``kernels/ops.py``:
+``kind='auto'`` asks the autotuner for the tensors' device, and
+``split=None`` asks it whether to launch a composite walk one piece at a
+time.  The fused executors of ``kernels/compiled.py`` are exported as
+``simplex_accum*_compiled``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..autotune.tuner import choose_attn_impl
 from . import engine, ref
+from .compiled import accum2d_compiled, accum3d_compiled, accum_md_compiled
 from .flash_attention import flash_attention
 from .hmap_mxu import hmap2_coords_mxu
 from .policy import resolve_device
@@ -30,62 +32,72 @@ __all__ = [
     "simplex_edm3d",
     "simplex_edm_md",
     "simplex_ca_md",
+    "simplex_accum2d_compiled",
+    "simplex_accum3d_compiled",
+    "simplex_accum_md_compiled",
     "map_table",
     "hmap_coords_mxu",
     "causal_flash_attention",
 ]
 
 
-def simplex_accum2d(x, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
+def simplex_accum2d(x, rho: int = 8, kind: str = "auto", device=None) -> torch.Tensor:
     """+1 on the inclusive lower triangle (engine ACCUM body at m=2)."""
     return engine.accum(x, rho=rho, kind=kind, device=device)
 
 
-def simplex_edm2d(p, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
+def simplex_edm2d(p, rho: int = 8, kind: str = "auto", device=None) -> torch.Tensor:
     """||p_i - p_j|| on the lower triangle (engine EDM body at m=2)."""
     return engine.edm2d(p, rho=rho, kind=kind, device=device)
 
 
-def simplex_ca2d(state, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
+def simplex_ca2d(state, rho: int = 8, kind: str = "auto", device=None) -> torch.Tensor:
     """One periodic Game-of-Life step on the triangle (CA body at m=2)."""
     return engine.ca(state, rho=rho, kind=kind, device=device)
 
 
-def simplex_accum3d(x, rho: int = 4, kind: str = "hmap",
+def simplex_accum3d(x, rho: int = 4, kind: str = "auto",
                     split: Optional[bool] = None, device=None) -> torch.Tensor:
     """+1 on the 3-simplex T(n) (engine ACCUM body at m=3)."""
     return engine.accum(x, rho=rho, kind=kind, split=split, device=device)
 
 
-def simplex_ca3d(state, rho: int = 4, kind: str = "hmap", device=None) -> torch.Tensor:
+def simplex_ca3d(state, rho: int = 4, kind: str = "auto", device=None) -> torch.Tensor:
     """One free-boundary Game-of-Life step on T(n) (CA body at m=3)."""
     return engine.ca(state, rho=rho, kind=kind, device=device)
 
 
-def simplex_accum_md(x, rho: int = 2, kind: str = "hmap",
+def simplex_accum_md(x, rho: int = 2, kind: str = "auto",
                      split: Optional[bool] = None, device=None) -> torch.Tensor:
     """General-m accumulate; m = x.ndim >= 3 (DESIGN.md §4)."""
     return engine.accum_md(x, rho=rho, kind=kind, split=split, device=device)
 
 
-def simplex_edm3d(p, rho: int = 4, kind: str = "hmap",
+def simplex_edm3d(p, rho: int = 4, kind: str = "auto",
                   split: Optional[bool] = None, device=None) -> torch.Tensor:
     """Per-cell triangle perimeter on T(n) (engine EDM body at m=3)."""
     return engine.edm3d(p, rho=rho, kind=kind, split=split, device=device)
 
 
-def simplex_edm_md(p, m: int, rho: Optional[int] = None, kind: str = "hmap",
+def simplex_edm_md(p, m: int, rho: Optional[int] = None, kind: str = "auto",
                    split: Optional[bool] = None, device=None) -> torch.Tensor:
     """General-m EDM: out[c] = sum of pairwise distances of the cell's
     m points (m >= 3 — use simplex_edm2d at m=2)."""
     return engine.edm_md(p, m, rho=rho, kind=kind, split=split, device=device)
 
 
-def simplex_ca_md(state, rho: Optional[int] = None, kind: str = "hmap",
+def simplex_ca_md(state, rho: Optional[int] = None, kind: str = "auto",
                   device=None) -> torch.Tensor:
     """General-m CA: one (3^m - 1)-neighbour Game-of-Life step on T(n),
     free boundaries (m = state.ndim >= 3)."""
     return engine.ca_md(state, rho=rho, kind=kind, device=device)
+
+
+# The fused executors (kernels/compiled.py): the whole schedule walk as
+# torch gather/scatter on the input's device.
+simplex_accum2d_compiled = accum2d_compiled
+simplex_accum3d_compiled = accum3d_compiled
+simplex_accum_md_compiled = accum_md_compiled
 
 
 def map_table(nb: int, kind: str = "hmap", m: int = 2, device=None) -> torch.Tensor:

@@ -27,8 +27,8 @@
     the JAX package the engine also serves the linear-grid kinds
     (``table`` / ``composite``) at m=2.  ``device`` takes the place of the
     reference's ``interpret``: None is the card, ``'cpu'`` the plain
-    versions; the default ``kind`` is ``'hmap'`` until the autotuner
-    behind ``'auto'`` is ported.
+    versions; the default ``kind`` is the reference's ``'auto'`` (``map2d``
+    keeps ``'hmap'``).
 
 New workloads should register a body with the engine instead of adding
 functions here (see ``engine.register_body`` / DESIGN.md §2.3).
@@ -73,28 +73,28 @@ def map2d(nb: int, kind: str = "hmap", chunk: int = 128, device=None) -> torch.T
     return engine.map_table(nb, m=2, kind=kind, chunk=chunk, device=device)
 
 
-def accum2d(x, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
+def accum2d(x, rho: int = 8, kind: str = "auto", device=None) -> torch.Tensor:
     """Deprecated: ``engine.accum(x, ...)`` — +1 on the inclusive lower
     triangle of x (n x n, rho | n); x itself is not changed."""
     _warn("accum2d", "accum")
     return engine.accum(x, rho=rho, kind=kind, device=device)
 
 
-def edm2d(p, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
+def edm2d(p, rho: int = 8, kind: str = "auto", device=None) -> torch.Tensor:
     """Deprecated: ``engine.edm2d(p, ...)`` — ||p_i - p_j|| on the
     inclusive lower triangle, 0 elsewhere."""
     _warn("edm2d", "edm2d")
     return engine.edm2d(p, rho=rho, kind=kind, device=device)
 
 
-def ca2d(state, rho: int = 8, kind: str = "hmap", device=None) -> torch.Tensor:
+def ca2d(state, rho: int = 8, kind: str = "auto", device=None) -> torch.Tensor:
     """Deprecated: ``engine.ca(state, ...)`` — one GoL step on the
     inclusive lower triangle (periodic underlying square)."""
     _warn("ca2d", "ca")
     return engine.ca(state, rho=rho, kind=kind, device=device)
 
 
-def accum3d(x, rho: int = 4, kind: str = "hmap", split: Optional[bool] = None,
+def accum3d(x, rho: int = 4, kind: str = "auto", split: Optional[bool] = None,
             device=None) -> torch.Tensor:
     """Deprecated: ``engine.accum(x, ...)`` — +1 on T(n) = {x+y+z < n};
     axes (z, y, x); rho | n."""
@@ -102,14 +102,14 @@ def accum3d(x, rho: int = 4, kind: str = "hmap", split: Optional[bool] = None,
     return engine.accum(x, rho=rho, kind=kind, split=split, device=device)
 
 
-def ca3d(state, rho: int = 4, kind: str = "hmap", device=None) -> torch.Tensor:
+def ca3d(state, rho: int = 4, kind: str = "auto", device=None) -> torch.Tensor:
     """Deprecated: ``engine.ca(state, ...)`` — one 26-neighbour GoL step
     on T(n), free boundaries."""
     _warn("ca3d", "ca")
     return engine.ca(state, rho=rho, kind=kind, device=device)
 
 
-def accum_md(x, rho: int = 2, kind: str = "hmap", split: Optional[bool] = None,
+def accum_md(x, rho: int = 2, kind: str = "auto", split: Optional[bool] = None,
              device=None) -> torch.Tensor:
     """Deprecated: ``engine.accum_md(x, ...)`` — +1 on T(n) =
     {sum(coords) < n} for an m-cube input (m = x.ndim >= 3)."""

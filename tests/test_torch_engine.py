@@ -151,10 +151,11 @@ def test_argument_checks():
         TE.SimplexKernel("nope", 2)
     with pytest.raises(ValueError, match="unknown executor"):
         TE.SimplexKernel("accum", 2, executor="pallas")
-    with pytest.raises(NotImplementedError, match="xla"):
-        TE.accum(_x(2, 8), rho=4, device="cpu", executor="xla")
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        TE.accum(_x(2, 8), rho=4, kind="auto", device="cpu")
+    # executor='xla' serves MAP and ACCUM; EDM and CA raise, as in the reference.
+    with pytest.raises(NotImplementedError, match="fused executor"):
+        TE.SimplexKernel("edm", 2, rho=4, executor="xla", device="cpu")(np.zeros((8, 3)))
+    with pytest.raises(NotImplementedError, match="fused executor"):
+        TE.SimplexKernel("ca", 2, rho=4, executor="xla", device="cpu")(_x(2, 8))
 
 
 def test_kernel_wrappers_check_operands():

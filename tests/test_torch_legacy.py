@@ -98,29 +98,36 @@ def test_large_tiles_loop():
     # rho = 64: 4096 elements per tile and a 66^2 halo, more than one block's threads.
     n, rho = 128, 64
     x = _x(n, np.int64)
-    assert torch.equal(TL.accum2d(x, rho=rho, device="cpu"),
-                       TE.accum(x, rho=rho, device="cpu"))
+    assert torch.equal(TL.accum2d(x, rho=rho, kind="hmap", device="cpu"),
+                       TE.accum(x, rho=rho, kind="hmap", device="cpu"))
     s = _state(n)
     assert torch.equal(TL.ca2d(s, rho=rho, kind="bb", device="cpu"),
                        TE.ca(s, rho=rho, kind="bb", device="cpu"))
 
 
-def test_kind_errors():
+def test_kind_errors(monkeypatch, tmp_path):
     for kind in ("table", "composite"):
         with pytest.raises(ValueError, match=r"launch a \(w, h\) grid"):
             TL.map2d(4, kind, device="cpu")
         with pytest.raises(ValueError, match=r"launch a \(w, h\) grid"):
             TL.accum2d(_x(16, np.int32), rho=RHO, kind=kind, device="cpu")
+    # 'auto' asks the autotuner for the operand's device and runs the
+    # (w, h) kind it picks; with no device, a host without a card refuses.
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("REPRO_TORCH_BENCH_ARTIFACT", str(tmp_path / "BENCH_torch.json"))
+    pick = TS.resolve_kind(2, 16 // RHO, "auto", device="cpu")
+    assert pick in KINDS
     calls = {
-        "map2d": lambda: TL.map2d(4, "auto", device="cpu"),
-        "accum2d": lambda: TL.accum2d(_x(16, np.int32), kind="auto", device="cpu"),
-        "edm2d": lambda: TL.edm2d(_points(16), kind="auto", device="cpu"),
-        "ca2d": lambda: TL.ca2d(_state(16), kind="auto", device="cpu"),
-        "grid_steps_2d": lambda: TL.grid_steps_2d(4, "auto"),
+        "map2d": lambda kind: TL.map2d(16 // RHO, kind, device="cpu"),
+        "accum2d": lambda kind: TL.accum2d(_x(16, np.int32), rho=RHO, kind=kind, device="cpu"),
+        "edm2d": lambda kind: TL.edm2d(_points(16), rho=RHO, kind=kind, device="cpu"),
+        "ca2d": lambda kind: TL.ca2d(_state(16), rho=RHO, kind=kind, device="cpu"),
     }
     for name, call in calls.items():
-        with pytest.raises(NotImplementedError, match="autotuner"):
-            call()
+        assert torch.equal(call("auto"), call(pick)), name
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TL.grid_steps_2d(4, "auto")
     # accum_md serves m >= 3 (the reference asserts); the 2-simplex is accum2d's.
     with pytest.raises(ValueError, match=r"use accum2d for the 2-simplex"):
         TL.accum_md(_x(16, np.int32), rho=RHO, device="cpu")

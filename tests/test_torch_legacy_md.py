@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro.kernels import legacy as JL
+from repro_torch.core.schedule import resolve_kind
 from repro_torch.kernels import _build
 from repro_torch.kernels import engine as TE
 from repro_torch.kernels import legacy as TL
@@ -106,8 +107,8 @@ def test_large_tiles_loop():
     # rho = 16 at m=3: 4096 elements per tile and an 18^3 halo.
     n, rho = 32, 16
     x = _x(n, 3, np.int64)
-    assert torch.equal(TL.accum3d(x, rho=rho, device="cpu"),
-                       TE.accum(x, rho=rho, device="cpu"))
+    assert torch.equal(TL.accum3d(x, rho=rho, kind="hmap", device="cpu"),
+                       TE.accum(x, rho=rho, kind="hmap", device="cpu"))
     s = (_rng(n, 7).random((n, n, n)) < 0.35).astype(np.int32)
     assert torch.equal(TL.ca3d(s, rho=rho, kind="table", device="cpu"),
                        TE.ca(s, rho=rho, kind="table", device="cpu"))
@@ -123,15 +124,18 @@ def test_launch_plan():
     assert len(TL._launch_plan(3, 8, "bb", split=True)) == 1
 
 
-def test_errors():
+def test_errors(monkeypatch, tmp_path):
     x3 = _x(8, 3, np.int32)
     with pytest.raises(ValueError, match=r"use accum2d for the 2-simplex"):
         TL.accum_md(_x(8, 2, np.int32), device="cpu")
-    for call in (lambda: TL.accum3d(x3, kind="auto", device="cpu"),
-                 lambda: TL.accum_md(x3, kind="auto", device="cpu"),
-                 lambda: TL.ca3d(_state(8), kind="auto", device="cpu")):
-        with pytest.raises(NotImplementedError, match="autotuner"):
-            call()
+    # 'auto' asks the autotuner for the operand's device and runs its pick.
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("REPRO_TORCH_BENCH_ARTIFACT", str(tmp_path / "BENCH_torch.json"))
+    pick = resolve_kind(3, 8 // RHO, "auto", device="cpu")
+    for call in (lambda kind: TL.accum3d(x3, rho=RHO, kind=kind, device="cpu"),
+                 lambda kind: TL.accum_md(x3, rho=RHO, kind=kind, device="cpu"),
+                 lambda kind: TL.ca3d(_state(8), rho=RHO, kind=kind, device="cpu")):
+        assert torch.equal(call("auto"), call(pick))
     with pytest.raises(ValueError, match="m-cube"):
         TL.accum3d(_x(8, 2, np.int32), device="cpu")
     with pytest.raises(ValueError, match="m-cube"):

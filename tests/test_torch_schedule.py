@@ -163,9 +163,15 @@ def test_resolve_kind_matches(m, n, kind):
     assert TS.resolve_kind(m, n, kind) == RS.resolve_kind(m, n, kind)
 
 
-def test_auto_kind_raises():
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        TS.resolve_kind(2, 16, "auto")
+def test_auto_kind_raises(monkeypatch, tmp_path):
+    # 'auto' asks the autotuner for the kernel's device: None is the card,
+    # which a host without one refuses; the CPU gets a concrete kind.
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("REPRO_TORCH_BENCH_ARTIFACT", str(tmp_path / "BENCH_torch.json"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TS.resolve_kind(2, 16, "auto")
+    assert TS.resolve_kind(2, 16, "auto", device="cpu") in ("hmap", "rb", "bb")
 
 
 def test_unknown_kind_raises():
