@@ -8,7 +8,10 @@ second is serving: ``repro_torch.launch.serve`` prefills a batch of
 prompts through full-width yi-6b, whose attention runs the
 folded-simplex flash kernel, and decodes greedily; the same model at its
 config's own bfloat16 activations prefills through the 16-bit flash
-route.  The frozen originals of ``kernels/legacy.py`` check the engine
+route, and the dense family's other configs (granite-8b, stablelm-12b,
+internlm2-20b) serve the same way.  The third is training:
+``repro_torch.launch.train`` takes float32 steps at full width with the
+flash forward under autograd.  The frozen originals of ``kernels/legacy.py`` check the engine
 independently, and the paper's §7.1 tensor-core map turns grid
 coordinates into element origins.  This script
 
@@ -103,13 +106,40 @@ coordinates into element origins.  This script
    prompt, which the tuner maps to 32-row tiles: it must launch
    ``flash16`` (the GQA group's heads stacked on ``wgmma``) once per
    layer and no other flash kernel, its logits held by the same gate;
-13. holds the flash kernels against their plain version on the card at
+13. dense: with every counter at 0 before each, serves granite-8b (36
+   layers, GQA group 4), stablelm-12b (40 layers, head dim 160, which no
+   flash tile takes: its prefill runs the chunked executor, 0 flash
+   launches) and internlm2-20b at full width cut to 24 of its 48 layers
+   (a GQA group of 6; 74 GiB of float32 weights would leave the card no
+   room for its cache and activations) through ``launch/serve.py`` as
+   yi-6b is served (float32, batch 4, prompt 2048, 16 greedy tokens),
+   freeing each model before the next; checks that prefill launched
+   ``flash_wgmma`` once per layer (stablelm-12b: none) and holds the
+   last-token logits against the same model's chunked prefill
+   (stablelm-12b: the chunked bounding-box schedule) within ``rtol 2e-3,
+   atol 2e-4`` with every argmax equal; then, at internlm2-20b's head
+   layout (B 4, Hq 48, Hkv 8, D 128), holds ``flash_wgmma`` (float32,
+   S 2048), ``flash16_wgmma`` (bf16, S 2048) and ``flash16`` (bf16, S 2080,
+   32-row tiles, its last stacked head group partly live) against their
+   plain versions with step 9's gates and times them;
+14. train: ``launch/train.py`` in float32 at full width, yi-6b cut to 4
+   layers (AdamW, batch 4 x seq 2048) and internlm2-20b cut to 2 layers
+   (Adafactor, batch 2 x seq 2048), 5 steps on one repeated batch: the
+   first step's loss and global gradient norm with the kernel within
+   ``1e-4`` relative of the plain flash version's on the card; with every
+   counter at 0, ``flash_wgmma`` launched layers x steps times (the
+   backward, autograd through ``_reference_attention``, launches none);
+   the loss falls; at one layer's attention shape (and at a quarter of
+   the sequence with a per-head bias) ``FlashFunction``'s gradients
+   within ``1e-6 * max|g|`` of autograd through ``_reference_attention``
+   (bit for bit expected);
+15. holds the flash kernels against their plain version on the card at
    the serve shape (float32 folded and bb, bfloat16 and float16
    folded), at a 2080-token prompt with 32-row tiles (float32 folded and
    bb, bfloat16 folded), an odd tile count, ``Hkv == Hq``, a broadcast
    bias and segment ids, and against ``_reference_attention`` on a small
    case;
-14. times each engine kernel (median of CUDA-event-timed runs after
+16. times each engine kernel (median of CUDA-event-timed runs after
    warm-up), its plain version and, where one PyTorch call computes the
    same function, that call (``library_ms``, a yardstick the port never
    calls), and prints one line per (test, m, kind) with grid steps, the
@@ -118,7 +148,7 @@ coordinates into element origins.  This script
    flash) at the 3xTF32 tensor-core rate of 495/3 TFLOP/s, beside which
    their lines keep the float32 CUDA-core bound (``bound_f32_ms``,
    67 TFLOP/s);
-15. times each flash kernel, its plain version and
+17. times each flash kernel, its plain version and
     ``scaled_dot_product_attention`` in the same dtype: ``flash_wgmma``
     (folded and bb) at the serve shape, ``flash16_wgmma`` in bfloat16
     (folded and bb) and float16 at the serve shape (bound at the 16-bit
@@ -128,8 +158,8 @@ coordinates into element origins.  This script
     and two warpgroups a block where the group fills two; each timed
     output is held against the plain version's on the same inputs
     (``equal=`` on its line);
-16. checks a small input against the dense oracles of ``kernels/ref.py``;
-17. tuner: measures the constants of ``roofline/analysis.py`` as its
+18. checks a small input against the dense oracles of ``kernels/ref.py``;
+19. tuner: measures the constants of ``roofline/analysis.py`` as its
     comments say (``tuner constant`` lines, each beside the model's value
     and the card's name and power limit); then for ACCUM, EDM and CA at
     m=2 n=16384 and 16000 (rho 16), m=3 n=1024 and 960 (rho 8), m=4 n=64
@@ -142,16 +172,16 @@ coordinates into element origins.  This script
     exceeds 1.10 for ACCUM or 1.25 for EDM and CA, or when the entry
     point's defaults (``kind='auto'``, ``split=None``) do not launch the
     pick;
-18. attn_tuner: at the serve shape in float32 and bfloat16 and at S 2080
+20. attn_tuner: at the serve shape in float32 and bfloat16 and at S 2080
     in bfloat16, prints ``choose_attn_impl``'s decision, times
     ``simplex_attention`` with ``impl`` flash-folded, flash-bb and
     chunked, and fails when the pick is more than 1.10x the fastest or
     the default dispatch does not launch it;
-19. xla: ``executor='xla'`` (the fused executors as torch ops) against
+21. xla: ``executor='xla'`` (the fused executors as torch ops) against
     ``executor='kernel'``, bit for bit, for ACCUM int32 at m=2 n=16384
     rho 16, m=3 n=1024 rho 8 and m=4 n=64 rho 4, and for MAP at nb=16384
     (m=2) and 512 (m=3), both timed (``xla check`` lines);
-20. prints the ``kernels`` JSON line, then the result line.
+22. prints the ``kernels`` JSON line, then the result line.
 
 The tuner's decisions go to a private cache in a temporary directory.
 
@@ -1787,6 +1817,282 @@ class FlashSmoke:
                  + f"equal={row['equal']}")
 
 
+# The dense family at full width (serve) and the training path.  Each
+# model is served as yi-6b is (float32, batch 4, prompt 2048, 16 greedy
+# tokens, random weights from --seed) and freed before the next.
+# internlm2-20b's 48 layers hold 74 GiB of float32 weights, which leave
+# an 80 GB card no room for the cache and activations, so its depth is
+# cut to 24 layers (about 39 GiB) at full width.  stablelm-12b's head dim
+# (160) is no flash tile's: its prefill takes the chunked executor, as the
+# reference's does on a compiled TPU, so it is held against the chunked
+# executor's bounding-box schedule instead.
+DENSE_SERVES = (("granite-8b", 0, "flash_wgmma"), ("stablelm-12b", 0, None),
+                ("internlm2-20b", 24, "flash_wgmma"))
+DENSE_ARGV = ["--batch", "4", "--prompt-len", "2048", "--gen", "16", "--temperature", "0"]
+# internlm2-20b's head layout (B, Hq, Hkv, D): a GQA group of 6, which the
+# card had not run; each kernel at it against its plain version.
+GROUP6 = (4, 48, 8, 128)
+# Training at full width, float32 as the reference forces, 5 steps on one
+# repeated batch: (arch, layers, batch, seq); the optimizer is the config's.
+TRAIN_RUNS = (("yi-6b", 4, 4, 2048), ("internlm2-20b", 2, 2, 2048))
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
+# The first step's loss and gradient norm with the kernel against the
+# plain flash version on the card.
+TRAIN_REL = 1e-4
+
+
+class DenseSmoke:
+    """The dense family's serves, the group-6 kernel holds and the
+    training path.  Shares the ``FlashSmoke``'s comparisons and the
+    simplex ``Smoke``'s generators, timer and failure list."""
+
+    def __init__(self, flash: "FlashSmoke", train, optimizer, counts, zero_counts, card):
+        self.f, self.s, self.fa, self.card = flash, flash.s, flash.fa, card
+        self.torch = flash.torch
+        self.train, self.optimizer = train, optimizer
+        self.counts, self.zero_counts = counts, zero_counts
+        self.stats: dict = {}
+        self.rows: list = []
+
+    def _free(self) -> None:
+        import gc
+
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def live(self, what: str) -> None:
+        """Log the device memory still allocated after a collection: the
+        earlier phases must have freed their models before a peak is read."""
+        self._free()
+        _log(f"memory before {what}: allocated_gib="
+             f"{self.torch.cuda.memory_allocated() / 2**30:.3f}")
+
+    # -- serving ----------------------------------------------------------
+
+    def serve(self, arch: str, layers: int, route) -> None:
+        """``serve.run`` on ``arch`` at full width (``layers`` > 0 cuts the
+        depth), the flash launches of its prefill checked, its last-token
+        logits held against its own chunked prefill (stablelm-12b: against
+        the chunked bounding-box schedule)."""
+        torch, fa = self.torch, self.fa
+        argv = ["--arch", arch, "--seed", str(self.s.seed)] + DENSE_ARGV
+        if layers:
+            argv += ["--n-layers", str(layers)]
+        self.live(f"dense {arch}")
+        self.zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = self.f.serve.run(self.f.serve.parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in self.counts().items() if k in fa.ROUTES}
+        cfg = r.model.cfg
+        full = self.f.configs.config(arch)
+        b, gen = r.tokens.shape
+        st = dict(prefill_s=r.prefill_s, decode_tok_s=(gen - 1) * b / r.decode_s,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30, serve_s=wall,
+                  params=sum(p.numel() for p in r.model.parameters()))
+        cut = (f"depth cut {full.n_layers} -> {cfg.n_layers} layers (float32 weights "
+               f"{full.param_count() * 4 / 2**30:.1f} -> {st['params'] * 4 / 2**30:.1f} GiB)"
+               if layers else "not cut")
+        _log(f"dense {arch}: {cfg.n_layers} layers d_model {cfg.d_model} heads "
+             f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.hd} d_ff {cfg.d_ff} vocab "
+             f"{cfg.vocab}, {st['params']} float32 parameters; {cut}; batch {b}, prompt "
+             f"{r.prompts.shape[1]}, {gen - 1} greedy tokens")
+        _log(f"dense {arch} prefill_s={r.prefill_s:.4f} decode_s={r.decode_s:.4f} "
+             f"decode_tok_s={st['decode_tok_s']:.2f} peak_gib={st['peak_gib']:.3f} "
+             f"launches={launches} card={self.card}")
+        want = dict.fromkeys(fa.ROUTES, 0)
+        if route:
+            want[route] = cfg.n_layers
+        else:
+            _log(f"dense {arch}: head_dim {cfg.hd} is no flash tile's (KERNEL_HEAD_DIMS "
+                 f"{fa.KERNEL_HEAD_DIMS}), so attn_block_q is 0 and prefill takes the "
+                 "chunked executor: 0 flash launches wanted (ROADMAP B.10)")
+        if launches != want:
+            self.s.fail(f"dense {arch}: prefill launched {launches}, not {want}")
+        lg = r.prefill_logits
+        if (tuple(lg.shape) != (b, 1, cfg.vocab) or not torch.isfinite(lg).all()
+                or tuple(r.tokens.shape) != (b, 17) or int(r.tokens.min()) < 0
+                or int(r.tokens.max()) >= cfg.vocab):
+            self.s.fail(f"dense {arch}: logits {tuple(lg.shape)} or tokens "
+                        f"{tuple(r.tokens.shape)} misshapen, out of range or not finite")
+        # the hold: the same prompts through the chunked executor
+        model = r.model
+        knob = (dict(attention_schedule="bb") if route is None
+                else dict(attention_impl="chunked"))
+        self.zero_counts()
+        model.cfg = cfg.replace(**knob)
+        try:
+            t0 = time.perf_counter()
+            other, _ = model.prefill({"tokens": r.prompts})
+            torch.cuda.synchronize()
+            st["hold_prefill_s"] = time.perf_counter() - t0
+        finally:
+            model.cfg = cfg
+        if any(self.counts()[k] for k in fa.ROUTES):
+            self.s.fail(f"dense {arch}: the chunked prefill launched a flash kernel")
+        err = (lg - other).abs().max().item()
+        ok = (torch.allclose(lg, other, **LOGIT_TOL)
+              and bool((lg.argmax(-1) == other.argmax(-1)).all()))
+        st["logit_err"] = err
+        _log(f"dense {arch} hold {'flash' if route else 'chunked folded'} vs chunked "
+             f"{knob} prefill: max_abs_err={err:.3e} max|logit|={other.abs().max().item():.3f} "
+             f"hold_prefill_s={st['hold_prefill_s']:.4f} gate rtol 2e-3 atol 2e-4 and "
+             f"every argmax equal: ok={ok} card={self.card}")
+        if not ok:
+            self.s.fail(f"dense {arch}: logits differ from the chunked prefill's by {err}")
+        self.stats[f"dense {arch}"] = st
+        del r, model, lg, other
+        self._free()
+
+    def group6(self) -> None:
+        """At internlm2-20b's head layout (a GQA group of 6): ``flash_wgmma``
+        (float32, S 2048), ``flash16_wgmma`` (bf16, S 2048) and ``flash16``
+        (bf16, S 2080, 32-row tiles, the last stacked head group of each
+        KV head partly live) against their plain versions, each timed."""
+        torch, FL = self.torch, self.fa.FLASH
+        b, hq, hkv, d = GROUP6
+        for route, dtype, seq, bq in (("flash_wgmma", torch.float32, 2048, 128),
+                                      ("flash16_wgmma", torch.bfloat16, 2048, 128),
+                                      ("flash16", torch.bfloat16, SMALL_TILE_S, 32)):
+            q, k, v = (t.to(dtype) for t in self.f.qkv(b, hq, hkv, seq, d, salt=90))
+            scale = d**-0.5
+            if self.fa.flash_route(bq, dtype) != route:
+                self.s.fail(f"group6: block_q {bq} {dtype} routes to "
+                            f"{self.fa.flash_route(bq, dtype)}, not {route}")
+            got = FL.kernel("folded", bq, scale, q, k, v)
+            torch.cuda.synchronize()
+            want = FL.plain("folded", bq, scale, q, k, v)
+            shape = (b, hq, hkv, seq, d)
+            wgs = self.fa.flash16_warpgroups(bq, hq // hkv) if route == "flash16" else None
+            equal = self.f.compare(f"group6 folded shape={shape} block_q={bq}"
+                                   + (f" warpgroups={wgs}" if wgs else ""),
+                                   route, got, want, v)
+            del got, want
+            ms = self.s.time_ms(lambda: FL.kernel("folded", bq, scale, q, k, v))
+            rate = TF32X3_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            bound_ms, bound_by = self.f.bound(b, hq, hkv, seq, d, rate, dtype.itemsize)
+            self.rows.append(dict(route=route, dtype=str(dtype)[6:], s=seq, ms=ms,
+                                  bound_ms=bound_ms, equal=equal))
+            _log(f"group6 case test={route} dtype={str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} "
+                 f"S={seq} D={d} block_q={bq} " + (f"warpgroups={wgs} " if wgs else "")
+                 + f"ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+                 f"bound_share={bound_ms / ms:.3f} equal={equal} card={self.card}")
+            del q, k, v
+            self._free()
+
+    # -- training ---------------------------------------------------------
+
+    def train_run(self, arch: str, layers: int, batch: int, seq: int) -> None:
+        """``launch/train.py`` at full width cut to ``layers``: the first
+        step's loss and gradient norm with the kernel against the plain
+        flash version, then ``TRAIN_STEPS`` steps on one repeated batch,
+        whose flash launches must be layers x steps (the backward launches
+        none) and whose loss must fall; then the attention gradients at one
+        layer's shape."""
+        torch, fa = self.torch, self.fa
+        args = self.train.parse_args([
+            "--arch", arch, "--n-layers", str(layers), "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--seed", str(self.s.seed),
+            "--log-every", "1"])
+        self.live(f"train {arch}")
+        torch.cuda.reset_peak_memory_stats()
+        t = self.train.build(args)
+        cfg = t.model.cfg
+        fixed = t.data.batch_at(0)
+        n_params = sum(p.numel() for p in t.model.parameters())
+        _log(f"train {arch}: {cfg.n_layers} of {self.f.configs.config(arch).n_layers} layers "
+             f"at full width (d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+             f"d_ff {cfg.d_ff}, vocab {cfg.vocab}), {n_params} float32 parameters, "
+             f"{cfg.optimizer}, lr {TRAIN_LR}, batch {batch} x seq {seq}, {TRAIN_STEPS} steps "
+             "on one repeated batch")
+        # the first step with the plain flash version in the kernel's place
+        real = fa.FLASH.kernel
+        fa.FLASH.kernel = lambda *a, warpgroups=None: fa.FLASH.plain(*a)
+        try:
+            loss_p, grads = self.train.loss_and_grads(t.model, fixed)
+            gn_p = float(self.optimizer.global_norm(grads))
+            loss_p = float(loss_p)
+        finally:
+            fa.FLASH.kernel = real
+        del grads
+        self._free()
+        self.zero_counts()
+        self.train.run(args, t, batch_at=lambda step: fixed)
+        launches = {k: v for k, v in self.counts().items() if k in fa.ROUTES}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_s = statistics.median(t.step_s[1:])
+        st = dict(losses=t.losses, grad_norms=t.grad_norms, step_s=step_s,
+                  first_step_s=t.step_s[0], tok_s=batch * seq / step_s, peak_gib=peak,
+                  launches=launches)
+        _log(f"train {arch} losses={[round(x, 5) for x in t.losses]} grad_norms="
+             f"{[round(x, 5) for x in t.grad_norms]} step_s={step_s:.4f} (first "
+             f"{t.step_s[0]:.4f}) tok_s={st['tok_s']:.1f} peak_gib={peak:.3f} "
+             f"launches={launches} card={self.card}")
+        want = dict.fromkeys(fa.ROUTES, 0)
+        want["flash_wgmma"] = cfg.n_layers * TRAIN_STEPS
+        if launches != want:
+            self.s.fail(f"train {arch}: flash launches {launches}, not {want} (layers x "
+                        "forward passes; the backward launches none)")
+        rel_loss = abs(t.losses[0] - loss_p) / abs(loss_p)
+        rel_gn = abs(t.grad_norms[0] - gn_p) / abs(gn_p)
+        ok = rel_loss <= TRAIN_REL and rel_gn <= TRAIN_REL
+        _log(f"train {arch} first step kernel vs plain flash: loss {t.losses[0]:.6f} vs "
+             f"{loss_p:.6f} (rel {rel_loss:.3e}), grad norm {t.grad_norms[0]:.6f} vs {gn_p:.6f} "
+             f"(rel {rel_gn:.3e}) gate {TRAIN_REL}: ok={ok} card={self.card}")
+        if not ok:
+            self.s.fail(f"train {arch}: kernel and plain flash first steps differ "
+                        f"(loss rel {rel_loss}, grad norm rel {rel_gn})")
+        if not all(math.isfinite(x) for x in t.losses) or not t.losses[-1] < t.losses[0]:
+            self.s.fail(f"train {arch}: the loss did not fall over the repeated batch "
+                        f"{t.losses}")
+        self.stats[f"train {arch}"] = st
+        del t, fixed
+        self._free()
+        self.attention_grads(arch, batch, seq, cfg)
+
+    def attention_grads(self, arch, b, s, cfg) -> None:
+        """At one layer's attention shape: q, k, v (and, at a quarter of
+        the sequence, a per-head bias) through ``FlashFunction`` and through
+        autograd of ``_reference_attention``; the gradients must agree
+        within ``1e-6 * max|g|``, and bit for bit is expected (the backward
+        runs those very ops on the same inputs)."""
+        torch, fa = self.torch, self.fa
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        for seq, bias_on in ((s, False), (s // 4, True)):
+            q, k, v = (t.requires_grad_(True) for t in self.f.qkv(b, hq, hkv, seq, d,
+                                                                   salt=95))
+            g = self.s.gen(96)
+            bias = (torch.randn((1, hq, seq, seq), generator=g, device=self.s.dev)
+                    .requires_grad_(True) if bias_on else None)
+            cot = torch.randn((b, hq, seq, d), generator=g, device=self.s.dev)
+            wrt = [q, k, v] + ([bias] if bias_on else [])
+            self.zero_counts()
+            out = fa.flash_attention(q, k, v, bias=bias, device=q.device)
+            fwd = dict(self.counts())
+            got = torch.autograd.grad(out, wrt, cot)
+            torch.cuda.synchronize()
+            bwd = {r: self.counts()[r] - fwd[r] for r in fa.ROUTES}
+            ref = fa._reference_attention(q, k, v, bias, None, d**-0.5)
+            want = torch.autograd.grad(ref, wrt, cot)
+            names = ("dq", "dk", "dv", "dbias")
+            errs = {n: (x - y).abs().max().item() for n, x, y in zip(names, got, want)}
+            exact = all(torch.equal(x, y) for x, y in zip(got, want))
+            ok = all(errs[n] <= 1e-6 * y.abs().max().item() for n, y in zip(names, want))
+            ok = ok and not any(bwd.values()) and out.grad_fn.name() == "FlashFunctionBackward"
+            _log(f"train {arch} attention grads shape={(b, hq, hkv, seq, d)} bias={bias_on}: "
+                 f"FlashFunction vs autograd of _reference_attention max_abs_err={errs} "
+                 f"bit_equal={exact} backward flash launches={sum(bwd.values())} ok={ok} "
+                 f"card={self.card}")
+            if not ok:
+                self.s.fail(f"train {arch}: attention gradients {errs}, backward launches "
+                            f"{bwd}")
+            del q, k, v, bias, cot, out, got, ref, want
+            self._free()
+
+
 # The tuner phase: (m, n, rho) per case, PERF.md's sizes; CA at m <= 3.
 TUNER_CASES = ((2, 16384, 16), (2, 16000, 16), (3, 1024, 8), (3, 960, 8), (4, 64, 4),
                (4, 60, 4))
@@ -2078,8 +2384,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, engine, legacy, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hmap_mxu
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.model import Model
+    from repro_torch.optim import optimizer
 
     t_all = time.perf_counter()
     card = _card_line()
@@ -2124,6 +2431,7 @@ def main(argv=None) -> int:
     mxu = MxuSmoke(smoke, hmap_mxu, hmap)
     dtypes = DtypeSmoke(smoke, legacy, fa)
     flash = FlashSmoke(smoke, fa, serve, configs, Model)
+    dense = DenseSmoke(flash, train, optimizer, counts, zero_counts, card)
     zero_counts()
     t0 = time.perf_counter()
     smoke.main_path()
@@ -2239,7 +2547,7 @@ def main(argv=None) -> int:
 
     zero_counts()
     t0 = time.perf_counter()
-    _, prompts16, logits16 = flash.prefill16(model16, SMALL_TILE_S)
+    prompts16, logits16 = flash.prefill16(model16, SMALL_TILE_S)[1:]
     small_launches = counts()
     _log(f"phase 16-bit prefill path at {SMALL_TILE_S} tokens: "
          f"{time.perf_counter() - t0:.1f} s, launches {small_launches}")
@@ -2253,6 +2561,23 @@ def main(argv=None) -> int:
     _log(f"phase hold16 at {SMALL_TILE_S} tokens: {time.perf_counter() - t0:.1f} s")
     del model16, prompts16, logits16
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    for arch, layers, route in DENSE_SERVES:
+        t1 = time.perf_counter()
+        dense.serve(arch, layers, route)
+        _log(f"phase dense serve {arch}: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    dense.group6()
+    _log(f"phase dense group6: {time.perf_counter() - t1:.1f} s; dense in all "
+         f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for arch, layers, b, seq in TRAIN_RUNS:
+        t1 = time.perf_counter()
+        dense.train_run(arch, layers, b, seq)
+        _log(f"phase train {arch}: {time.perf_counter() - t1:.1f} s")
+    _log(f"phase train: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     flash.kernel_cases()
@@ -2357,6 +2682,15 @@ def main(argv=None) -> int:
          f"peak16_gib={st['peak16_gib']:.3f} logit16_rel={st['logit16_rel']:.3e} "
          f"prefill16_{SMALL_TILE_S}_s={st[f'prefill16_{SMALL_TILE_S}_s']:.4f} "
          f"logit16_{SMALL_TILE_S}_rel={st[f'logit16_{SMALL_TILE_S}_rel']:.3e}")
+    for key, d in dense.stats.items():
+        _log(f"{key} summary: prefill_s={d['prefill_s']:.4f} "
+             f"decode_tok_s={d['decode_tok_s']:.2f} peak_gib={d['peak_gib']:.3f} "
+             f"hold_prefill_s={d['hold_prefill_s']:.4f} logit_err={d['logit_err']:.3e} "
+             f"card={card}"
+             if "prefill_s" in d else
+             f"{key} summary: step_s={d['step_s']:.4f} tok_s={d['tok_s']:.1f} "
+             f"peak_gib={d['peak_gib']:.3f} loss {d['losses'][0]:.5f} -> "
+             f"{d['losses'][-1]:.5f} card={card}")
     _log(f"phase total: {time.perf_counter() - t_all:.1f} s")
     if smoke.failures:
         print(f"{len(smoke.failures)} failures: {smoke.failures}", file=sys.stderr)

@@ -1,18 +1,22 @@
-"""The architectures the port runs: yi-6b and its reduced form.
+"""The architectures the port runs: the dense family and its reduced forms.
 
-The JAX package registers ten; the others need mixers, experts and
-encoders the port has not ported yet (ROADMAP A.8), and asking for one
-raises ``NotImplementedError``.
+The JAX package registers ten; the port runs the four dense decoders
+(yi-6b, granite-8b, internlm2-20b, stablelm-12b).  The others need
+mixers, experts and encoders the port has not ported yet (ROADMAP A.8),
+and asking for one raises ``NotImplementedError``.
 """
 
-from . import yi_6b
+from . import granite_8b, internlm2_20b, stablelm_12b, yi_6b
 from .base import ArchConfig
 
-__all__ = ["ARCH_IDS", "REDUCED", "REFERENCE_ARCH_IDS", "config"]
+__all__ = ["ARCH_IDS", "FULL", "REDUCED", "REFERENCE_ARCH_IDS", "config"]
 
-FULL = {"yi-6b": yi_6b.FULL}
+_MODULES = {"yi-6b": yi_6b, "granite-8b": granite_8b, "internlm2-20b": internlm2_20b,
+            "stablelm-12b": stablelm_12b}
 
-REDUCED = {"yi-6b": yi_6b.reduced}
+FULL = {name: mod.FULL for name, mod in _MODULES.items()}
+
+REDUCED = {name: mod.reduced for name, mod in _MODULES.items()}
 
 ARCH_IDS = list(FULL)
 
@@ -39,8 +43,8 @@ def config(name: str, smoke: bool = False) -> ArchConfig:
         ValueError: ``name`` is no architecture of the repository.
 
     Example:
-        >>> config("yi-6b").d_model, config("yi-6b", smoke=True).d_model
-        (4096, 64)
+        >>> config("yi-6b").d_model, config("internlm2-20b", smoke=True).d_model
+        (4096, 96)
     """
     if name in FULL:
         return REDUCED[name]() if smoke else FULL[name]

@@ -1,9 +1,9 @@
 """The port's own copy of the architecture configuration dataclasses.
 
 ``LayerSpec`` and ``ArchConfig`` carry the fields of the JAX package's
-``configs/base.py`` that serving a dense decoder on one card reads or
-refuses; the training, sharding, MoE, MLA, Mamba and xLSTM knobs wait
-for their slices (ROADMAP A.8, A.9).
+``configs/base.py`` that serving and training a dense decoder on one card
+read or refuse; the sharding, MoE, MLA, Mamba and xLSTM knobs wait for
+their slices (ROADMAP A.8, A.9).
 ``param_count`` counts the port's own ``Model`` on the meta device.
 """
 
@@ -50,6 +50,8 @@ class ArchConfig:
     mtp: bool = False
     act_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    optimizer: str = "adamw"  # adamw | adafactor
+    remat: str = "full"  # none | full | dots (ROADMAP A.8.4)
     attention_chunk: int = 512  # chunked-attention tile
     attention_schedule: str = "folded"  # folded (simplex) | bb (baseline)
     # prefill attention executor: "auto" resolves through

@@ -13,6 +13,7 @@ FULL = ArchConfig(
     d_ff=11008,
     vocab=64000,
     period=(LayerSpec("attn", "dense"),),
+    optimizer="adamw",
     source="arXiv:2403.04652; hf",
 )
 

@@ -46,7 +46,12 @@ Two versions of the forward compute the same function:
 Dispatch follows the tensor; nothing falls back, and no kernel gives way
 to another.  GQA reads the KV row ``bh // (Hq/Hkv)`` without a repeated
 K/V tensor.  ``_reference_attention`` is the independent dense check.
-The backward (training) is not ported yet.
+
+Training: when q, k, v or the bias needs a gradient, the forward runs
+inside ``FlashFunction``, the reference's custom VJP: the same kernel (or
+plain version) forward on detached inputs, and a backward that sends the
+cotangent through ``_reference_attention`` with torch autograd, torch ops
+and no kernel, as the reference's backward is plain XLA.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ __all__ = [
     "NEG_INF",
     "FLASH",
     "FlashKernel",
+    "FlashFunction",
     "flash_attention",
     "flash_fold_pairs",
     "flash_grid_steps",
@@ -473,8 +479,57 @@ def flash_attention(
                 f"segment_ids must be (batch, seq) = ({b}, {s}), got "
                 f"{tuple(segment_ids.shape)}"
             )
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (q, k, v, bias)):
+        return FlashFunction.apply(kind, block_q, float(scale), q, k, v, bias, segment_ids)
+    return _flash_forward(kind, block_q, float(scale), q, k, v, bias, segment_ids)
+
+
+def _flash_forward(kind, block_q, scale, q, k, v, bias, seg) -> torch.Tensor:
+    """The CUDA kernel on the card, the plain version on the CPU."""
     run = FLASH.kernel if on_card(q, "flash_attention") else FLASH.plain
-    return run(kind, block_q, float(scale), q, k, v, bias, segment_ids)
+    return run(kind, block_q, scale, q, k, v, bias, seg)
+
+
+class FlashFunction(torch.autograd.Function):
+    """The flash forward under autograd: the reference's ``_flash_core``
+    custom VJP (JAX ``kernels/flash_attention.py``).
+
+    The forward is ``_flash_forward`` on the inputs as they are (autograd
+    records nothing inside it) and saves q, k, v, the bias and the segment
+    ids.  The backward recomputes ``_reference_attention`` on them under
+    ``torch.enable_grad()`` and returns its ``torch.autograd.grad`` for q,
+    k, v and, when it needs one, the bias; integer segment ids get none.
+    No kernel runs in the backward.
+
+    Example:
+        >>> q = torch.randn(1, 2, 8, 4, requires_grad=True)
+        >>> out = flash_attention(q, q[:, :1], q[:, :1], block_q=4, block_kv=4,
+        ...                       device="cpu")
+        >>> out.grad_fn.name()
+        'FlashFunctionBackward'
+    """
+
+    @staticmethod
+    def forward(ctx, kind, block_q, scale, q, k, v, bias, seg):
+        """The kernel (or plain version) forward; saves the residuals."""
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, bias, seg)
+        return _flash_forward(kind, block_q, scale, q, k, v, bias, seg)
+
+    @staticmethod
+    def backward(ctx, grad):
+        """Cotangents through ``_reference_attention``."""
+        q, k, v, bias, seg = ctx.saved_tensors
+        want_bias = bias is not None and ctx.needs_input_grad[6]
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_(True) for t in (q, k, v))
+            bd = bias.detach().requires_grad_(True) if want_bias else bias
+            out = _reference_attention(qd, kd, vd, bd, seg, ctx.scale)
+            wrt = (qd, kd, vd) + ((bd,) if want_bias else ())
+            grads = torch.autograd.grad(out, wrt, grad)
+        dq, dk, dv = (g if need else None for g, need in zip(grads, ctx.needs_input_grad[3:6]))
+        return None, None, None, dq, dk, dv, (grads[3] if want_bias else None), None
 
 
 def _reference_attention(q, k, v, bias, segment_ids, scale) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Entry points of the port that run a model (the server)."""
+"""Entry points of the port that run a model (the server and the trainer)."""

@@ -55,6 +55,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the depth to this many layers (default: the config's)")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     return ap.parse_args(argv)
 
@@ -68,6 +70,8 @@ def run(args: argparse.Namespace) -> ServeRun:
     """Build the model, prefill the prompts and decode ``args.gen`` tokens."""
     cfg = config(args.arch, smoke=args.smoke).replace(act_dtype="float32",
                                                       param_dtype="float32")
+    if args.n_layers:
+        cfg = cfg.replace(n_layers=args.n_layers)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = Model(cfg, device=device).init(gen)

@@ -1,11 +1,16 @@
 """The dense decoder as one ``nn.Module``: init, prefill, decode, caches.
 
 It mirrors the JAX package's ``Model`` for decoder-only dense configs
-(yi-6b): token embedding, the period stack, a final RMSNorm and an
-untied unembedding.  Patches, the encoder, multi-token prediction and
-``loss`` wait for their slices (ROADMAP A.8).  The module holds the
-parameters; ``self.cfg`` is read on every call, so swapping it (for
-example ``attention_impl``) changes the executor, not the weights.
+(yi-6b, granite-8b, internlm2-20b, stablelm-12b): token embedding, the
+period stack, a final RMSNorm and an untied unembedding, and the
+next-token loss.  Patches, the encoder and multi-token prediction wait
+for their slices (ROADMAP A.8).  The module holds the parameters;
+``self.cfg`` is read on every call, so swapping it (for example
+``attention_impl``) changes the executor, not the weights.
+
+The parameters are made with ``requires_grad=False`` and ``prefill`` and
+``decode`` run under ``torch.no_grad()``, so serving records no graph; a
+trainer turns gradients on with ``model.requires_grad_(True)``.
 """
 
 from __future__ import annotations
@@ -105,6 +110,28 @@ class Model(nn.Module):
                                     caches=caches["stack"] if caches else None, mode=mode)
         return rmsnorm(self.final_norm, x, self.cfg.norm_eps), {"stack": new_caches}
 
+    # ------------------------------------------------------------------ loss
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """Next-token cross-entropy, as the reference's ``Model.loss``.
+
+        Args:
+            batch: ``{"tokens": (B, S+1)}`` integer tensor on the model's
+                device: the inputs are ``[:, :-1]``, the labels ``[:, 1:]``.
+
+        Returns:
+            ``(total, {"ce": ce, "aux": aux})``, float32 scalars; ``aux``
+            (the experts' balance loss) is 0 for a dense model, and
+            ``total = ce + aux``.
+        """
+        tokens = batch["tokens"]
+        labels = tokens[:, 1:]
+        x, positions = self._embed_inputs({"tokens": tokens[:, :-1]})
+        h, _ = self._backbone(x, positions, mode="train")
+        ce = _cross_entropy(self._logits(h[:, -labels.shape[1]:]), labels)
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux, {"ce": ce, "aux": aux}
+
     # ------------------------------------------------------- prefill / decode
 
     @torch.no_grad()
@@ -154,3 +181,10 @@ class Model(nn.Module):
                           for i, s in enumerate(self.specs)})
         caches: Dict[str, Any] = {"stack": stack}
         return caches
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean of ``logsumexp(logits) - logits[label]`` in float32."""
+    lf = logits.to(torch.float32)
+    ll = lf.gather(-1, labels[..., None].long())[..., 0]
+    return (torch.logsumexp(lf, dim=-1) - ll).mean()

@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention, attn_apply, init_kv_cache
 from .layers import RMSNorm, SwiGLU, rmsnorm, swiglu
@@ -93,17 +94,45 @@ def stack_init(cfg, specs: Sequence, n_periods: int, dtype, device) -> nn.Module
     )
 
 
+def _period_apply(period, cfg, specs, x, positions, caches, mode):
+    nc = {}
+    for i, spec in enumerate(specs):
+        c_i = caches.get(f"l{i}") if caches else None
+        x, nc[f"l{i}"] = block_apply(period[f"l{i}"], cfg, spec, x, positions,
+                                     cache=c_i, mode=mode)
+    return x, nc
+
+
 def stack_apply(params: nn.ModuleList, cfg, specs: Sequence, x: torch.Tensor,
                 positions: torch.Tensor, *, caches: Optional[List] = None,
                 mode: str = "train"):
     """Run the periods in order.  Returns ``(x, new_caches)``, one dict of
-    block caches per period."""
+    block caches per period.
+
+    ``cfg.remat`` acts where autograd records, as the reference's
+    ``jax.checkpoint`` of the scanned period: ``"none"`` keeps every
+    activation, ``"full"`` runs each period under
+    ``torch.utils.checkpoint.checkpoint`` (its activations recomputed in
+    the backward).
+
+    Raises:
+        NotImplementedError: ``remat="dots"`` (ROADMAP A.8.4).
+        ValueError: an unknown ``remat``.
+    """
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"{cfg.name}: remat must be 'none', 'full' or 'dots'; "
+                         f"got {cfg.remat!r}")
+    remat = cfg.remat != "none" and mode == "train" and torch.is_grad_enabled()
+    if remat and cfg.remat == "dots":
+        raise NotImplementedError(f"{cfg.name}: remat='dots' (save matrix products only) "
+                                  "is ROADMAP A.8.4")
     new_caches = []
     for k, period in enumerate(params):
-        nc = {}
-        for i, spec in enumerate(specs):
-            c_i = caches[k].get(f"l{i}") if caches else None
-            x, nc[f"l{i}"] = block_apply(period[f"l{i}"], cfg, spec, x, positions,
-                                         cache=c_i, mode=mode)
+        c_k = caches[k] if caches else None
+        if remat:
+            x, nc = checkpoint(_period_apply, period, cfg, specs, x, positions, c_k, mode,
+                               use_reentrant=False)
+        else:
+            x, nc = _period_apply(period, cfg, specs, x, positions, c_k, mode)
         new_caches.append(nc)
     return x, new_caches

@@ -16,6 +16,8 @@ import json
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.autotune import tuner as RT
 from repro.kernels.policy import TPU_LANE, TPU_SUBLANE
 from repro.roofline import analysis as RA

@@ -34,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.kernels import engine as E
 from repro_torch.kernels import engine as TE
 from repro_torch.kernels import policy

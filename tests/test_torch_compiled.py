@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.core.schedule import SimplexSchedule as RSchedule
 from repro.kernels import compiled as RC
 from repro_torch.core.schedule import SimplexSchedule, registered_kinds

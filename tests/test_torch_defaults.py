@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.kernels import ops as RO
 from repro_torch.core.schedule import resolve_kind
 from repro_torch.kernels import ops as TO

@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.kernels import engine as E
 from repro.kernels import legacy as JL
 from repro_torch.kernels import engine as TE

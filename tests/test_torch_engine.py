@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.core.schedule import SimplexSchedule, resolve_kind
 from repro.kernels import engine as E
 from repro.kernels import ref as R

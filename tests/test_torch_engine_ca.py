@@ -15,6 +15,7 @@ import pytest
 from repro.kernels import engine as E
 from repro.kernels import ref as R
 from repro_torch.kernels import engine as TE
+import port_threads  # noqa: F401  (one torch thread a worker)
 
 KINDS = {
     2: ["hmap", "rb", "bb", "table", "composite"],

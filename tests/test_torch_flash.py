@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.autotune import tuner as RT
 from repro.kernels import flash_attention as RF
 from repro.kernels import ops as RO

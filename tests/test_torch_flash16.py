@@ -47,6 +47,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.configs.ALL import REDUCED as R_REDUCED
 from repro.kernels import flash_attention as RF
 from repro.models.model import Model as RModel

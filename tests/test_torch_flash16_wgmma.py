@@ -36,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.kernels import flash_attention as RF
 from repro_torch.kernels import flash_attention as TF
 from test_torch_flash16 import _inputs, _segments, within_one_ulp

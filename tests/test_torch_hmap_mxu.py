@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.core.hmap import hmap2, pow2_floor
 from repro.kernels.hmap_mxu import hmap2_coords_mxu as jax_mxu
 from repro_torch.kernels import _build, ops

@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import pytest
+import port_threads  # noqa: F401  (one torch thread a worker)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -38,7 +39,11 @@ def test_port_has_modules():
                  "repro_torch/models/model.py", "repro_torch/models/convert.py",
                  "repro_torch/autotune/tuner.py", "repro_torch/launch/serve.py",
                  "repro_torch/kernels/legacy.py", "repro_torch/kernels/simplex_kernels.py",
-                 "repro_torch/kernels/hmap_mxu.py"):
+                 "repro_torch/kernels/hmap_mxu.py", "repro_torch/configs/granite_8b.py",
+                 "repro_torch/configs/internlm2_20b.py", "repro_torch/configs/stablelm_12b.py",
+                 "repro_torch/optim/optimizer.py", "repro_torch/data/pipeline.py",
+                 "repro_torch/checkpoint/checkpointing.py", "repro_torch/launch/train.py",
+                 "repro_torch/examples/train_lm.py"):
         assert want in names
     for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh",
                "flash_attention.cu", "legacy2d.cu", "legacy_md.cu", "hmap_mxu.cu",
@@ -57,7 +62,10 @@ def test_import_loads_neither_jax_nor_repro():
         "import sys; import repro_torch.kernels.ops, repro_torch.kernels.engine, "
         "repro_torch.state, repro_torch.core, repro_torch.launch.serve, "
         "repro_torch.models.convert, repro_torch.kernels.legacy, "
-        "repro_torch.kernels.simplex_kernels, repro_torch.kernels.hmap_mxu; "
+        "repro_torch.kernels.simplex_kernels, repro_torch.kernels.hmap_mxu, "
+        "repro_torch.optim.optimizer, repro_torch.data.pipeline, "
+        "repro_torch.checkpoint.checkpointing, repro_torch.launch.train, "
+        "repro_torch.examples.train_lm; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.core import schedule as JS
 from repro.kernels import legacy as JL
 from repro_torch.core import schedule as TS

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.kernels import legacy as JL
 from repro_torch.core.schedule import resolve_kind
 from repro_torch.kernels import _build

@@ -36,6 +36,7 @@ import pytest
 from repro.core import schedule as RS
 from repro_torch.core import schedule as TS
 from repro_torch.kernels import _build, policy
+import port_threads  # noqa: F401  (one torch thread a worker)
 
 HEADER = (_build.CSRC / "simplex_maps.cuh").read_text()
 MAP_CU = (_build.CSRC / "map.cu").read_text()

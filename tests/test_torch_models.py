@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.configs import yi_6b as RY
 from repro.configs.ALL import REDUCED as R_REDUCED
 from repro.models import attention as RA
@@ -70,8 +72,13 @@ def test_param_count_matches_jax():
 
 def test_other_architectures_are_not_ported():
     assert TALL.config("yi-6b") is TY.FULL
+    dense = ("yi-6b", "granite-8b", "internlm2-20b", "stablelm-12b")
+    assert sorted(TALL.ARCH_IDS) == sorted(dense)
+    for name in dense:
+        assert TALL.config(name).name == name
+        assert TALL.config(name, smoke=True).name == f"{name}-smoke"
     for name in TALL.REFERENCE_ARCH_IDS:
-        if name != "yi-6b":
+        if name not in dense:
             with pytest.raises(NotImplementedError, match="A.8"):
                 TALL.config(name)
     with pytest.raises(ValueError, match="unknown"):

@@ -6,6 +6,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.kernels import ref as R
 from repro_torch.kernels import ref as TR
 

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.core import schedule as RS
 from repro.core import trapezoids as RT
 from repro_torch.core import hmap as TH

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.configs.ALL import REDUCED as R_REDUCED
 from repro.models.model import Model as RModel
 from repro_torch.configs.ALL import REDUCED

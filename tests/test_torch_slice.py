@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.kernels import ops as R
 from repro_torch import state as TSTATE
 from repro_torch.kernels import _build, engine, ops, policy

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.kernels import ref as RR
 from repro_torch.kernels import engine as TE
 from repro_torch.kernels import flash_attention as TF

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_threads  # noqa: F401  (one torch thread a worker)
+
 from repro.core import trapezoids as RT
 from repro_torch import core as TC
 from repro_torch.core import trapezoids as TT
