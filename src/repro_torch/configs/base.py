@@ -1,9 +1,10 @@
 """The port's own copy of the architecture configuration dataclasses.
 
-``LayerSpec`` and ``ArchConfig`` carry the fields of the JAX package's
-``configs/base.py`` that serving and training a dense decoder on one card
-read or refuse; the sharding, MoE, MLA, Mamba and xLSTM knobs wait for
-their slices (ROADMAP A.8, A.9).
+``LayerSpec``, ``MoECfg``, ``MLACfg``, ``MambaCfg`` and ``ArchConfig``
+carry the fields of the JAX package's ``configs/base.py`` that serving
+and training a decoder on one card read or refuse: the dense, MoE, MLA
+and hybrid (Mamba) families.  The xLSTM config waits for its slice
+(ROADMAP A.8.3) and the sharding knobs for distribution (ROADMAP A.9).
 ``param_count`` counts the port's own ``Model`` on the meta device.
 """
 
@@ -13,7 +14,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-__all__ = ["LayerSpec", "ArchConfig"]
+__all__ = ["LayerSpec", "MoECfg", "MLACfg", "MambaCfg", "ArchConfig"]
 
 
 @dataclass(frozen=True)
@@ -22,6 +23,42 @@ class LayerSpec:
 
     mixer: str = "attn"  # attn | mamba | mlstm | slstm
     ffn: str = "dense"  # dense | moe | none
+
+
+@dataclass(frozen=True)
+class MoECfg:
+    """Shared plus routed top-k experts with capacity-based dispatch."""
+
+    n_experts: int
+    top_k: int
+    expert_ff: int
+    n_shared: int = 0
+    shared_ff: int = 0  # total ff of the shared expert(s)
+    capacity_factor: float = 1.25
+    router: str = "softmax"  # softmax | sigmoid (deepseek-v3)
+    aux_loss_weight: float = 0.001
+    impl: str = "tp"  # tp | ep: the distributed forms (ROADMAP A.9)
+
+
+@dataclass(frozen=True)
+class MLACfg:
+    """Multi-head latent attention's ranks and head dims (DeepSeek-V3)."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class MambaCfg:
+    """The Mamba-1 selective SSM mixer's sizes."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
 
 
 @dataclass(frozen=True)
@@ -41,6 +78,9 @@ class ArchConfig:
     n_prefix: int = 0
     prefix_spec: Tuple[LayerSpec, ...] = ()
     attention: str = "gqa"  # gqa | mla
+    moe: Optional[MoECfg] = None
+    mla: Optional[MLACfg] = None
+    mamba: Optional[MambaCfg] = None
     rope_theta: float = 1_000_000.0
     mrope_sections: Optional[Tuple[int, int, int]] = None
     encoder_layers: int = 0
@@ -50,6 +90,7 @@ class ArchConfig:
     mtp: bool = False
     act_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    sub_quadratic: bool = False  # may run the reference's long_500k cell
     optimizer: str = "adamw"  # adamw | adafactor
     remat: str = "full"  # none | full | dots (ROADMAP A.8.4)
     attention_chunk: int = 512  # chunked-attention tile
@@ -69,9 +110,9 @@ class ArchConfig:
     def n_periods(self) -> int:
         """Repetitions of ``period`` after the prefix layers."""
         body = self.n_layers - self.n_prefix
-        if body % len(self.period):
-            raise ValueError(f"{self.name}: {body} layers are not whole periods "
-                             f"of {len(self.period)}")
+        if body < 0 or body % len(self.period):
+            raise ValueError(f"{self.name}: {body} layers after the {self.n_prefix} prefix "
+                             f"layers are not whole periods of {len(self.period)}")
         return body // len(self.period)
 
     def replace(self, **kw) -> "ArchConfig":

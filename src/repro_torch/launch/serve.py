@@ -3,9 +3,13 @@
 The model is float32 with weights initialised from ``--seed``; the
 prompts come from the same seed.  Every decode step attends to the
 *fixed* prefill cache plus the new token, the JAX package's semantics
-(its ``launch/serve.py``): nothing is appended to the cache.
+(its ``launch/serve.py``): nothing is appended to the cache.  Every
+architecture of ``configs.ALL.ARCH_IDS`` serves: the dense family, the
+MoE models and the hybrid jamba.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --smoke \
+      --device cpu
 """
 
 from __future__ import annotations
@@ -56,7 +60,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--n-layers", type=int, default=0,
-                    help="cut the depth to this many layers (default: the config's)")
+                    help="cut the depth to this many layers, a config's prefix layers "
+                    "included (default: the config's)")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     return ap.parse_args(argv)
 

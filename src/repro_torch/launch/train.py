@@ -44,6 +44,9 @@ class Trainer:
         data: The batch stream.
         step0: The first step to run (after a resume, the checkpoint's).
         losses: The loss of each step run.
+        ce: The next-token cross-entropy of each step run.
+        aux: The experts' balance loss of each step run (0 for a dense
+            model).
         grad_norms: The global gradient norm of each step run, before
             clipping.
         step_s: The wall time of each step run, synchronised, in seconds.
@@ -55,6 +58,8 @@ class Trainer:
     data: SyntheticLM
     step0: int = 0
     losses: List[float] = field(default_factory=list)
+    ce: List[float] = field(default_factory=list)
+    aux: List[float] = field(default_factory=list)
     grad_norms: List[float] = field(default_factory=list)
     step_s: List[float] = field(default_factory=list)
 
@@ -78,7 +83,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--d-model", type=int, default=0, help="override the width")
-    ap.add_argument("--n-layers", type=int, default=0, help="override the depth")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="override the depth, a config's prefix layers included")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     return ap.parse_args(argv)
 
@@ -152,15 +158,24 @@ def build(args: argparse.Namespace) -> Trainer:
 def loss_and_grads(model: Model, batch: Dict[str, torch.Tensor], microbatches: int = 1):
     """``(loss, grads)`` of ``model.loss`` on ``batch``, averaged over
     ``microbatches`` equal slices of its rows; ``grads`` by parameter name."""
+    return _loss_grads_metrics(model, batch, microbatches)[:2]
+
+
+def _loss_grads_metrics(model, batch, microbatches):
+    """``loss_and_grads`` and the loss's metrics (``ce``, ``aux``) as
+    floats, averaged the same way."""
     params = dict(model.named_parameters())
     names = [n for n, p in params.items() if p.requires_grad]
     if not names:
         raise ValueError("no parameter records a gradient: call model.requires_grad_(True)")
     tokens = batch["tokens"]
     total, grads = None, None
+    sums = {"ce": 0.0, "aux": 0.0}
     for mb in tokens.reshape((microbatches, -1) + tuple(tokens.shape[1:])):
-        loss, _ = model.loss({"tokens": mb})
+        loss, metrics = model.loss({"tokens": mb})
         g = torch.autograd.grad(loss, [params[n] for n in names])
+        for key in sums:
+            sums[key] += metrics[key].detach().item()
         if grads is None:
             total, grads = loss.detach(), [x.to(torch.float32) for x in g]
         else:
@@ -171,13 +186,16 @@ def loss_and_grads(model: Model, batch: Dict[str, torch.Tensor], microbatches: i
     if microbatches > 1:
         total = total / microbatches
         grads = [x / microbatches for x in grads]
-    return total, dict(zip(names, grads))
+    return total, dict(zip(names, grads)), {k: v / microbatches for k, v in sums.items()}
 
 
 def train_step(t: Trainer, step: int, batch: Dict[str, torch.Tensor],
                microbatches: int = 1) -> torch.Tensor:
-    """One optimizer step on ``batch``; returns the loss before it."""
-    loss, grads = loss_and_grads(t.model, batch, microbatches)
+    """One optimizer step on ``batch``; returns the loss before it and
+    records its ``ce`` and ``aux`` in ``t``."""
+    loss, grads, metrics = _loss_grads_metrics(t.model, batch, microbatches)
+    t.ce.append(metrics["ce"])
+    t.aux.append(metrics["aux"])
     _, t.opt_state = t.opt.update(grads, t.opt_state, dict(t.model.named_parameters()),
                                   step)
     return loss
@@ -204,8 +222,8 @@ def run(args: argparse.Namespace, t: Optional[Trainer] = None,
             torch.cuda.synchronize(dev)
         t.step_s.append(time.perf_counter() - t0)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d}  loss {t.losses[-1]:.4f}  "
-                  f"tok/s {tokens * len(t.step_s) / sum(t.step_s):,.0f}")
+            print(f"step {step:5d}  loss {t.losses[-1]:.4f}  ce {t.ce[-1]:.4f}  "
+                  f"aux {t.aux[-1]:.6f}  tok/s {tokens * len(t.step_s) / sum(t.step_s):,.0f}")
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             ckpt.save(args.ckpt_dir, step + 1, train_tree(t))
             print(f"checkpoint @ {step + 1}")

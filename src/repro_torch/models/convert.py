@@ -1,10 +1,14 @@
 """Carry the JAX package's parameters into the port's ``Model``.
 
 The JAX ``Model.init`` tree (``{"embed": {"e"}, "final_norm": {"w"},
-"stack": {"l0": {...}}, "unembed"}``, every stack leaf with a leading
-``n_periods`` axis) becomes the port's ``state_dict``: the stack axis is
-unstacked into ``stack.<period>.l0...``, every other path keeps its name.
-Every shape is checked, and a missing or extra leaf is refused.
+"stack": {"l0": {...}, "l1": ...}, "unembed"}``, plus ``"prefix": {"p0":
+{...}}`` and ``"mtp": {"proj", "block", "norm"}`` where the config has
+them) becomes the port's ``state_dict``.  Every stack leaf carries a
+leading ``n_periods`` axis, the experts' too (``stack.l0.ffn.w1`` is
+``(n_periods, E, d, expert_ff)``); that axis is unstacked into
+``stack.<period>.l0...``.  The prefix and MTP leaves are not stacked and
+keep their names, as every other path does.  Every shape is checked,
+and a missing or extra leaf is refused.
 ``stacked_params`` and ``load_stacked`` go both ways between the port's
 model and that flat stacked tree (the trainer's checkpoints hold it).
 """

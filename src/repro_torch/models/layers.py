@@ -102,16 +102,28 @@ def embed(p, tokens: torch.Tensor, act_dtype) -> torch.Tensor:
 
 class Params(nn.Module):
     """A module of named parameters that can be indexed like a mapping
-    (``p["w"]``), so the layer functions take it or a dict alike."""
+    (``p["w"]``), so the layer functions take it or a dict alike.  Its
+    submodules are indexed the same way (``p["q_norm"]["w"]``).
 
-    def __init__(self, shapes: dict, dtype, device):
+    Args:
+        shapes: Parameter name -> shape.
+        dtype: The parameters' dtype.
+        device: Where they live.
+        float32: Names kept in float32 whatever ``dtype`` is (the
+            reference's router and SSM constants).
+    """
+
+    def __init__(self, shapes: dict, dtype, device, float32: Sequence[str] = ()):
         super().__init__()
         for name, shape in shapes.items():
             setattr(self, name, nn.Parameter(
-                torch.empty(shape, dtype=dtype, device=device), requires_grad=False))
+                torch.empty(shape, dtype=torch.float32 if name in float32 else dtype,
+                            device=device), requires_grad=False))
 
-    def __getitem__(self, name: str) -> torch.Tensor:
-        return self._parameters[name]
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        return self._modules[name]
 
 
 class RMSNorm(Params):

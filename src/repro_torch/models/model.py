@@ -1,10 +1,15 @@
-"""The dense decoder as one ``nn.Module``: init, prefill, decode, caches.
+"""The decoder as one ``nn.Module``: init, loss, prefill, decode, caches.
 
-It mirrors the JAX package's ``Model`` for decoder-only dense configs
-(yi-6b, granite-8b, internlm2-20b, stablelm-12b): token embedding, the
-period stack, a final RMSNorm and an untied unembedding, and the
-next-token loss.  Patches, the encoder and multi-token prediction wait
-for their slices (ROADMAP A.8).  The module holds the parameters;
+It mirrors the JAX package's ``Model`` for decoder-only configs: the
+dense family (yi-6b, granite-8b, internlm2-20b, stablelm-12b), the MoE
+models (qwen2-moe-a2.7b; deepseek-v3-671b with MLA, its unrolled dense
+prefix layers and the multi-token prediction head) and the hybrid
+jamba-v0.1-52b (Mamba, attention and MoE).  Token embedding, the prefix
+blocks, the period stack, a final RMSNorm and an untied unembedding; the
+loss is the next-token cross-entropy plus the experts' balance loss and,
+with ``cfg.mtp``, 0.3 times the MTP head's cross-entropy.  Patches,
+M-RoPE and the encoder wait for their slices (ROADMAP A.8.3).  The
+module holds the parameters;
 ``self.cfg`` is read on every call, so swapping it (for example
 ``attention_impl``) changes the executor, not the weights.
 
@@ -20,9 +25,17 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from ..configs.base import LayerSpec
 from ..kernels.policy import resolve_device
-from .layers import Embed, RMSNorm, dense_init, embed, rmsnorm
-from .transformer import check_spec, init_block_cache, stack_apply, stack_init
+from .layers import Embed, Params, RMSNorm, dense_init, embed, rmsnorm
+from .transformer import (Block, block_apply, check_spec, init_block_cache, stack_apply,
+                          stack_init)
+
+# The MTP head's block: attention (MLA under cfg.attention == "mla") and
+# a dense FFN, as the reference's ``Model`` builds it.
+MTP_SPEC = LayerSpec("attn", "dense")
+# The weight of the MTP cross-entropy in the loss.
+MTP_WEIGHT = 0.3
 
 __all__ = ["Model"]
 
@@ -31,22 +44,36 @@ def _check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     unported = [
         name for name, on in (
-            ("prefix layers", cfg.n_prefix or cfg.prefix_spec),
             ("an encoder", cfg.encoder_layers),
             ("patch embeddings", cfg.n_patches),
-            ("multi-token prediction", cfg.mtp),
             ("M-RoPE", cfg.mrope_sections is not None),
         ) if on
     ]
     if unported:
         raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not ported "
-                                  "(ROADMAP A.8)")
-    for spec in cfg.period:
+                                  "(ROADMAP A.8.3)")
+    for spec in tuple(cfg.prefix_spec) + tuple(cfg.period) + ((MTP_SPEC,) if cfg.mtp else ()):
         check_spec(cfg, spec)
 
 
+class MTP(Params):
+    """DeepSeek-V3's depth-1 multi-token prediction head: ``proj`` (2 d,
+    d), a ``block`` (``MTP_SPEC``) and a final ``norm``."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__({"proj": (2 * cfg.d_model, cfg.d_model)}, dtype, device)
+        self.block = Block(cfg, MTP_SPEC, dtype, device)
+        self.norm = RMSNorm(cfg.d_model, dtype, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        """``proj``, then the block, then the norm."""
+        dense_init(self["proj"].shape, generator, out=self["proj"].data)
+        self.block.init(generator)
+        self.norm.init(generator)
+
+
 class Model(nn.Module):
-    """A dense decoder-only LM built from an ``ArchConfig``.
+    """A decoder-only LM built from an ``ArchConfig``.
 
     Args:
         cfg: The architecture.
@@ -61,15 +88,21 @@ class Model(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.specs = tuple(cfg.period)
+        self.prefix_specs = tuple(cfg.prefix_spec)
         self.pdtype = getattr(torch, cfg.param_dtype)
         self.adtype = getattr(torch, cfg.act_dtype)
         self.embed = Embed(cfg.vocab, cfg.d_model, self.pdtype, device)
         self.final_norm = RMSNorm(cfg.d_model, self.pdtype, device)
         self.stack = stack_init(cfg, self.specs, cfg.n_periods, self.pdtype, device)
+        if self.prefix_specs:
+            self.prefix = nn.ModuleDict({f"p{i}": Block(cfg, s, self.pdtype, device)
+                                         for i, s in enumerate(self.prefix_specs)})
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(
                 torch.empty((cfg.d_model, cfg.vocab), dtype=self.pdtype, device=device),
                 requires_grad=False)
+        if cfg.mtp:
+            self.mtp = MTP(cfg, self.pdtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -80,15 +113,20 @@ class Model(nn.Module):
 
     def init(self, generator: torch.Generator) -> "Model":
         """Fill every parameter from ``generator`` (on the model's device):
-        the embedding, then each block in order, the final norm and the
-        unembedding.  Returns the model."""
+        the embedding, then the prefix blocks and each period's blocks in
+        order, the final norm, the unembedding and the MTP head.  Returns
+        the model."""
         self.embed.init(generator)
+        for i in range(len(self.prefix_specs)):
+            self.prefix[f"p{i}"].init(generator)
         for period in self.stack:
             for i in range(len(self.specs)):
                 period[f"l{i}"].init(generator)
         self.final_norm.init(generator)
         if not self.cfg.tie_embeddings:
             dense_init(self.unembed.shape, generator, out=self.unembed.data)
+        if self.cfg.mtp:
+            self.mtp.init(generator)
         return self
 
     # ------------------------------------------------------------ embeddings
@@ -106,14 +144,29 @@ class Model(nn.Module):
         return x @ w.to(self.adtype)
 
     def _backbone(self, x, positions, *, caches=None, mode="train"):
-        x, new_caches = stack_apply(self.stack, self.cfg, self.specs, x, positions,
-                                    caches=caches["stack"] if caches else None, mode=mode)
-        return rmsnorm(self.final_norm, x, self.cfg.norm_eps), {"stack": new_caches}
+        """The prefix blocks, then the stack, then the final norm; returns
+        ``(x, new_caches, aux)``."""
+        cfg = self.cfg
+        new_caches: Dict[str, Any] = {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.prefix_specs:
+            pc = {}
+            for i, spec in enumerate(self.prefix_specs):
+                c_i = caches["prefix"][f"p{i}"] if caches else None
+                x, pc[f"p{i}"], a = block_apply(self.prefix[f"p{i}"], cfg, spec, x, positions,
+                                                cache=c_i, mode=mode)
+                aux = aux + a
+            new_caches["prefix"] = pc
+        x, new_caches["stack"], a = stack_apply(
+            self.stack, cfg, self.specs, x, positions,
+            caches=caches["stack"] if caches else None, mode=mode)
+        return rmsnorm(self.final_norm, x, cfg.norm_eps), new_caches, aux + a
 
     # ------------------------------------------------------------------ loss
 
     def loss(self, batch: Dict[str, torch.Tensor]):
-        """Next-token cross-entropy, as the reference's ``Model.loss``.
+        """Next-token cross-entropy plus the extra terms, as the
+        reference's ``Model.loss``.
 
         Args:
             batch: ``{"tokens": (B, S+1)}`` integer tensor on the model's
@@ -121,16 +174,32 @@ class Model(nn.Module):
 
         Returns:
             ``(total, {"ce": ce, "aux": aux})``, float32 scalars; ``aux``
-            (the experts' balance loss) is 0 for a dense model, and
-            ``total = ce + aux``.
+            is the sum of the MoE layers' balance losses (0 for a dense
+            model), and ``total = ce + aux``, plus ``MTP_WEIGHT`` times the
+            MTP head's cross-entropy with ``cfg.mtp``.
         """
         tokens = batch["tokens"]
         labels = tokens[:, 1:]
         x, positions = self._embed_inputs({"tokens": tokens[:, :-1]})
-        h, _ = self._backbone(x, positions, mode="train")
-        ce = _cross_entropy(self._logits(h[:, -labels.shape[1]:]), labels)
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        return ce + aux, {"ce": ce, "aux": aux}
+        h, _, aux = self._backbone(x, positions, mode="train")
+        h_text = h[:, -labels.shape[1]:]
+        ce = _cross_entropy(self._logits(h_text), labels)
+        total = ce + aux
+        if self.cfg.mtp:
+            total = total + MTP_WEIGHT * self._mtp_loss(h_text, tokens)
+        return total, {"ce": ce, "aux": aux}
+
+    def _mtp_loss(self, h: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """DeepSeek-V3's multi-token prediction: the depth-1 head predicts
+        token t+2 from ``[h_t ; embed(token_{t+1})]``."""
+        cfg = self.cfg
+        emb_next = embed(self.embed, tokens[:, 1:-1], self.adtype)
+        x = torch.cat([h[:, :-1], emb_next], dim=-1) @ self.mtp["proj"].to(self.adtype)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        x, _, _ = block_apply(self.mtp.block, cfg, MTP_SPEC, x, positions, mode="train")
+        x = rmsnorm(self.mtp.norm, x, cfg.norm_eps)
+        return _cross_entropy(self._logits(x), tokens[:, 2:])
 
     # ------------------------------------------------------- prefill / decode
 
@@ -144,11 +213,14 @@ class Model(nn.Module):
 
         Returns:
             ``(last_logits (B, 1, vocab), caches)`` with ``caches =
-            {"stack": [{"l0": {"mixer": (k, v)}}, ...]}``, one entry per
-            period.
+            {"stack": [{"l0": {"mixer": ...}}, ...]}``, one entry per
+            period, and ``caches["prefix"] = {"p0": {"mixer": ...}, ...}``
+            where the config has prefix layers.  A GQA block's cache is
+            ``(k, v)``, an MLA block's ``(c_kv, k_pe)``, a Mamba block's
+            ``(ssm state, conv tail)``.
         """
         x, positions = self._embed_inputs(batch)
-        h, caches = self._backbone(x, positions, mode="prefill")
+        h, caches, _ = self._backbone(x, positions, mode="prefill")
         return self._logits(h[:, -1:]), caches
 
     @torch.no_grad()
@@ -161,12 +233,14 @@ class Model(nn.Module):
                 its absolute position.
 
         Returns:
-            ``(logits (B, 1, vocab), new_caches)``; each block's new cache
-            is ``(kc, vc, k, v)`` for a caller that appends.
+            ``(logits (B, 1, vocab), new_caches)``; a GQA block's new cache
+            is ``(kc, vc, k, v)`` and an MLA block's ``(c_kv, k_pe,
+            c_kv_new, k_pe_new)``, for a caller that appends; a Mamba
+            block's is its stepped ``(ssm state, conv tail)``.
         """
         x = embed(self.embed, batch["tokens"], self.adtype)
         positions = batch["pos"][:, None]
-        h, new_caches = self._backbone(x, positions, caches=caches, mode="decode")
+        h, new_caches, _ = self._backbone(x, positions, caches=caches, mode="decode")
         return self._logits(h), new_caches
 
     # ----------------------------------------------------------------- caches
@@ -180,6 +254,10 @@ class Model(nn.Module):
                                                     self.device)
                           for i, s in enumerate(self.specs)})
         caches: Dict[str, Any] = {"stack": stack}
+        if self.prefix_specs:
+            caches["prefix"] = {f"p{i}": init_block_cache(self.cfg, s, batch, seq, dtype,
+                                                          self.device)
+                                for i, s in enumerate(self.prefix_specs)}
         return caches
 
 

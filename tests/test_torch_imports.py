@@ -43,7 +43,11 @@ def test_port_has_modules():
                  "repro_torch/configs/internlm2_20b.py", "repro_torch/configs/stablelm_12b.py",
                  "repro_torch/optim/optimizer.py", "repro_torch/data/pipeline.py",
                  "repro_torch/checkpoint/checkpointing.py", "repro_torch/launch/train.py",
-                 "repro_torch/examples/train_lm.py"):
+                 "repro_torch/examples/train_lm.py", "repro_torch/models/moe.py",
+                 "repro_torch/models/mla.py", "repro_torch/models/mamba.py",
+                 "repro_torch/configs/qwen2_moe_a27b.py",
+                 "repro_torch/configs/deepseek_v3_671b.py",
+                 "repro_torch/configs/jamba_v01_52b.py"):
         assert want in names
     for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh",
                "flash_attention.cu", "legacy2d.cu", "legacy_md.cu", "hmap_mxu.cu",
@@ -61,7 +65,8 @@ def test_import_loads_neither_jax_nor_repro():
     code = (
         "import sys; import repro_torch.kernels.ops, repro_torch.kernels.engine, "
         "repro_torch.state, repro_torch.core, repro_torch.launch.serve, "
-        "repro_torch.models.convert, repro_torch.kernels.legacy, "
+        "repro_torch.models.convert, repro_torch.models.moe, repro_torch.models.mla, "
+        "repro_torch.models.mamba, repro_torch.kernels.legacy, "
         "repro_torch.kernels.simplex_kernels, repro_torch.kernels.hmap_mxu, "
         "repro_torch.optim.optimizer, repro_torch.data.pipeline, "
         "repro_torch.checkpoint.checkpointing, repro_torch.launch.train, "

@@ -173,4 +173,4 @@ def test_unported_configs_raise(pair):
     with pytest.raises(NotImplementedError, match="A.8"):
         Model(cfg.replace(n_patches=4), device="cpu")
     with pytest.raises(NotImplementedError, match="A.8"):
-        serve.main(["--arch", "jamba-v0.1-52b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu"])
