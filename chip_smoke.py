@@ -10,9 +10,11 @@ folded-simplex flash kernel, and decodes greedily; the same model at its
 config's own bfloat16 activations prefills through the 16-bit flash
 route, and the dense family's other configs (granite-8b, stablelm-12b,
 internlm2-20b) serve the same way, then the MoE, MLA and hybrid families
-(qwen2-moe-a2.7b, deepseek-v3-671b, jamba-v0.1-52b).  The third is training:
-``repro_torch.launch.train`` takes float32 steps at full width with the
-flash forward under autograd.  The frozen originals of ``kernels/legacy.py`` check the engine
+(qwen2-moe-a2.7b, deepseek-v3-671b, jamba-v0.1-52b) and the last three
+(xlstm-350m, qwen2-vl-72b with patch embeddings and M-RoPE,
+seamless-m4t-large-v2 with its encoder and cross attention).  The third
+is training: ``repro_torch.launch.train`` takes float32 steps at full
+width with the flash forward under autograd, also under remat "dots".  The frozen originals of ``kernels/legacy.py`` check the engine
 independently, and the paper's §7.1 tensor-core map turns grid
 coordinates into element origins.  This script
 
@@ -130,20 +132,32 @@ coordinates into element origins.  This script
    top-4 and 4 shared, ``Hkv == Hq == 16``), jamba-v0.1-52b cut to one
    period (8 of 32 layers: Mamba at 7, attention at index 4, MoE on odd
    layers) and deepseek-v3-671b cut to its 3 dense prefix layers and one
-   MoE layer (MLA, 256 experts top-8, sigmoid router); logs each one's
+   MoE layer (MLA, 256 experts top-8, sigmoid router), then xlstm-350m in
+   full (24 layers: mLSTM, and sLSTM at index 3 of each period of 8),
+   qwen2-vl-72b cut to 12 of 80 layers (1024 patch embeddings and 1024
+   text tokens, M-RoPE) and seamless-m4t-large-v2 in full (24 encoder
+   and 24 decoder layers, 2048 frame embeddings); logs each one's
    layers, widths, parameters, cut, ``prefill_s``, ``decode_tok_s``,
    ``peak_gib`` (under 75 GiB) and the card line; checks that prefill
-   launched ``flash_wgmma`` 24, 1 and 0 times (deepseek-v3's MLA head dims
-   differ, so its prefill takes the chunked executor); holds the
-   last-token logits against the same model's chunked prefill (deepseek-v3:
-   the chunked bounding-box schedule) within ``rtol 2e-3, atol 2e-4`` with
-   every argmax equal, and counts the (layer, token, slot) router choices
-   that differ between the two prefills: where any does, the gate is every
+   launched ``flash_wgmma`` 24, 1, 0, 0, 12 and 24 times (deepseek-v3's MLA
+   head dims differ, so its prefill takes the chunked executor; xlstm has
+   no attention; seamless's encoder and cross attention run the plain
+   bidirectional attention, as the reference's do); holds the last-token
+   logits against the same model's chunked prefill (deepseek-v3: the
+   chunked bounding-box schedule; xlstm: mLSTM chunk 128 against 64), on
+   the serve's own inputs, within ``rtol 2e-3, atol 2e-4`` with every
+   argmax equal, and counts the (layer, token, slot) router choices that
+   differ between the two prefills: where any does, the gate is every
    argmax equal and ``max|d| <= LOGIT16_TOL * max|logit|``, and the line
-   says so; then each family's reduced config, its weights made on the CPU,
-   prefills the same prompts (batch 2, 256 tokens) on the CPU and on the
-   card, held within ``rtol 2e-3, atol 2e-4`` with every argmax equal and
-   every router choice the same;
+   says so; then each family's reduced config, its weights made on the
+   CPU, prefills the same inputs (batch 2, 256 positions, patches and
+   frame embeddings included) on the CPU and on the card, held within
+   ``rtol 2e-3, atol 2e-4`` with every argmax equal and every router
+   choice the same; then one mLSTM layer at xlstm-350m's full width
+   (batch 4, 2048 tokens): the chunkwise form prefill runs against the
+   recurrence decode runs, outputs and final state within ``1e-4 *
+   max|want| + 1e-6``, and one sLSTM layer's loop over 2048 tokens timed
+   beside xlstm's prefill;
 15. train: ``launch/train.py`` in float32 at full width, yi-6b cut to 4
    layers (AdamW, batch 4 x seq 2048), internlm2-20b cut to 2 layers
    (Adafactor, batch 2 x seq 2048) and qwen2-moe-a2.7b cut to 2 layers
@@ -157,7 +171,11 @@ coordinates into element origins.  This script
    the loss falls; at one layer's attention shape (and at a quarter of
    the sequence with a per-head bias) ``FlashFunction``'s gradients
    within ``1e-6 * max|g|`` of autograd through ``_reference_attention``
-   (bit for bit expected);
+   (bit for bit expected); then yi-6b at 4 layers under remat "dots"
+   (AdamW, batch 4 x seq 2048): one step under "none", "full" and "dots"
+   (each step's peak memory and flash launches logged), then 5 steps
+   under "dots", the first within ``1e-4`` of "none"'s, the loss falling,
+   its flash launches the forward's one a layer plus the recomputation's;
 16. holds the flash kernels against their plain version on the card at
    the serve shape (float32 folded and bb, bfloat16 and float16
    folded), at a 2080-token prompt with 32-row tiles (float32 folded and
@@ -221,6 +239,7 @@ The script needs one CUDA card; without one it exits 2.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -1866,21 +1885,38 @@ DENSE_ARGV = ["--batch", "4", "--prompt-len", "2048", "--gen", "16", "--temperat
 # against their own chunked prefill; deepseek-v3's MLA prefill takes the
 # chunked executor (qk head dim 192, v 128, as in the reference) and is held
 # against the chunked bounding-box schedule, as stablelm-12b is.
+# The last three families, served the same way: xlstm-350m in full (no
+# attention: its prefill is held at mLSTM chunk 64 against chunk 128),
+# qwen2-vl-72b cut to 12 of its 80 layers (270.9 -> 48.5 GiB of float32
+# weights; 1024 patch embeddings and 1024 text tokens make the 2048
+# positions) and seamless-m4t-large-v2 in full (its 24 decoder layers
+# launch the flash kernel, its encoder and cross attention none).  A knob's
+# dict value replaces fields of the nested config it names.
+XLSTM_CHUNK128 = {"xlstm": {"chunk": 128}}
 FAMILY_SERVES = (("qwen2-moe-a2.7b", 0, 24, CHUNKED), ("jamba-v0.1-52b", 8, 1, CHUNKED),
-                 ("deepseek-v3-671b", 4, 0, CHUNKED_BB))
+                 ("deepseek-v3-671b", 4, 0, CHUNKED_BB), ("xlstm-350m", 0, 0, XLSTM_CHUNK128),
+                 ("qwen2-vl-72b", 12, 12, CHUNKED), ("seamless-m4t-large-v2", 0, 24, CHUNKED))
 # Each serve's peak device memory must stay under this (deepseek-v3 keeps
 # batch 4 only while it does).
 SERVE_PEAK_GIB = 75.0
 # The card-against-CPU hold of each family's reduced config: (batch,
 # prompt); 256 tokens are two of the Mamba scan's 128-token chunks.
 FAMILY_CPU_HOLD = (2, 256)
+# One mLSTM layer at xlstm-350m's full width (dp 2048, 4 heads of 512):
+# the chunkwise form prefill runs against the recurrence decode runs, on
+# (batch, tokens), each output and the final (C, n, m) within
+# MLSTM_REL * max|want| + MLSTM_ABS.
+MLSTM_HOLD = (4, 2048)
+MLSTM_REL, MLSTM_ABS = 1e-4, 1e-6
 # internlm2-20b's head layout (B, Hq, Hkv, D): a GQA group of 6, which the
 # card had not run; each kernel at it against its plain version.
 GROUP6 = (4, 48, 8, 128)
 # Training at full width, float32 as the reference forces, 5 steps on one
-# repeated batch: (arch, layers, batch, seq); the optimizer is the config's.
-TRAIN_RUNS = (("yi-6b", 4, 4, 2048), ("internlm2-20b", 2, 2, 2048),
-              ("qwen2-moe-a2.7b", 2, 4, 2048))
+# repeated batch: (arch, layers, batch, seq, remat); the optimizer is the
+# config's.  The "dots" run's first step is held against remat "none"'s,
+# and the peak of one step under each policy is logged.
+TRAIN_RUNS = (("yi-6b", 4, 4, 2048, "none"), ("internlm2-20b", 2, 2, 2048, "none"),
+              ("qwen2-moe-a2.7b", 2, 4, 2048, "none"), ("yi-6b", 4, 4, 2048, "dots"))
 TRAIN_STEPS = 5
 TRAIN_LR = 1e-4
 # The first step's loss and gradient norm with the kernel against the
@@ -1951,7 +1987,23 @@ class ModelSmoke:
             m = cfg.mamba
             out += (f"; Mamba d_inner {m.expand * cfg.d_model} d_state {m.d_state} d_conv "
                     f"{m.d_conv}")
+        if cfg.xlstm:
+            x = cfg.xlstm
+            out += (f"; xLSTM heads {x.n_heads} mLSTM dp {int(cfg.d_model * x.proj_factor_mlstm)} "
+                    f"chunk {x.chunk} d_conv {x.d_conv} sLSTM FFN x{x.proj_factor_slstm:.4f}")
+        if cfg.mrope_sections:
+            out += f"; M-RoPE sections {cfg.mrope_sections}, {cfg.n_patches} patch embeddings"
+        if cfg.encoder_layers:
+            out += (f"; encoder {cfg.encoder_layers} bidirectional layers, cross attention in "
+                    "every decoder layer")
         return out + (" mtp" if cfg.mtp else "")
+
+    @staticmethod
+    def with_knob(cfg, knob: dict):
+        """``cfg`` with ``knob``'s fields replaced; a dict value replaces
+        fields of the nested config it names."""
+        return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
+                              if isinstance(v, dict) else v for k, v in knob.items()})
 
     def serve(self, arch: str, layers: int, flash_want: int, knob: dict, tag: str) -> None:
         """``serve.run`` on ``arch`` at full width (``layers`` > 0 cuts the
@@ -1985,18 +2037,22 @@ class ModelSmoke:
         cut = (f"depth cut {full.n_layers} -> {cfg.n_layers} layers (float32 weights "
                f"{full.param_count() * 4 / 2**30:.1f} -> {st['params'] * 4 / 2**30:.1f} GiB)"
                if layers else f"not cut ({st['params'] * 4 / 2**30:.1f} GiB of float32 weights)")
+        extra = "".join(f", {k} {tuple(v.shape)}" for k, v in r.inputs.items() if k != "tokens")
         _log(f"{tag} {arch}: {self.describe(cfg)}; {st['params']} float32 parameters; {cut}; "
-             f"batch {b}, prompt {r.prompts.shape[1]}, {gen - 1} greedy tokens")
+             f"batch {b}, prompt {r.prompts.shape[1]} tokens{extra}, {gen - 1} greedy tokens")
         _log(f"{tag} {arch} prefill_s={r.prefill_s:.4f} decode_s={r.decode_s:.4f} "
              f"decode_tok_s={st['decode_tok_s']:.2f} peak_gib={st['peak_gib']:.3f} "
              f"launches={launches} card={self.card}")
         want = dict.fromkeys(fa.ROUTES, 0)
         want["flash_wgmma"] = flash_want
-        if not flash_want:
+        has_attn = any(sp.mixer == "attn" for sp in cfg.prefix_spec + cfg.period)
+        if not flash_want and has_attn:
             why = (f"v head dim {cfg.mla.v_head_dim} differs from it" if cfg.mla else
                    f"no flash tile takes it (KERNEL_HEAD_DIMS {fa.KERNEL_HEAD_DIMS})")
             _log(f"{tag} {arch}: head_dim {cfg.hd}, {why}, so prefill takes the chunked "
                  "executor: 0 flash launches wanted")
+        elif not flash_want:
+            _log(f"{tag} {arch}: no attention layer, so 0 flash launches wanted")
         if launches != want:
             self.s.fail(f"{tag} {arch}: prefill launched {launches}, not {want}")
         if st["peak_gib"] > SERVE_PEAK_GIB:
@@ -2011,11 +2067,11 @@ class ModelSmoke:
                         "misshapen, out of range or not finite")
         model = r.model
         self.zero_counts()
-        model.cfg = cfg.replace(**knob)
+        model.cfg = self.with_knob(cfg, knob)
         try:
             t0 = time.perf_counter()
             with self.moe.record_routing() as other_routes:
-                other, _ = model.prefill({"tokens": r.prompts})
+                other, _ = model.prefill(r.inputs)
             torch.cuda.synchronize()
             st["hold_prefill_s"] = time.perf_counter() - t0
         finally:
@@ -2037,7 +2093,8 @@ class ModelSmoke:
             ok = argmax and close
             gate = "rtol 2e-3 atol 2e-4 and every argmax equal"
         st.update(logit_err=err, flips=flips, choices=choices)
-        _log(f"{tag} {arch} hold {'flash' if flash_want else 'chunked folded'} vs {knob} "
+        what = "flash" if flash_want else ("chunked folded" if has_attn else "as served")
+        _log(f"{tag} {arch} hold {what} vs {knob} "
              f"prefill: max_abs_err={err:.3e} max|logit|={scale:.3f} "
              + (f"router_flips={flips} of {choices} (layer, token, slot) choices in "
                 f"{len(routes)} MoE layers " if routes else "")
@@ -2062,13 +2119,17 @@ class ModelSmoke:
                                                             param_dtype="float32")
         g = torch.Generator().manual_seed(self.s.seed)
         cpu = self.model_cls(cfg, device="cpu").init(g)
-        prompts = torch.randint(0, cfg.vocab, (b, s), generator=g)
+        inputs = {"tokens": torch.randint(0, cfg.vocab, (b, s - cfg.n_patches), generator=g)}
+        if cfg.n_patches:
+            inputs["patches"] = torch.randn((b, cfg.n_patches, cfg.d_model), generator=g)
+        if cfg.encoder_layers:
+            inputs["src_embeds"] = torch.randn((b, s, cfg.d_model), generator=g)
         card = copy.deepcopy(cpu).to(self.s.dev)
         with self.moe.record_routing() as cpu_routes:
-            want, _ = cpu.prefill({"tokens": prompts})
+            want, _ = cpu.prefill(inputs)
         self.zero_counts()
         with self.moe.record_routing() as card_routes:
-            got, _ = card.prefill({"tokens": prompts.to(self.s.dev)})
+            got, _ = card.prefill({k: v.to(self.s.dev) for k, v in inputs.items()})
         torch.cuda.synchronize()
         launches = {k: v for k, v in self.counts().items() if k in self.fa.ROUTES and v}
         got = got.cpu()
@@ -2078,7 +2139,7 @@ class ModelSmoke:
               and len(card_routes) == len(cpu_routes) == self.moe_layers(cfg)
               and bool((got.argmax(-1) == want.argmax(-1)).all()))
         _log(f"family {arch} card vs cpu reduced {cfg.name} ({self.describe(cfg)}) batch {b} "
-             f"prompt {s}: max_abs_err={err:.3e} max|logit|={want.abs().max().item():.3f} "
+             f"prompt {s} positions ({', '.join(inputs)}): max_abs_err={err:.3e} max|logit|={want.abs().max().item():.3f} "
              f"router_flips={flips} in {len(card_routes)} MoE layers card flash "
              f"launches={launches} gate rtol 2e-3 atol 2e-4, every argmax equal, routing "
              f"equal: ok={ok} card={self.card}")
@@ -2086,6 +2147,86 @@ class ModelSmoke:
             self.s.fail(f"family {arch}: the card's reduced prefill differs from the CPU's "
                         f"by {err} with {flips} router flips")
         del cpu, card
+        self._free()
+
+    def mlstm_hold(self) -> None:
+        """One mLSTM layer at xlstm-350m's full width on ``MLSTM_HOLD``
+        tokens: ``mlstm_chunkwise`` (prefill's form, chunk 64, ``m`` from
+        -inf) against ``mlstm_recurrent`` stepped token by token (decode's
+        form, from the decode cache's start), the outputs and the final
+        ``(C, n, m)`` each within ``MLSTM_REL * max|want| + MLSTM_ABS``."""
+        from repro_torch.models import xlstm
+
+        torch, dev = self.torch, self.s.dev
+        cfg = self.f.configs.config("xlstm-350m").replace(act_dtype="float32",
+                                                          param_dtype="float32")
+        b, s = MLSTM_HOLD
+        g = self.s.gen(97)
+        p = xlstm.mlstm_init(g, cfg)
+        dp = p["wq"].shape[0]
+        x = torch.randn((b, s, dp), generator=g, device=dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs, state = xlstm.mlstm_chunkwise(p, cfg, x)
+            torch.cuda.synchronize()
+            chunk_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            routs, rstate = xlstm.mlstm_recurrent(
+                p, cfg, x, xlstm.init_mlstm_cache(cfg, b, torch.float32, dev))
+            torch.cuda.synchronize()
+            rec_s = time.perf_counter() - t0
+        errs, ok = {}, True
+        for name, got, want in zip(("y", "C", "n", "m"), (outs,) + state, (routs,) + rstate[:3]):
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            errs[name] = (err, scale)
+            ok = ok and bool(torch.isfinite(got).all()) and err <= MLSTM_REL * scale + MLSTM_ABS
+        h = cfg.xlstm.n_heads
+        _log(f"family xlstm-350m mlstm hold: one layer dp {dp} heads {h} dh {dp // h} batch {b} "
+             f"tokens {s} chunk {cfg.xlstm.chunk}: chunkwise vs recurrent "
+             + " ".join(f"{n}_err={e:.3e} max|{n}|={m:.4f}" for n, (e, m) in errs.items())
+             + f" gate {MLSTM_REL} * max|want| + {MLSTM_ABS}: ok={ok} chunkwise_s={chunk_s:.4f} "
+             f"recurrent_s={rec_s:.4f} card={self.card}")
+        self.stats["mlstm hold"] = dict(errs=errs, chunkwise_s=chunk_s, recurrent_s=rec_s)
+        if not ok:
+            self.s.fail(f"mlstm hold: chunkwise and recurrent differ {errs}")
+        del p, x, outs, state, routs, rstate
+        self._free()
+
+    def slstm_loop(self) -> None:
+        """One sLSTM layer of xlstm-350m at full width on ``MLSTM_HOLD``
+        tokens, timed (prefill mode, synchronised): its loop over time is
+        a few small ops a token, so its share of xlstm's prefill is
+        logged beside it."""
+        from repro_torch.models import xlstm
+
+        torch, dev = self.torch, self.s.dev
+        cfg = self.f.configs.config("xlstm-350m").replace(act_dtype="float32",
+                                                          param_dtype="float32")
+        b, s = MLSTM_HOLD
+        g = self.s.gen(98)
+        p = xlstm.slstm_init(g, cfg)
+        x = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+        times = []
+        with torch.no_grad():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, _ = xlstm.slstm_apply(p, cfg, x, mode="prefill")
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        layers = sum(sp.mixer == "slstm" for sp in cfg.period) * cfg.n_periods
+        serve = self.stats.get("family xlstm-350m", {})
+        per = statistics.median(times)
+        share = (f"{layers} layers x {per:.4f} s = {layers * per / serve['hold_prefill_s']:.3f} "
+                 f"of the hold prefill's {serve['hold_prefill_s']:.4f} s" if serve else "")
+        _log(f"family xlstm-350m slstm loop: one layer d {cfg.d_model} heads "
+             f"{cfg.xlstm.n_heads} batch {b} tokens {s}: slstm_s={per:.4f} (of {times}) "
+             f"finite={bool(torch.isfinite(out).all())} {share} card={self.card}")
+        if not torch.isfinite(out).all():
+            self.s.fail("slstm loop: output not finite")
+        self.stats["slstm loop"] = dict(slstm_s=per, layers=layers)
+        del p, x, out
         self._free()
 
     def group6(self) -> None:
@@ -2126,29 +2267,35 @@ class ModelSmoke:
 
     # -- training ---------------------------------------------------------
 
-    def train_run(self, arch: str, layers: int, batch: int, seq: int) -> None:
+    def train_run(self, arch: str, layers: int, batch: int, seq: int, remat: str) -> None:
         """``launch/train.py`` at full width cut to ``layers``: the first
         step's loss and gradient norm with the kernel against the plain
         flash version, then ``TRAIN_STEPS`` steps on one repeated batch,
         whose flash launches must be layers x steps (the backward launches
         none) and whose loss must fall; then the attention gradients at one
-        layer's shape."""
-        torch, fa = self.torch, self.fa
+        layer's shape.  Under another ``remat`` than "none", ``remat_run``
+        instead."""
+        torch = self.torch
         args = self.train.parse_args([
             "--arch", arch, "--n-layers", str(layers), "--batch", str(batch), "--seq", str(seq),
             "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--seed", str(self.s.seed),
             "--log-every", "1"])
-        self.live(f"train {arch}")
+        tag = f"train {arch}" + (f" remat {remat}" if remat != "none" else "")
+        self.live(tag)
         torch.cuda.reset_peak_memory_stats()
         t = self.train.build(args)
         cfg = t.model.cfg
         fixed = t.data.batch_at(0)
         n_params = sum(p.numel() for p in t.model.parameters())
-        _log(f"train {arch}: {cfg.n_layers} of {self.f.configs.config(arch).n_layers} layers "
+        _log(f"{tag}: {cfg.n_layers} of {self.f.configs.config(arch).n_layers} layers "
              f"at full width (d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
              f"d_ff {cfg.d_ff}, vocab {cfg.vocab}), {n_params} float32 parameters, "
              f"{cfg.optimizer}, lr {TRAIN_LR}, batch {batch} x seq {seq}, {TRAIN_STEPS} steps "
              "on one repeated batch")
+        if remat != "none":
+            self.remat_run(tag, args, t, fixed, remat)
+            return
+        fa = self.fa
         # the first step with the plain flash version in the kernel's place
         real = fa.FLASH.kernel
         fa.FLASH.kernel = lambda *a, warpgroups=None: fa.FLASH.plain(*a)
@@ -2194,6 +2341,82 @@ class ModelSmoke:
         del t, fixed
         self._free()
         self.attention_grads(arch, batch, seq, cfg)
+
+    def remat_run(self, tag: str, args, t, fixed, remat: str) -> None:
+        """After an untimed step, one forward and backward on ``fixed`` under
+        remat "none", "full" and ``remat`` (each step's time, peak memory
+        and flash launches, the forward's apart), then ``TRAIN_STEPS`` steps under ``remat``: its
+        first step's loss and gradient norm within ``TRAIN_REL`` of
+        "none"'s, its loss falling, and its launches ``steps x`` the step's
+        (the forward's one a layer, plus one a layer where the backward
+        recomputes the attention)."""
+        torch, fa = self.torch, self.fa
+        cfg = t.model.cfg
+        params = [p for p in t.model.parameters()]
+        # an untimed step first, under a checkpoint: the card's first
+        # backward sets up cuBLAS and the allocator, and the first
+        # checkpoint imports torch._dynamo (seconds), which would count
+        # against the first policy timed
+        t.model.cfg = cfg.replace(remat="full")
+        torch.autograd.grad(t.model.loss(fixed)[0], params)
+        step: dict = {}
+        for policy in ("none", "full", remat):
+            t.model.cfg = cfg.replace(remat=policy)
+            self._free()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            self.zero_counts()
+            t0 = time.perf_counter()
+            loss, _ = t.model.loss(fixed)
+            fwd = self.counts()["flash_wgmma"]
+            grads = torch.autograd.grad(loss, params)
+            gn = float(self.optimizer.global_norm(dict(enumerate(grads))))
+            torch.cuda.synchronize()
+            step[policy] = dict(loss=loss.item(), gnorm=gn, step_s=time.perf_counter() - t0,
+                                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                act_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                                fwd=fwd, launches=self.counts()["flash_wgmma"])
+            del loss, grads
+        t.model.cfg = cfg.replace(remat=remat)
+        self._free()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        self.train.run(args, t, batch_at=lambda i: fixed)
+        launches = {k: v for k, v in self.counts().items() if k in fa.ROUTES}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_s = statistics.median(t.step_s[1:])
+        _log(f"{tag} one step on the batch per remat policy: " + "; ".join(
+             f"{k}: loss {v['loss']:.6f} grad_norm {v['gnorm']:.6f} step_s {v['step_s']:.4f} "
+             f"peak_gib {v['peak_gib']:.3f} (above the weights and state: {v['act_gib']:.3f}) "
+             f"flash_wgmma forward {v['fwd']} step {v['launches']}" for k, v in step.items())
+             + f" card={self.card}")
+        _log(f"{tag} losses={[round(x, 5) for x in t.losses]} grad_norms="
+             f"{[round(x, 5) for x in t.grad_norms]} step_s={step_s:.4f} (first "
+             f"{t.step_s[0]:.4f}) tok_s={args.batch * args.seq / step_s:.1f} "
+             f"peak_gib={peak:.3f} launches={launches} card={self.card}")
+        n, mine = cfg.n_layers, step[remat]
+        want = dict.fromkeys(fa.ROUTES, 0)
+        want["flash_wgmma"] = mine["launches"] * TRAIN_STEPS
+        if (mine["fwd"] != n or mine["launches"] not in (n, 2 * n) or launches != want
+                or step["none"]["launches"] != n):
+            self.s.fail(f"{tag}: flash launches forward {mine['fwd']}, step "
+                        f"{mine['launches']}, run {launches} (want forward {n}, step {n} or "
+                        f"{2 * n}, run {want}; remat none's step {step['none']['launches']})")
+        rel_loss = abs(t.losses[0] - step["none"]["loss"]) / abs(step["none"]["loss"])
+        rel_gn = abs(t.grad_norms[0] - step["none"]["gnorm"]) / abs(step["none"]["gnorm"])
+        ok = rel_loss <= TRAIN_REL and rel_gn <= TRAIN_REL
+        _log(f"{tag} first step vs remat none: loss rel {rel_loss:.3e} grad norm rel "
+             f"{rel_gn:.3e} gate {TRAIN_REL}: ok={ok} card={self.card}")
+        if not ok:
+            self.s.fail(f"{tag}: first step differs from remat none's (loss rel {rel_loss}, "
+                        f"grad norm rel {rel_gn})")
+        if not all(math.isfinite(x) for x in t.losses) or not t.losses[-1] < t.losses[0]:
+            self.s.fail(f"{tag}: the loss did not fall over the repeated batch {t.losses}")
+        self.stats[tag] = dict(losses=t.losses, aux=t.aux, grad_norms=t.grad_norms,
+                               step_s=step_s, tok_s=args.batch * args.seq / step_s,
+                               peak_gib=peak, launches=launches, policies=step)
+        del t, fixed, params
+        self._free()
 
     def attention_grads(self, arch, b, s, cfg) -> None:
         """At one layer's attention shape: q, k, v (and, at a quarter of
@@ -2725,20 +2948,25 @@ def main(argv=None) -> int:
     t1 = time.perf_counter()
     for arch, *_ in FAMILY_SERVES:
         lm.card_vs_cpu(arch)
-    _log(f"phase family card vs cpu: {time.perf_counter() - t1:.1f} s; families in all "
+    _log(f"phase family card vs cpu: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    lm.mlstm_hold()
+    lm.slstm_loop()
+    _log(f"phase family xlstm holds: {time.perf_counter() - t1:.1f} s; families in all "
          f"{time.perf_counter() - t0:.1f} s")
     # row 5's launches: yi-6b's serve, the families' prefills and the MoE
-    # training run below
+    # and remat "dots" training runs below
     launches["flash_wgmma"] += sum(lm.stats[f"family {arch}"]["flash_launches"]
                                    for arch, *_ in FAMILY_SERVES)
 
     t0 = time.perf_counter()
-    for arch, layers, b, seq in TRAIN_RUNS:
+    for arch, layers, b, seq, remat in TRAIN_RUNS:
         t1 = time.perf_counter()
-        lm.train_run(arch, layers, b, seq)
-        _log(f"phase train {arch}: {time.perf_counter() - t1:.1f} s")
-        if arch == "qwen2-moe-a2.7b":
-            launches["flash_wgmma"] += lm.stats[f"train {arch}"]["launches"]["flash_wgmma"]
+        lm.train_run(arch, layers, b, seq, remat)
+        tag = f"train {arch}" + (f" remat {remat}" if remat != "none" else "")
+        _log(f"phase {tag}: {time.perf_counter() - t1:.1f} s")
+        if arch == "qwen2-moe-a2.7b" or remat != "none":
+            launches["flash_wgmma"] += lm.stats[tag]["launches"]["flash_wgmma"]
     _log(f"phase train: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2845,6 +3073,8 @@ def main(argv=None) -> int:
          f"prefill16_{SMALL_TILE_S}_s={st[f'prefill16_{SMALL_TILE_S}_s']:.4f} "
          f"logit16_{SMALL_TILE_S}_rel={st[f'logit16_{SMALL_TILE_S}_rel']:.3e}")
     for key, d in lm.stats.items():
+        if key in ("mlstm hold", "slstm loop"):
+            continue
         _log(f"{key} summary: prefill_s={d['prefill_s']:.4f} "
              f"decode_tok_s={d['decode_tok_s']:.2f} peak_gib={d['peak_gib']:.3f} "
              f"hold_prefill_s={d['hold_prefill_s']:.4f} logit_err={d['logit_err']:.3e} "

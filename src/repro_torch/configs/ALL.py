@@ -1,23 +1,25 @@
 """The architectures the port runs and their reduced forms.
 
-The JAX package registers ten; the port runs seven: the four dense
-decoders (yi-6b, granite-8b, internlm2-20b, stablelm-12b), the MoE
+The port runs every architecture the JAX package registers: the four
+dense decoders (yi-6b, granite-8b, internlm2-20b, stablelm-12b), the MoE
 models qwen2-moe-a2.7b and deepseek-v3-671b (MLA, dense prefix layers,
-multi-token prediction) and the hybrid jamba-v0.1-52b (Mamba, attention
-and MoE).  xlstm-350m, qwen2-vl-72b and seamless-m4t-large-v2 need
-mixers, M-RoPE and an encoder the port has not ported yet (ROADMAP
-A.8.3), and asking for one raises ``NotImplementedError``.
+multi-token prediction), the hybrid jamba-v0.1-52b (Mamba, attention
+and MoE), xlstm-350m (mLSTM and sLSTM blocks), the vision-language
+qwen2-vl-72b (patch embeddings, M-RoPE) and the encoder-decoder
+seamless-m4t-large-v2 (a bidirectional encoder, cross attention).
 """
 
 from . import (deepseek_v3_671b, granite_8b, internlm2_20b, jamba_v01_52b, qwen2_moe_a27b,
-               stablelm_12b, yi_6b)
+               qwen2_vl_72b, seamless_m4t_large_v2, stablelm_12b, xlstm_350m, yi_6b)
 from .base import ArchConfig
 
-__all__ = ["ARCH_IDS", "FULL", "REDUCED", "REFERENCE_ARCH_IDS", "config"]
+__all__ = ["ARCH_IDS", "FULL", "REDUCED", "config"]
 
 _MODULES = {"yi-6b": yi_6b, "granite-8b": granite_8b, "internlm2-20b": internlm2_20b,
             "stablelm-12b": stablelm_12b, "qwen2-moe-a2.7b": qwen2_moe_a27b,
-            "deepseek-v3-671b": deepseek_v3_671b, "jamba-v0.1-52b": jamba_v01_52b}
+            "deepseek-v3-671b": deepseek_v3_671b, "jamba-v0.1-52b": jamba_v01_52b,
+            "xlstm-350m": xlstm_350m, "qwen2-vl-72b": qwen2_vl_72b,
+            "seamless-m4t-large-v2": seamless_m4t_large_v2}
 
 FULL = {name: mod.FULL for name, mod in _MODULES.items()}
 
@@ -25,26 +27,11 @@ REDUCED = {name: mod.reduced for name, mod in _MODULES.items()}
 
 ARCH_IDS = list(FULL)
 
-# Every architecture of the JAX package, ported or not.
-REFERENCE_ARCH_IDS = (
-    "seamless-m4t-large-v2",
-    "stablelm-12b",
-    "yi-6b",
-    "granite-8b",
-    "internlm2-20b",
-    "deepseek-v3-671b",
-    "qwen2-moe-a2.7b",
-    "qwen2-vl-72b",
-    "jamba-v0.1-52b",
-    "xlstm-350m",
-)
-
 
 def config(name: str, smoke: bool = False) -> ArchConfig:
     """The full (or, with ``smoke``, reduced) config of ``name``.
 
     Raises:
-        NotImplementedError: ``name`` is not ported yet (ROADMAP A.8.3).
         ValueError: ``name`` is no architecture of the repository.
 
     Example:
@@ -52,12 +39,11 @@ def config(name: str, smoke: bool = False) -> ArchConfig:
         (4096, 96)
         >>> config("jamba-v0.1-52b").n_periods, config("deepseek-v3-671b").n_prefix
         (4, 3)
+        >>> config("xlstm-350m").n_periods, config("qwen2-vl-72b").mrope_sections
+        (3, (16, 24, 24))
+        >>> config("seamless-m4t-large-v2", smoke=True).encoder_layers
+        2
     """
     if name in FULL:
         return REDUCED[name]() if smoke else FULL[name]
-    if name in REFERENCE_ARCH_IDS:
-        raise NotImplementedError(
-            f"{name} is not ported yet: the port runs {ARCH_IDS} "
-            "(its other model families are ROADMAP A.8.3)"
-        )
-    raise ValueError(f"unknown architecture {name!r}; known: {list(REFERENCE_ARCH_IDS)}")
+    raise ValueError(f"unknown architecture {name!r}; known: {ARCH_IDS}")

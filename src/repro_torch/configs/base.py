@@ -1,11 +1,12 @@
 """The port's own copy of the architecture configuration dataclasses.
 
-``LayerSpec``, ``MoECfg``, ``MLACfg``, ``MambaCfg`` and ``ArchConfig``
-carry the fields of the JAX package's ``configs/base.py`` that serving
-and training a decoder on one card read or refuse: the dense, MoE, MLA
-and hybrid (Mamba) families.  The xLSTM config waits for its slice
-(ROADMAP A.8.3) and the sharding knobs for distribution (ROADMAP A.9).
-``param_count`` counts the port's own ``Model`` on the meta device.
+``LayerSpec``, ``MoECfg``, ``MLACfg``, ``MambaCfg``, ``XLSTMCfg`` and
+``ArchConfig`` carry the fields of the JAX package's ``configs/base.py``
+that serving and training every architecture on one card read: the
+dense, MoE, MLA, hybrid (Mamba), xLSTM, vision-language (patch
+embeddings, M-RoPE) and encoder-decoder families.  The sharding knobs
+wait for distribution (ROADMAP A.9).  ``param_count`` counts the port's
+own ``Model`` on the meta device.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-__all__ = ["LayerSpec", "MoECfg", "MLACfg", "MambaCfg", "ArchConfig"]
+__all__ = ["LayerSpec", "MoECfg", "MLACfg", "MambaCfg", "XLSTMCfg", "ArchConfig"]
 
 
 @dataclass(frozen=True)
@@ -62,6 +63,18 @@ class MambaCfg:
 
 
 @dataclass(frozen=True)
+class XLSTMCfg:
+    """The xLSTM mixers' sizes: heads, the mLSTM's and the sLSTM FFN's
+    projection factors, the causal conv width and the mLSTM chunk."""
+
+    n_heads: int = 4
+    proj_factor_mlstm: float = 2.0
+    proj_factor_slstm: float = 4.0 / 3.0
+    d_conv: int = 4
+    chunk: int = 64  # chunkwise-parallel mLSTM chunk length
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     """A model architecture: widths, layer pattern and executor knobs."""
 
@@ -81,9 +94,13 @@ class ArchConfig:
     moe: Optional[MoECfg] = None
     mla: Optional[MLACfg] = None
     mamba: Optional[MambaCfg] = None
+    xlstm: Optional[XLSTMCfg] = None
     rope_theta: float = 1_000_000.0
+    # qwen2-vl's M-RoPE: the (t, h, w) streams' shares of the D/2 slots
     mrope_sections: Optional[Tuple[int, int, int]] = None
+    # > 0 adds a bidirectional encoder fed frame embeddings (seamless)
     encoder_layers: int = 0
+    # precomputed patch embeddings prepended to the text (qwen2-vl)
     n_patches: int = 0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -92,7 +109,7 @@ class ArchConfig:
     param_dtype: str = "float32"
     sub_quadratic: bool = False  # may run the reference's long_500k cell
     optimizer: str = "adamw"  # adamw | adafactor
-    remat: str = "full"  # none | full | dots (ROADMAP A.8.4)
+    remat: str = "full"  # none | full | dots
     attention_chunk: int = 512  # chunked-attention tile
     attention_schedule: str = "folded"  # folded (simplex) | bb (baseline)
     # prefill attention executor: "auto" resolves through

@@ -1,14 +1,19 @@
 """Batched serving: prefill a batch of prompts, decode N tokens.
 
 The model is float32 with weights initialised from ``--seed``; the
-prompts come from the same seed.  Every decode step attends to the
-*fixed* prefill cache plus the new token, the JAX package's semantics
-(its ``launch/serve.py``): nothing is appended to the cache.  Every
-architecture of ``configs.ALL.ARCH_IDS`` serves: the dense family, the
-MoE models and the hybrid jamba.
+prompts come from the same seed, as the JAX package's ``launch/serve.py``
+builds them: a VLM's ``--prompt-len`` positions are its ``n_patches``
+patch embeddings and the text tokens after them, and an encoder-decoder
+model's encoder takes ``--prompt-len`` frame embeddings; both are drawn
+from N(0, 1) in float32.  Every decode step attends to the *fixed*
+prefill cache plus the new token, at the absolute position
+``prompt_len + i``, the reference's semantics: nothing is appended to
+the cache.  Every architecture of ``configs.ALL.ARCH_IDS`` serves.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --smoke \
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --smoke \
       --device cpu
 """
 
@@ -33,7 +38,11 @@ class ServeRun:
 
     Attributes:
         model: The model that served.
-        prompts: ``(B, prompt_len)`` prompt token ids on the model's device.
+        prompts: ``(B, prompt_len - n_patches)`` prompt token ids on the
+            model's device.
+        inputs: The whole prefill batch: ``"tokens"`` (``prompts``), and
+            ``"patches"`` (B, n_patches, d) or ``"src_embeds"`` (B,
+            prompt_len, d) where the config takes them.
         prefill_logits: ``(B, 1, vocab)`` logits of the last prompt token.
         tokens: ``(B, gen+1)`` generated token ids on the host: the
             prefill's greedy token, then one per decode step.
@@ -43,6 +52,7 @@ class ServeRun:
 
     model: Model
     prompts: torch.Tensor
+    inputs: dict
     prefill_logits: torch.Tensor
     tokens: torch.Tensor
     prefill_s: float
@@ -81,11 +91,17 @@ def run(args: argparse.Namespace) -> ServeRun:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = Model(cfg, device=device).init(gen)
     b, s = args.batch, args.prompt_len
-    prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=device)
+    prompts = torch.randint(0, cfg.vocab, (b, s - cfg.n_patches), generator=gen, device=device)
+    inputs = {"tokens": prompts}
+    if cfg.n_patches:
+        inputs["patches"] = torch.randn((b, cfg.n_patches, cfg.d_model), generator=gen,
+                                        device=device)
+    if cfg.encoder_layers:
+        inputs["src_embeds"] = torch.randn((b, s, cfg.d_model), generator=gen, device=device)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = model.prefill({"tokens": prompts})
+    logits, caches = model.prefill(inputs)
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
@@ -106,7 +122,7 @@ def run(args: argparse.Namespace) -> ServeRun:
     _sync(device)
     decode_s = time.perf_counter() - t0
     tokens = torch.cat(out, 1).cpu()
-    return ServeRun(model, prompts, prefill_logits, tokens, prefill_s, decode_s)
+    return ServeRun(model, prompts, inputs, prefill_logits, tokens, prefill_s, decode_s)
 
 
 def main(argv=None) -> torch.Tensor:

@@ -7,8 +7,10 @@ Causal attention's ``(q_tile, kv_tile)`` iteration space is a standard
 (``'bb'``) walks all ``nq x nq`` tiles and masks, the folded schedule
 walks ``nq/2`` pairs of ``nq+1`` tiles.  ``simplex_attention`` sends
 prefill to the flash kernel (``kernels/flash_attention.py``) when a tile
-maps the shape.  Only the mesh-less path is ported; distribution is
-ROADMAP A.9.
+maps the shape.  ``full_attention`` is the bidirectional attention of
+the encoder and of cross attention, plain torch as in the reference
+(where it reaches no Pallas kernel).  Only the mesh-less path is ported;
+distribution is ROADMAP A.9.
 """
 
 from __future__ import annotations
@@ -20,12 +22,13 @@ import torch
 from ..autotune.tuner import choose_attn_impl
 from ..kernels.flash_attention import flash_attention
 from ..kernels.policy import resolve_device
-from .layers import Params, dense_init, rope
+from .layers import Params, dense_init, mrope, rope
 
 NEG_INF = -1e30
 
 __all__ = [
     "chunked_causal_attention",
+    "full_attention",
     "simplex_attention",
     "sharded_causal_attention",
     "decode_attention",
@@ -139,6 +142,40 @@ def chunked_causal_attention(
     return out.reshape(b, hq, s, dv).to(q.dtype)
 
 
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, chunk: int = 512,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Bidirectional (encoder or cross) attention, GQA aware, chunked over
+    the keys with an online softmax.
+
+    q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv).  Returns
+    (B, Hq, Sq, Dv) in q's dtype.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    chunk = _best_chunk(sk, chunk)
+    nk = sk // chunk
+    qg = (q.float() * scale).to(q.dtype).reshape(b, hkv, g, sq, d)
+    kt = k.reshape(b, hkv, nk, chunk, d)
+    vt = v.reshape(b, hkv, nk, chunk, dv)
+    m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, dv), device=q.device)
+    for j in range(nk):
+        sc = _gqa_scores(qg, kt[:, :, j])  # (B,Hkv,G,sq,bk)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        pr = torch.exp(sc - m_new[..., None])
+        l = l * alpha + pr.sum(-1)
+        acc = acc * alpha[..., None] + _gqa_out(pr, vt[:, :, j])
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.reshape(b, hq, sq, dv).to(q.dtype)
+
+
 def simplex_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -248,29 +285,45 @@ def attn_apply(
     *,
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     mode: str = "train",
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    bidirectional: bool = False,
+    positions3: Optional[torch.Tensor] = None,
 ):
     """Returns ``(out, new_cache)``.  Modes:
-    train/prefill — full-sequence causal attention (prefill also returns
-    the ``(k, v)`` cache); decode — x is (B, 1, D) attending to
-    ``cache`` plus itself, and the new cache is ``(kc, vc, k, v)`` for
-    the caller to append.  Cross-attention and M-RoPE wait for the
-    models that use them (ROADMAP A.8).
+    train/prefill — full-sequence causal attention, or bidirectional with
+    ``bidirectional`` (prefill also returns the ``(k, v)`` cache); decode
+    — x is (B, 1, D) attending to ``cache`` plus itself, and the new cache
+    is ``(kc, vc, k, v)`` for the caller to append.
+
+    ``cross_kv`` attends to the given encoder ``(k, v)`` instead
+    (bidirectional, no RoPE, no cache, in every mode).  With
+    ``cfg.mrope_sections`` and ``positions3`` (B, S, 3), q and k take
+    M-RoPE instead of RoPE.
     """
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE attention is ROADMAP A.8")
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
     q = (x @ p["wq"].to(dt)).reshape(b, s, hq, hd).transpose(1, 2)
-    k = (x @ p["wk"].to(dt)).reshape(b, s, hkv, hd).transpose(1, 2)
-    v = (x @ p["wv"].to(dt)).reshape(b, s, hkv, hd).transpose(1, 2)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cross_kv is None:
+        k = (x @ p["wk"].to(dt)).reshape(b, s, hkv, hd).transpose(1, 2)
+        v = (x @ p["wv"].to(dt)).reshape(b, s, hkv, hd).transpose(1, 2)
+        if cfg.mrope_sections is not None and positions3 is not None:
+            q = mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
+            k = mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta)
+        else:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = cross_kv
     new_cache = None
-    if mode == "decode":
+    if mode == "decode" and cross_kv is None:
         kc, vc = cache[0], cache[1]
         o = decode_attention(q, kc, vc, k, v)
         new_cache = (kc, vc, k, v)
+    elif bidirectional or cross_kv is not None:
+        o = full_attention(q, k, v, chunk=cfg.attention_chunk)
+        if mode == "prefill" and cross_kv is None:
+            new_cache = (k, v)
     else:
         o = sharded_causal_attention(q.contiguous(), k.contiguous(), v.contiguous(), cfg)
         if mode == "prefill":

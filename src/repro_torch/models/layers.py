@@ -1,16 +1,17 @@
-"""Shared model layers: dense init, RMSNorm, NeoX RoPE, SwiGLU, embeddings.
+"""Shared model layers: dense init, RMSNorm, LayerNorm, NeoX RoPE, M-RoPE,
+SwiGLU, embeddings.
 
 Each layer is a function on tensors that takes its parameters as a
 mapping (``p["w"]``), as the JAX package's ``models/layers.py`` does, plus
 a thin ``nn.Module`` that holds those parameters under the same names
-and can be indexed like the mapping, so a JAX parameter tree maps onto the port's ``state_dict`` leaf
-for leaf.  ``layernorm`` and ``mrope`` wait for the models that use them
-(ROADMAP A.8).
+and can be indexed like the mapping, so a JAX parameter tree maps onto
+the port's ``state_dict`` leaf for leaf.  ``layernorm`` is part of the
+reference's public layers; no model calls it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -18,7 +19,9 @@ from torch import nn
 __all__ = [
     "dense_init",
     "rmsnorm",
+    "layernorm",
     "rope",
+    "mrope",
     "swiglu",
     "embed",
     "Params",
@@ -68,11 +71,31 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(dt) * p["w"].to(dt)
 
 
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) / std * w + b`` with the statistics in float32 (the
+    population variance)."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * p["w"].to(dt) + p["b"].to(dt)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _inv_freq(half: int, theta: float, device) -> torch.Tensor:
+    """The rotary frequencies ``theta ** (-i / half)``, float32."""
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=device) / half))
+
+
 def _rope_angles(positions: torch.Tensor, dim: int, theta: float):
     """positions (..., S) -> cos/sin (..., S, dim/2), float32."""
-    half = dim // 2
-    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
-    freq = 1.0 / (theta ** (idx / half))
+    freq = _inv_freq(dim // 2, theta, positions.device)
     ang = positions.to(torch.float32)[..., None] * freq
     return torch.cos(ang), torch.sin(ang)
 
@@ -81,10 +104,33 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6) -> torch.
     """NeoX-style rotary embedding.  x: (B, H, S, D); positions: (B, S)."""
     d = x.shape[-1]
     cos, sin = _rope_angles(positions, d, theta)
-    cos, sin = cos[:, None], sin[:, None]  # (B, 1, S, D/2)
-    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return _rotate(x, cos[:, None], sin[:, None])  # (B, 1, S, D/2) angles
+
+
+def mrope(x: torch.Tensor, positions3: torch.Tensor, sections: Tuple[int, int, int],
+          theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.
+
+    Args:
+        x: (B, H, S, D).
+        positions3: (B, S, 3), the (t, h, w) position streams.
+        sections: How many of the D/2 frequency slots each stream drives,
+            in order; they sum to D/2.
+        theta: The RoPE base.
+
+    Returns:
+        x rotated NeoX-style, in x's dtype.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim/2 = {half}")
+    dev = x.device
+    # frequency slot -> the position stream that drives it
+    sec_id = torch.repeat_interleave(torch.arange(3, device=dev),
+                                     torch.tensor(tuple(sections), device=dev))
+    pos = positions3.to(torch.float32).index_select(-1, sec_id)  # (B, S, half)
+    ang = pos * _inv_freq(half, theta, dev)
+    return _rotate(x, torch.cos(ang)[:, None], torch.sin(ang)[:, None])
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,29 @@
-"""The decoder as one ``nn.Module``: init, loss, prefill, decode, caches.
+"""The model as one ``nn.Module``: init, loss, prefill, decode, caches.
 
-It mirrors the JAX package's ``Model`` for decoder-only configs: the
-dense family (yi-6b, granite-8b, internlm2-20b, stablelm-12b), the MoE
-models (qwen2-moe-a2.7b; deepseek-v3-671b with MLA, its unrolled dense
-prefix layers and the multi-token prediction head) and the hybrid
-jamba-v0.1-52b (Mamba, attention and MoE).  Token embedding, the prefix
-blocks, the period stack, a final RMSNorm and an untied unembedding; the
-loss is the next-token cross-entropy plus the experts' balance loss and,
-with ``cfg.mtp``, 0.3 times the MTP head's cross-entropy.  Patches,
-M-RoPE and the encoder wait for their slices (ROADMAP A.8.3).  The
-module holds the parameters;
-``self.cfg`` is read on every call, so swapping it (for example
-``attention_impl``) changes the executor, not the weights.
+It mirrors the JAX package's ``Model`` for every architecture: the dense
+family (yi-6b, granite-8b, internlm2-20b, stablelm-12b), the MoE models
+(qwen2-moe-a2.7b; deepseek-v3-671b with MLA, its unrolled dense prefix
+layers and the multi-token prediction head), the hybrid jamba-v0.1-52b
+(Mamba, attention and MoE), xlstm-350m (mLSTM and sLSTM blocks), the
+vision-language qwen2-vl-72b and the encoder-decoder
+seamless-m4t-large-v2.  Token embedding, the prefix blocks, the period
+stack, a final RMSNorm and an untied unembedding; the loss is the
+next-token cross-entropy plus the experts' balance loss and, with
+``cfg.mtp``, 0.3 times the MTP head's cross-entropy.
+
+With ``cfg.n_patches``, a batch's ``patches`` (B, P, d), precomputed
+patch embeddings, are prepended to the text and the attention takes
+M-RoPE positions: a patch ``i`` sits at ``(0, i // side, i % side)`` and
+text token ``j`` at ``(j + 1, j + side, j + side)``, ``side =
+isqrt(P)``; decode gives all three streams the token's absolute
+position, as the reference does.  With ``cfg.encoder_layers``, a batch's
+``src_embeds`` (B, Sk, d), precomputed frame embeddings, run through a
+bidirectional encoder stack and its final norm, and every decoder block
+cross-attends to the result (prefill keeps its K/V in the caches).
+
+The module holds the parameters; ``self.cfg`` is read on every call, so
+swapping it (for example ``attention_impl``) changes the executor, not
+the weights.
 
 The parameters are made with ``requires_grad=False`` and ``prefill`` and
 ``decode`` run under ``torch.no_grad()``, so serving records no graph; a
@@ -20,6 +32,7 @@ trainer turns gradients on with ``model.requires_grad_(True)``.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -28,32 +41,17 @@ from torch import nn
 from ..configs.base import LayerSpec
 from ..kernels.policy import resolve_device
 from .layers import Embed, Params, RMSNorm, dense_init, embed, rmsnorm
-from .transformer import (Block, block_apply, check_spec, init_block_cache, stack_apply,
-                          stack_init)
+from .transformer import Block, block_apply, init_block_cache, stack_apply, stack_init
 
 # The MTP head's block: attention (MLA under cfg.attention == "mla") and
 # a dense FFN, as the reference's ``Model`` builds it.
 MTP_SPEC = LayerSpec("attn", "dense")
 # The weight of the MTP cross-entropy in the loss.
 MTP_WEIGHT = 0.3
+# The encoder's block: bidirectional attention and a dense FFN.
+ENCODER_SPEC = LayerSpec("attn", "dense")
 
 __all__ = ["Model"]
-
-
-def _check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    unported = [
-        name for name, on in (
-            ("an encoder", cfg.encoder_layers),
-            ("patch embeddings", cfg.n_patches),
-            ("M-RoPE", cfg.mrope_sections is not None),
-        ) if on
-    ]
-    if unported:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not ported "
-                                  "(ROADMAP A.8.3)")
-    for spec in tuple(cfg.prefix_spec) + tuple(cfg.period) + ((MTP_SPEC,) if cfg.mtp else ()):
-        check_spec(cfg, spec)
 
 
 class MTP(Params):
@@ -73,7 +71,8 @@ class MTP(Params):
 
 
 class Model(nn.Module):
-    """A decoder-only LM built from an ``ArchConfig``.
+    """An LM built from an ``ArchConfig``: a decoder, with an encoder
+    where the config has ``encoder_layers``.
 
     Args:
         cfg: The architecture.
@@ -84,23 +83,30 @@ class Model(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        _check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.specs = tuple(cfg.period)
         self.prefix_specs = tuple(cfg.prefix_spec)
+        self.is_encdec = cfg.encoder_layers > 0
         self.pdtype = getattr(torch, cfg.param_dtype)
         self.adtype = getattr(torch, cfg.act_dtype)
         self.embed = Embed(cfg.vocab, cfg.d_model, self.pdtype, device)
         self.final_norm = RMSNorm(cfg.d_model, self.pdtype, device)
-        self.stack = stack_init(cfg, self.specs, cfg.n_periods, self.pdtype, device)
+        self.stack = stack_init(cfg, self.specs, cfg.n_periods, self.pdtype, device,
+                                cross=self.is_encdec)
         if self.prefix_specs:
-            self.prefix = nn.ModuleDict({f"p{i}": Block(cfg, s, self.pdtype, device)
+            self.prefix = nn.ModuleDict({f"p{i}": Block(cfg, s, self.pdtype, device,
+                                                        cross=self.is_encdec)
                                          for i, s in enumerate(self.prefix_specs)})
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(
                 torch.empty((cfg.d_model, cfg.vocab), dtype=self.pdtype, device=device),
                 requires_grad=False)
+        if self.is_encdec:
+            self.encoder = nn.ModuleDict({
+                "stack": stack_init(cfg, (ENCODER_SPEC,), cfg.encoder_layers, self.pdtype,
+                                    device),
+                "final_norm": RMSNorm(cfg.d_model, self.pdtype, device)})
         if cfg.mtp:
             self.mtp = MTP(cfg, self.pdtype, device)
 
@@ -114,8 +120,8 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Fill every parameter from ``generator`` (on the model's device):
         the embedding, then the prefix blocks and each period's blocks in
-        order, the final norm, the unembedding and the MTP head.  Returns
-        the model."""
+        order, the final norm, the unembedding, the encoder's blocks and
+        final norm, and the MTP head.  Returns the model."""
         self.embed.init(generator)
         for i in range(len(self.prefix_specs)):
             self.prefix[f"p{i}"].init(generator)
@@ -125,6 +131,10 @@ class Model(nn.Module):
         self.final_norm.init(generator)
         if not self.cfg.tie_embeddings:
             dense_init(self.unembed.shape, generator, out=self.unembed.data)
+        if self.is_encdec:
+            for period in self.encoder["stack"]:
+                period["l0"].init(generator)
+            self.encoder["final_norm"].init(generator)
         if self.cfg.mtp:
             self.mtp.init(generator)
         return self
@@ -132,18 +142,38 @@ class Model(nn.Module):
     # ------------------------------------------------------------ embeddings
 
     def _embed_inputs(self, batch):
-        """Returns ``(embeds (B, S, d), positions (B, S))``."""
+        """Returns ``(embeds (B, S, d), positions (B, S), positions3 (B, S,
+        3) or None)``; with ``cfg.n_patches`` the batch's ``patches`` come
+        first and take M-RoPE positions."""
         tokens = batch["tokens"]
         x = embed(self.embed, tokens, self.adtype)
-        b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        return x, positions
+        positions3 = None
+        if self.cfg.n_patches and "patches" in batch:
+            x = torch.cat([batch["patches"].to(self.adtype), x], dim=1)
+            positions3 = self._mrope_positions(x.shape[1], x.device)[None].expand(
+                x.shape[0], -1, -1)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        return x, positions, positions3
+
+    def _mrope_positions(self, s: int, device) -> torch.Tensor:
+        """(S, 3) int32 ``(t, h, w)`` positions: the patches on their grid at
+        t = 0, then the text after it."""
+        p = self.cfg.n_patches
+        side = math.isqrt(p) or 1
+        grid = torch.arange(p, device=device)
+        text = torch.arange(s - p, device=device) + 1
+        t = torch.cat([torch.zeros_like(grid), text])
+        hh = torch.cat([grid // side, text + (side - 1)])
+        ww = torch.cat([grid % side, text + (side - 1)])
+        return torch.stack([t, hh, ww], dim=-1).to(torch.int32)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         w = self.embed["e"].T if self.cfg.tie_embeddings else self.unembed
         return x @ w.to(self.adtype)
 
-    def _backbone(self, x, positions, *, caches=None, mode="train"):
+    def _backbone(self, x, positions, *, caches=None, mode="train", enc_out=None,
+                  positions3=None):
         """The prefix blocks, then the stack, then the final norm; returns
         ``(x, new_caches, aux)``."""
         cfg = self.cfg
@@ -153,14 +183,31 @@ class Model(nn.Module):
             pc = {}
             for i, spec in enumerate(self.prefix_specs):
                 c_i = caches["prefix"][f"p{i}"] if caches else None
-                x, pc[f"p{i}"], a = block_apply(self.prefix[f"p{i}"], cfg, spec, x, positions,
-                                                cache=c_i, mode=mode)
+                cross_cache = c_i.get("cross") if (c_i and mode == "decode") else None
+                x, pc[f"p{i}"], a = block_apply(
+                    self.prefix[f"p{i}"], cfg, spec, x, positions, cache=c_i, mode=mode,
+                    enc_out=enc_out, cross_cache=cross_cache, positions3=positions3)
+                if cross_cache is not None:
+                    pc[f"p{i}"]["cross"] = cross_cache
                 aux = aux + a
             new_caches["prefix"] = pc
         x, new_caches["stack"], a = stack_apply(
             self.stack, cfg, self.specs, x, positions,
-            caches=caches["stack"] if caches else None, mode=mode)
+            caches=caches["stack"] if caches else None, mode=mode, enc_out=enc_out,
+            positions3=positions3)
         return rmsnorm(self.final_norm, x, cfg.norm_eps), new_caches, aux + a
+
+    def _encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder over ``src_embeds`` (B, Sk, d): bidirectional, in the
+        train mode (no caches) in every mode of the model, as the
+        reference runs it."""
+        cfg = self.cfg
+        b, s, _ = src_embeds.shape
+        positions = torch.arange(s, device=src_embeds.device)[None].expand(b, s)
+        x, _, _ = stack_apply(self.encoder["stack"], cfg, (ENCODER_SPEC,),
+                              src_embeds.to(self.adtype), positions, mode="train",
+                              bidirectional=True)
+        return rmsnorm(self.encoder["final_norm"], x, cfg.norm_eps)
 
     # ------------------------------------------------------------------ loss
 
@@ -170,7 +217,10 @@ class Model(nn.Module):
 
         Args:
             batch: ``{"tokens": (B, S+1)}`` integer tensor on the model's
-                device: the inputs are ``[:, :-1]``, the labels ``[:, 1:]``.
+                device: the inputs are ``[:, :-1]``, the labels ``[:, 1:]``;
+                plus ``"patches"`` (B, P, d) with ``cfg.n_patches`` (the
+                loss reads only the text positions) and ``"src_embeds"``
+                (B, Sk, d) with ``cfg.encoder_layers``.
 
         Returns:
             ``(total, {"ce": ce, "aux": aux})``, float32 scalars; ``aux``
@@ -180,9 +230,11 @@ class Model(nn.Module):
         """
         tokens = batch["tokens"]
         labels = tokens[:, 1:]
-        x, positions = self._embed_inputs({"tokens": tokens[:, :-1]})
-        h, _, aux = self._backbone(x, positions, mode="train")
-        h_text = h[:, -labels.shape[1]:]
+        x, positions, pos3 = self._embed_inputs({**batch, "tokens": tokens[:, :-1]})
+        enc_out = self._encode(batch["src_embeds"]) if self.is_encdec else None
+        h, _, aux = self._backbone(x, positions, mode="train", enc_out=enc_out,
+                                   positions3=pos3)
+        h_text = h[:, -labels.shape[1]:]  # the text positions, after any patches
         ce = _cross_entropy(self._logits(h_text), labels)
         total = ce + aux
         if self.cfg.mtp:
@@ -209,7 +261,8 @@ class Model(nn.Module):
 
         Args:
             batch: ``{"tokens": (B, S)}`` integer tensor on the model's
-                device.
+                device, plus ``"patches"`` and ``"src_embeds"`` as ``loss``
+                takes them.
 
         Returns:
             ``(last_logits (B, 1, vocab), caches)`` with ``caches =
@@ -217,10 +270,14 @@ class Model(nn.Module):
             period, and ``caches["prefix"] = {"p0": {"mixer": ...}, ...}``
             where the config has prefix layers.  A GQA block's cache is
             ``(k, v)``, an MLA block's ``(c_kv, k_pe)``, a Mamba block's
-            ``(ssm state, conv tail)``.
+            ``(ssm state, conv tail)``, an mLSTM block's ``(C, n, m, conv
+            tail)``, an sLSTM block's ``(c, n, h, m)``; a block with cross
+            attention also keeps the encoder's ``(k, v)`` as ``"cross"``.
         """
-        x, positions = self._embed_inputs(batch)
-        h, caches, _ = self._backbone(x, positions, mode="prefill")
+        x, positions, pos3 = self._embed_inputs(batch)
+        enc_out = self._encode(batch["src_embeds"]) if self.is_encdec else None
+        h, caches, _ = self._backbone(x, positions, mode="prefill", enc_out=enc_out,
+                                      positions3=pos3)
         return self._logits(h[:, -1:]), caches
 
     @torch.no_grad()
@@ -230,34 +287,41 @@ class Model(nn.Module):
         Args:
             caches: What ``prefill`` (or ``init_cache``) returned.
             batch: ``{"tokens": (B, 1), "pos": (B,)}``: the new token and
-                its absolute position.
+                its absolute position (with M-RoPE, the position of all
+                three streams).
 
         Returns:
             ``(logits (B, 1, vocab), new_caches)``; a GQA block's new cache
             is ``(kc, vc, k, v)`` and an MLA block's ``(c_kv, k_pe,
-            c_kv_new, k_pe_new)``, for a caller that appends; a Mamba
-            block's is its stepped ``(ssm state, conv tail)``.
+            c_kv_new, k_pe_new)``, for a caller that appends; a Mamba,
+            mLSTM or sLSTM block's is its stepped state; ``"cross"`` is
+            carried as it is.
         """
         x = embed(self.embed, batch["tokens"], self.adtype)
         positions = batch["pos"][:, None]
-        h, new_caches, _ = self._backbone(x, positions, caches=caches, mode="decode")
+        pos3 = None
+        if self.cfg.mrope_sections is not None:
+            pos3 = positions[..., None].expand(x.shape[0], 1, 3).to(torch.int32)
+        h, new_caches, _ = self._backbone(x, positions, caches=caches, mode="decode",
+                                          positions3=pos3)
         return self._logits(h), new_caches
 
     # ----------------------------------------------------------------- caches
 
     def init_cache(self, batch: int, seq: int, dtype: Optional[torch.dtype] = None):
-        """Zeroed caches of the ``prefill`` layout on the model's device."""
+        """Zeroed caches of the ``prefill`` layout on the model's device
+        (``"cross"`` in every block of an encoder-decoder model)."""
         dtype = dtype or self.adtype
-        stack: list = []
-        for _ in range(self.cfg.n_periods):
-            stack.append({f"l{i}": init_block_cache(self.cfg, s, batch, seq, dtype,
-                                                    self.device)
-                          for i, s in enumerate(self.specs)})
-        caches: Dict[str, Any] = {"stack": stack}
+
+        def blocks(specs, name):
+            return {f"{name}{i}": init_block_cache(self.cfg, s, batch, seq, dtype, self.device,
+                                                   cross=self.is_encdec)
+                    for i, s in enumerate(specs)}
+
+        caches: Dict[str, Any] = {"stack": [blocks(self.specs, "l")
+                                            for _ in range(self.cfg.n_periods)]}
         if self.prefix_specs:
-            caches["prefix"] = {f"p{i}": init_block_cache(self.cfg, s, batch, seq, dtype,
-                                                          self.device)
-                                for i, s in enumerate(self.prefix_specs)}
+            caches["prefix"] = blocks(self.prefix_specs, "p")
         return caches
 
 

@@ -7,14 +7,16 @@ keeps one tensor per period (``stack.<k>.l0.mixer.wq``), and three of the
 reference's rules read a leaf's shape:
 
 * decoupled weight decay on leaves of ``ndim >= 2`` only, so a stacked
-  RMSNorm weight ``(n_periods, d)`` is decayed;
+  RMSNorm weight ``(n_periods, d)`` is decayed (and an encoder's,
+  ``(encoder_layers, d)``);
 * Adafactor factors leaves of ``ndim >= 2`` over their last two axes, so
   that norm weight's column statistics span the periods;
 * Adafactor's relative update clipping takes the RMS of the update over
   the whole stacked leaf.
 
 So the optimizer groups each stacked leaf's ``n_periods`` tensors
-(``stacked_groups``), stacks their gradients and parameters, applies the
+(``models.convert.stacked_groups``; an encoder's ``encoder.stack.<k>``
+tensors the same way), stacks their gradients and parameters, applies the
 reference's rule to the stack and writes each period's slice back.  Its
 state is the reference's tree, keyed by the reference's dotted leaf
 names (``stack.l0.mixer.wq``), in float32.  ``update`` changes the
@@ -25,15 +27,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import re
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-__all__ = ["Optimizer", "make_optimizer", "warmup_cosine", "clip_by_global_norm",
-           "global_norm", "stacked_groups"]
+from ..models.convert import is_stacked, stacked_groups
 
-_PERIOD = re.compile(r"^stack\.(\d+)\.(.+)$")
+__all__ = ["Optimizer", "make_optimizer", "warmup_cosine", "clip_by_global_norm",
+           "global_norm", "stacked_groups", "is_stacked"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,35 +47,17 @@ class Optimizer:
     update: Callable[..., Tuple[Dict[str, torch.Tensor], Any]]
 
 
-def stacked_groups(names) -> Dict[str, List[str]]:
-    """The reference's leaf name of each parameter group, in the order
-    the names come: ``stack.<k>.<path>`` for ``k = 0..n-1`` become the
-    one stacked leaf ``stack.<path>`` (periods in order), every other name
-    is a leaf of its own.
-
-    Example:
-        >>> stacked_groups(["embed.e", "stack.0.l0.norm1.w", "stack.1.l0.norm1.w"])
-        {'embed.e': ['embed.e'], 'stack.l0.norm1.w': ['stack.0.l0.norm1.w', 'stack.1.l0.norm1.w']}
-    """
-    groups: Dict[str, List[Tuple[int, str]]] = {}
-    for name in names:
-        hit = _PERIOD.match(name)
-        key, k = (f"stack.{hit.group(2)}", int(hit.group(1))) if hit else (name, -1)
-        groups.setdefault(key, []).append((k, name))
-    return {key: [n for _, n in sorted(members)] for key, members in groups.items()}
-
-
 def _leaf(tensors: Dict[str, torch.Tensor], key: str, members: List[str]) -> torch.Tensor:
     """The reference's leaf: the group's tensors stacked (a stack leaf) or
     the one tensor."""
-    if key.startswith("stack."):
+    if is_stacked(key):
         return torch.stack([tensors[n] for n in members])
     return tensors[members[0]]
 
 
 def _write(params: Dict[str, torch.Tensor], key: str, members: List[str],
            value: torch.Tensor) -> None:
-    if key.startswith("stack."):
+    if is_stacked(key):
         for k, n in enumerate(members):
             params[n].copy_(value[k])
     else:
@@ -143,7 +126,7 @@ def make_optimizer(kind: str, lr: Callable, *, b1: float = 0.9, b2: float = 0.95
 
 def _leaf_shapes(params) -> Dict[str, Tuple[int, ...]]:
     """The reference's shape of each leaf (a stack leaf's periods first)."""
-    return {key: ((len(members),) if key.startswith("stack.") else ())
+    return {key: ((len(members),) if is_stacked(key) else ())
             + tuple(params[members[0]].shape)
             for key, members in stacked_groups(params).items()}
 

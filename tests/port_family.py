@@ -1,10 +1,12 @@
-"""Shared checks of the MoE, MLA and hybrid families against the JAX
-package (imported by ``tests/test_torch_moe.py``, ``test_torch_mla.py``
-and ``test_torch_mamba.py``).
+"""Shared checks of the MoE, MLA, hybrid, xLSTM, VLM and encoder-decoder
+families against the JAX package (imported by ``tests/test_torch_moe.py``,
+``test_torch_mla.py``, ``test_torch_mamba.py``, ``test_torch_xlstm.py``,
+``test_torch_vlm.py`` and ``test_torch_encdec.py``).
 
-Each family's reduced model runs the same numpy tokens on the parameters
-of the JAX ``Model`` (carried over by ``params_from_jax``): ``prefill``
-and two greedy ``decode`` steps within ``rtol 2e-3, atol 2e-4`` (the
+Each family's reduced model runs the same numpy tokens (and patch or
+frame embeddings, where the config takes them) on the parameters of the
+JAX ``Model`` (carried over by ``params_from_jax``): ``prefill`` (logits
+and every cache, the encoder's K/V included) and two greedy ``decode`` steps within ``rtol 2e-3, atol 2e-4`` (the
 dense family's tolerance, ``tests/test_torch_dense.py``), ``Model.loss``
 (total, ``ce``, ``aux``) within ``1e-5`` relative, and every gradient
 leaf within ``1e-4 * max|g| + 1e-7`` (``tests/test_torch_train.py``).  A
@@ -14,6 +16,7 @@ update within ``1e-6 * max|leaf|`` (``tests/test_torch_optim.py``).
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +28,8 @@ from repro.models.model import Model as RModel
 from repro.optim import optimizer as RO
 from repro_torch.configs import ALL as TALL
 from repro_torch.configs import base as TB
-from repro_torch.models.convert import flatten_tree, params_from_jax
+from repro_torch.models.convert import flatten_tree, params_from_jax, stacked_params
+from repro_torch.models.model import Model as TModel
 from repro_torch.optim import optimizer as TO
 
 SERVE_TOL = dict(rtol=2e-3, atol=2e-4)
@@ -73,33 +77,92 @@ def check_config(mine_mod, ref_mod, full_params: int) -> None:
     assert mine_mod.FULL.param_count() == full_params
 
 
+def embeddings(cfg, seed: int) -> dict:
+    """The non-token inputs of ``cfg``'s batch, float32 N(0, 1) from numpy:
+    ``patches`` (B, n_patches, d) and ``src_embeds`` (B, S, d) where the
+    config takes them."""
+    rng = np.random.default_rng(seed + 13)
+    out = {}
+    if cfg.n_patches:
+        out["patches"] = rng.standard_normal((B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_layers:
+        out["src_embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def nest(flat: dict) -> dict:
+    """``{"a.b": x}`` -> ``{"a": {"b": x}}``."""
+    out: dict = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return out
+
+
+def init_params(arch: str, seed: int) -> dict:
+    """The reduced model's parameters as the reference's tree of numpy
+    arrays, made by the port's ``Model.init`` from ``seed`` (the same
+    distributions as the reference's init, which costs seconds of XLA
+    compile on the CPU).  Its leaves and shapes are checked against
+    ``jax.eval_shape`` of the reference's ``Model.init``."""
+    tcfg, rcfg = cfgs(arch)
+    model = TModel(tcfg, device="cpu").init(torch.Generator().manual_seed(seed))
+    flat = {k: v.numpy() for k, v in stacked_params(model).items()}
+    shapes = jax.eval_shape(RModel(rcfg).init, jax.random.PRNGKey(seed))
+    want = {jax.tree_util.keystr(path, simple=True, separator="."): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    assert sorted(flat) == sorted(want)
+    for name, leaf in want.items():
+        assert flat[name].shape == leaf.shape and flat[name].dtype == leaf.dtype, name
+    return nest(flat)
+
+
 def reference(arch: str, seed: int = 0):
     """The JAX side of one family's reduced model, computed once: numpy
-    parameters, tokens, prefill logits and caches, the decode steps on
-    JAX's greedy tokens, and the loss, its metrics and gradients."""
+    parameters, tokens and embeddings, prefill logits and caches, the
+    decode steps on JAX's greedy tokens (at positions after the prefill's
+    last), and the loss, its metrics and gradients.
+
+    Each function runs under ``jax.jit``, lowered here and compiled on a
+    worker thread, so that XLA compiles one while the next is traced."""
     hermetic()
     _, rcfg = cfgs(arch)
     rmodel = RModel(rcfg)
-    params = jax.jit(rmodel.init)(jax.random.PRNGKey(seed))
+    params = jax.tree_util.tree_map(jnp.asarray, init_params(arch, seed))
     rng = np.random.default_rng(seed + 7)
     tokens = rng.integers(0, rcfg.vocab, (B, S + 1)).astype(np.int32)
-    prompt = jnp.asarray(tokens[:, :S])
-    logits, caches = jax.jit(rmodel.prefill)(params, {"tokens": prompt})
-    decode = jax.jit(rmodel.decode)
-    tok = np.asarray(jnp.argmax(logits[:, -1], -1))[:, None].astype(np.int32)
-    steps = []
-    for i in range(STEPS):
-        pos = np.full((B,), S + i, np.int32)
-        lg, _ = decode(params, caches, {"tokens": jnp.asarray(tok), "pos": jnp.asarray(pos)})
-        steps.append((tok, pos, np.asarray(lg)))
-        tok = np.asarray(lg)[:, -1].argmax(-1)[:, None].astype(np.int32)
-    (loss, metrics), grads = jax.jit(jax.value_and_grad(
-        lambda p: rmodel.loss(p, {"tokens": jnp.asarray(tokens)}), has_aux=True))(params)
+    extra = embeddings(rcfg, seed)
+    jextra = {k: jnp.asarray(v) for k, v in extra.items()}
+    prompt = {"tokens": jnp.asarray(tokens[:, :S]), **jextra}
+    value_and_grad = jax.value_and_grad(
+        lambda p: rmodel.loss(p, {"tokens": jnp.asarray(tokens), **jextra}), has_aux=True)
+    step0 = {"tokens": jnp.zeros((B, 1), jnp.int32), "pos": jnp.zeros((B,), jnp.int32)}
+    with ThreadPoolExecutor(2) as pool:
+        grad = pool.submit(jax.jit(value_and_grad).lower(params).compile)
+        prefill = pool.submit(jax.jit(rmodel.prefill).lower(params, prompt).compile)
+        logits, caches = prefill.result()(params, prompt)
+        decode = jax.jit(rmodel.decode).lower(params, caches, step0).compile()
+        tok = np.asarray(jnp.argmax(logits[:, -1], -1))[:, None].astype(np.int32)
+        steps = []
+        for i in range(STEPS):
+            pos = np.full((B,), rcfg.n_patches + S + i, np.int32)
+            lg, _ = decode(params, caches, {"tokens": jnp.asarray(tok), "pos": jnp.asarray(pos)})
+            steps.append((tok, pos, np.asarray(lg)))
+            tok = np.asarray(lg)[:, -1].argmax(-1)[:, None].astype(np.int32)
+        (loss, metrics), grads = grad.result()(params)
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-    return dict(arch=arch, params=np_tree(params), tokens=tokens, logits=np.asarray(logits),
-                caches=np_tree(caches), steps=steps, loss=float(loss),
-                ce=float(metrics["ce"]), aux=float(metrics["aux"]),
+    return dict(arch=arch, params=np_tree(params), tokens=tokens, extra=extra,
+                logits=np.asarray(logits), caches=np_tree(caches), steps=steps,
+                loss=float(loss), ce=float(metrics["ce"]), aux=float(metrics["aux"]),
                 grads=flatten_tree(np_tree(grads)))
+
+
+def torch_extra(ref) -> dict:
+    """The reference's patch or frame embeddings as CPU tensors."""
+    return {k: torch.from_numpy(v) for k, v in ref["extra"].items()}
 
 
 def port_model(ref, **kw):
@@ -110,20 +173,28 @@ def port_model(ref, **kw):
 
 
 def _caches_close(mine, ref_caches, n_periods: int) -> None:
+    """Every cache tensor of every block (``"mixer"`` and, where there is
+    one, ``"cross"``) within the serving tolerance."""
     for name, block in ref_caches.get("prefix", {}).items():
-        for got, want in zip(mine["prefix"][name]["mixer"], block["mixer"]):
-            np.testing.assert_allclose(got.numpy(), want, **SERVE_TOL)
+        assert sorted(mine["prefix"][name]) == sorted(block)
+        for part in block:
+            assert len(mine["prefix"][name][part]) == len(block[part])
+            for got, want in zip(mine["prefix"][name][part], block[part]):
+                np.testing.assert_allclose(got.numpy(), want, **SERVE_TOL)
     for li, block in ref_caches["stack"].items():
         for k in range(n_periods):
-            for got, want in zip(mine["stack"][k][li]["mixer"], block["mixer"]):
-                np.testing.assert_allclose(got.numpy(), want[k], **SERVE_TOL)
+            assert sorted(mine["stack"][k][li]) == sorted(block)
+            for part in block:
+                assert len(mine["stack"][k][li][part]) == len(block[part])
+                for got, want in zip(mine["stack"][k][li][part], block[part]):
+                    np.testing.assert_allclose(got.numpy(), want[k], **SERVE_TOL)
 
 
 def check_served(ref) -> None:
     """Prefill (logits and caches) and the greedy decode steps."""
     model = port_model(ref)
     tokens = torch.from_numpy(ref["tokens"][:, :S]).long()
-    logits, caches = model.prefill({"tokens": tokens})
+    logits, caches = model.prefill({"tokens": tokens, **torch_extra(ref)})
     np.testing.assert_allclose(logits.numpy(), ref["logits"], **SERVE_TOL)
     _caches_close(caches, ref["caches"], model.cfg.n_periods)
     for tok, pos, want in ref["steps"]:
@@ -134,7 +205,7 @@ def check_served(ref) -> None:
 
 def restack(named) -> dict:
     """The port's per-period tensors stacked into the reference's leaves."""
-    return {key: (torch.stack([named[n] for n in members]) if key.startswith("stack.")
+    return {key: (torch.stack([named[n] for n in members]) if TO.is_stacked(key)
                   else named[members[0]]).detach().numpy()
             for key, members in TO.stacked_groups(named).items()}
 
@@ -142,12 +213,14 @@ def restack(named) -> dict:
 def check_loss_and_grads(ref) -> None:
     """``Model.loss`` (total, ``ce``, ``aux``) and every gradient leaf."""
     model = port_model(ref).requires_grad_(True)
-    total, metrics = model.loss({"tokens": torch.from_numpy(ref["tokens"]).long()})
+    total, metrics = model.loss({"tokens": torch.from_numpy(ref["tokens"]).long(),
+                                 **torch_extra(ref)})
     assert total.dtype == metrics["aux"].dtype == torch.float32 and total.shape == ()
     for got, want in ((total.detach(), ref["loss"]), (metrics["ce"].detach(), ref["ce"]),
                       (metrics["aux"].detach(), ref["aux"])):
         assert abs(got.item() - want) <= LOSS_REL * abs(want), (got.item(), want)
-    assert ref["aux"] > 0
+    cfg = model.cfg
+    assert (ref["aux"] > 0) == any(s.ffn == "moe" for s in cfg.prefix_spec + cfg.period)
     named = dict(model.named_parameters())
     grads = dict(zip(named, torch.autograd.grad(total, list(named.values()))))
     mine = restack(grads)
@@ -198,7 +271,7 @@ def check_optimizer_update(ref, kind: str) -> None:
     tg = {}
     for key, members in TO.stacked_groups(tp).items():
         for k, n in enumerate(members):
-            tg[n] = torch.from_numpy(flat_g[key][k] if key.startswith("stack.") else flat_g[key])
+            tg[n] = torch.from_numpy(flat_g[key][k] if TO.is_stacked(key) else flat_g[key])
     tp, ts = topt.update(tg, topt.init(tp), tp, 0)
     _leaves_close(restack(tp), flatten_tree(jax.tree_util.tree_map(np.asarray, rp)))
     mine_state = {}

@@ -47,7 +47,9 @@ def test_port_has_modules():
                  "repro_torch/models/mla.py", "repro_torch/models/mamba.py",
                  "repro_torch/configs/qwen2_moe_a27b.py",
                  "repro_torch/configs/deepseek_v3_671b.py",
-                 "repro_torch/configs/jamba_v01_52b.py"):
+                 "repro_torch/configs/jamba_v01_52b.py", "repro_torch/models/xlstm.py",
+                 "repro_torch/configs/xlstm_350m.py", "repro_torch/configs/qwen2_vl_72b.py",
+                 "repro_torch/configs/seamless_m4t_large_v2.py"):
         assert want in names
     for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh",
                "flash_attention.cu", "legacy2d.cu", "legacy_md.cu", "hmap_mxu.cu",
@@ -66,7 +68,7 @@ def test_import_loads_neither_jax_nor_repro():
         "import sys; import repro_torch.kernels.ops, repro_torch.kernels.engine, "
         "repro_torch.state, repro_torch.core, repro_torch.launch.serve, "
         "repro_torch.models.convert, repro_torch.models.moe, repro_torch.models.mla, "
-        "repro_torch.models.mamba, repro_torch.kernels.legacy, "
+        "repro_torch.models.mamba, repro_torch.models.xlstm, repro_torch.kernels.legacy, "
         "repro_torch.kernels.simplex_kernels, repro_torch.kernels.hmap_mxu, "
         "repro_torch.optim.optimizer, repro_torch.data.pipeline, "
         "repro_torch.checkpoint.checkpointing, repro_torch.launch.train, "

@@ -71,18 +71,17 @@ def test_param_count_matches_jax():
 
 
 def test_other_architectures_are_not_ported():
+    """Every architecture of the JAX package is ported now: ``config``
+    returns each in full and reduced form and raises ``ValueError`` only
+    for a name that is no architecture of the repository."""
+    from repro.configs.base import REGISTRY, get_config
+
     assert TALL.config("yi-6b") is TY.FULL
-    ported = ("yi-6b", "granite-8b", "internlm2-20b", "stablelm-12b", "qwen2-moe-a2.7b",
-              "deepseek-v3-671b", "jamba-v0.1-52b")
-    assert sorted(TALL.ARCH_IDS) == sorted(ported)
-    for name in ported:
+    get_config("yi-6b")  # registers every architecture of the JAX package
+    assert sorted(TALL.ARCH_IDS) == sorted(REGISTRY) and len(REGISTRY) == 10
+    for name in TALL.ARCH_IDS:
         assert TALL.config(name).name == name
         assert TALL.config(name, smoke=True).name == f"{name}-smoke"
-    unported = [n for n in TALL.REFERENCE_ARCH_IDS if n not in ported]
-    assert sorted(unported) == ["qwen2-vl-72b", "seamless-m4t-large-v2", "xlstm-350m"]
-    for name in unported:
-        with pytest.raises(NotImplementedError, match="A.8"):
-            TALL.config(name)
     with pytest.raises(ValueError, match="unknown"):
         TALL.config("gpt-2")
 
@@ -235,8 +234,8 @@ def test_block_and_attn_init_mirror_the_jax_trees():
     att = TA.attn_init(torch.Generator().manual_seed(1), port_cfg)
     assert {f"mixer.{k}": tuple(v.shape) for k, v in att.state_dict().items()} == \
         {k: v for k, v in want.items() if k.startswith("mixer.")}
-    with pytest.raises(NotImplementedError, match="A.8"):
-        TTR.Block(port_cfg, type(spec)("mlstm", "none"), torch.float32, "cpu")
+    with pytest.raises(ValueError, match="unknown block"):
+        TTR.Block(port_cfg, type(spec)("rnn", "dense"), torch.float32, "cpu")
 
 
 def test_init_kv_cache_shape():

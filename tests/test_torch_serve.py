@@ -168,9 +168,25 @@ def test_entry_points_need_a_card_by_default(pair):
         serve.main(["--smoke", "--gen", "1"])
 
 
-def test_unported_configs_raise(pair):
+def test_unported_configs_raise(pair, capsys):
+    """No architecture is refused any more: the three last families serve
+    their reduced configs on the CPU, with patches or frame embeddings in
+    the prefill batch; an unknown block still raises."""
     cfg = pair[0]
-    with pytest.raises(NotImplementedError, match="A.8"):
-        Model(cfg.replace(n_patches=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        serve.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown block"):
+        Model(cfg.replace(period=(type(cfg.period[0])("rnn", "dense"),)), device="cpu")
+    for arch, extra in (("xlstm-350m", None), ("qwen2-vl-72b", "patches"),
+                        ("seamless-m4t-large-v2", "src_embeds")):
+        argv = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2", "--gen", "2",
+                "--prompt-len", "32", "--temperature", "0"]
+        tokens = serve.main(argv)
+        assert tokens.shape == (2, 3) and int(tokens.max()) < 512
+        r = serve.run(serve.parse_args(argv))
+        assert torch.equal(r.tokens, tokens)
+        n_patches = r.model.cfg.n_patches
+        assert r.prompts.shape == (2, 32 - n_patches) and r.inputs["tokens"] is r.prompts
+        assert sorted(r.inputs) == sorted(["tokens"] + ([extra] if extra else []))
+        if extra:
+            assert r.inputs[extra].dtype == torch.float32
+            assert r.inputs[extra].shape == (2, n_patches or 32, r.model.cfg.d_model)
+    assert "prefill 32 tokens x 2" in capsys.readouterr().out

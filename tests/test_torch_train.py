@@ -107,18 +107,63 @@ def test_remat_full_equals_none(ref):
 
 
 def test_remat_dots_is_queued_and_serving_stays_grad_free(ref):
+    """remat "dots" saves the unbatched matrix products and recomputes the
+    rest: the loss and every gradient leaf equal "none"'s within ``1e-6 *
+    max|g|`` (bit for bit on the CPU); serving records no graph under it,
+    and an unknown remat is refused."""
     arch, np_params, tokens, *_ = ref
-    cfg, _ = _cfgs(arch, remat="dots")
-    model = params_from_jax(cfg, np_params, device="cpu")
-    assert not any(p.requires_grad for p in model.parameters())
+    _, l_none, _, g_none = _port_loss_and_grads(arch, np_params, tokens, remat="none")
+    model, l_dots, _, g_dots = _port_loss_and_grads(arch, np_params, tokens, remat="dots")
+    assert abs(l_dots.item() - l_none.item()) <= 1e-6 * abs(l_none.item())
+    for name, want in g_none.items():
+        err = (g_dots[name] - want).abs().max().item()
+        assert err <= 1e-6 * want.abs().max().item(), (name, err)
     batch = {"tokens": torch.from_numpy(tokens).long()}
-    with pytest.raises(NotImplementedError, match="A.8.4"):
-        model.requires_grad_(True).loss(batch)
+    model.requires_grad_(False)
+    assert not any(p.requires_grad for p in model.parameters())
     logits, caches = model.prefill({"tokens": batch["tokens"][:, :-1]})
     assert logits.grad_fn is None and not logits.requires_grad
     with pytest.raises(ValueError, match="remat"):
-        model.cfg = cfg.replace(remat="some")
-        model.loss(batch)
+        model.cfg = model.cfg.replace(remat="some")
+        model.requires_grad_(True).loss(batch)
+
+
+def test_remat_dots_saves_between_none_and_full(ref, monkeypatch):
+    """The tensors kept for the backward: those autograd saves outside a
+    checkpoint (counted by ``saved_tensors_hooks``) plus the products the
+    "dots" policy saves.  "full" keeps only the former, "none" every op's
+    inputs, "dots" the projections' outputs besides: strictly between."""
+    from repro_torch.models import transformer as TT
+
+    arch, np_params, tokens, *_ = ref
+    policy_saves = []
+    save_dots = TT._save_dots
+
+    def counting(ctx, op, *args, **kwargs):
+        decision = save_dots(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute and decision == TT.CheckpointPolicy.MUST_SAVE:
+            policy_saves.append(op)
+        return decision
+
+    monkeypatch.setattr(TT, "_save_dots", counting)
+    cfg, _ = _cfgs(arch)
+    model = params_from_jax(cfg, np_params, device="cpu").requires_grad_(True)
+    batch = {"tokens": torch.from_numpy(tokens).long()}
+    kept = {}
+    for remat in ("none", "full", "dots"):
+        model.cfg = cfg.replace(remat=remat)
+        packed = []
+        policy_saves.clear()
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: packed.append(1) or t,
+                                                      lambda t: t):
+            total, _ = model.loss(batch)
+        torch.autograd.grad(total, list(model.parameters()))
+        kept[remat] = len(packed) + len(policy_saves)
+        if remat == "dots":
+            # per layer: q, k, v, the output projection and the FFN's three
+            assert len(policy_saves) == 7 * cfg.n_layers
+            assert set(policy_saves) <= set(TT._DOTS)
+    assert kept["full"] < kept["dots"] < kept["none"], kept
 
 
 def test_cross_entropy_is_float32_logsumexp():
