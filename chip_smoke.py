@@ -224,7 +224,23 @@ coordinates into element origins.  This script
     ``executor='kernel'``, bit for bit, for ACCUM int32 at m=2 n=16384
     rho 16, m=3 n=1024 rho 8 and m=4 n=64 rho 4, and for MAP at nb=16384
     (m=2) and 512 (m=3), both timed (``xla check`` lines);
-23. prints the ``kernels`` JSON line, then the result line.
+23. shard: sets every counter to 0 and folds the walks of CA and ACCUM's
+    paper sizes (m=2 n=16384 rho=16 hmap, m=3 n=1024 rho=8 hmap, m=2
+    n=16000 rho=16 composite) k = 2, 4 and 8 ways
+    (``distributed/simplex_sharding.py``), MAP also over nb=16384 hmap;
+    launches each shard through ``SimplexKernel(body, m, schedule=shard)``:
+    MAP's shard tables equal the fused table's rows at the shards' ranges
+    and cover it once, ACCUM's and EDM's shard outputs summed equal the
+    fused launch bit for bit, and at k=2 every shard's output is held
+    against its plain version (EDM within step 3's gate); the sharded CA's
+    engine executor on ``devices=[cuda:0]`` steps 3 generations, each
+    bit-equal to a fused launch, its peak memory under 75 GiB; the SPMD
+    executor on a one-rank NCCL group (a ``FileStore``) steps 3 generations
+    of each case bit-equal to the fused launches.  Reads the counters,
+    which must be > 0 for MAP, ACCUM, EDM and CA, then times each shard's
+    kernel beside the fused one, the CA executor's stitch and whole step
+    (``shard case`` lines, with ``shard_skew`` and ``slab_skew``);
+24. prints the ``kernels`` JSON line, then the result line.
 
 The tuner's decisions go to a private cache in a temporary directory.
 
@@ -2725,6 +2741,280 @@ class TunerSmoke:
             torch.cuda.empty_cache()
 
 
+# The shard phase: the sharded simplex path at the paper's sizes, (m, n,
+# rho, kind) per base walk, each folded k ways for k in SHARD_KS; MAP also
+# over the main path's m=2 walk (nb = 16384).  The plain versions are held
+# at SHARD_PLAIN_K shards; the CA executors step SHARD_GENERATIONS times.
+SHARD_CASES = ((2, 16384, 16, "hmap"), (3, 1024, 8, "hmap"), (2, 16000, 16, "composite"))
+SHARD_MAP_NB = 16384
+SHARD_KS = (2, 4, 8)
+SHARD_PLAIN_K = 2
+SHARD_GENERATIONS = 3
+SHARD_PEAK_GIB = 75.0
+
+
+class ShardSmoke:
+    """The sharded simplex path on the card (``distributed/
+    simplex_sharding.py``): shard schedules launched through the MAP,
+    ACCUM, EDM and CA kernels by their device descriptors, the engine
+    executor of the sharded CA on ``devices=[cuda:0]``, and its SPMD
+    executor on a one-rank NCCL group.
+
+    Shares the simplex ``Smoke``'s generators, timer and failure list.
+    """
+
+    def __init__(self, smoke: Smoke, sharding, card: str):
+        self.s, self.sharding, self.card = smoke, sharding, card
+        self.torch, self.engine, self.ref = smoke.torch, smoke.engine, smoke.ref
+        self.rows: list = []  # per (test, case, k): times and skews
+        self.err_edm = 0.0
+
+    def _row(self, test, m, n, rho, kind, k, **kw) -> dict:
+        row = dict(test=test, m=m, n=n, rho=rho, kind=kind, k=k, **kw)
+        self.rows.append(row)
+        return row
+
+    def _kernel(self, body, m, rho, sched):
+        return self.engine.SimplexKernel(body, m, rho=rho, schedule=sched)
+
+    def path(self) -> None:
+        """Every check of the phase, each shard launched through its
+        ``SimplexKernel(body, m, schedule=shard)``."""
+        torch, engine = self.torch, self.engine
+        base = engine.schedule_for(2, SHARD_MAP_NB, "hmap")
+        self._map(2, SHARD_MAP_NB, base)
+        for m, n, rho, kind in SHARD_CASES:
+            base = engine.schedule_for(m, n // rho, kind)
+            self._map(m, n // rho, base)
+            self._accum(m, n, rho, base)
+            self._edm(m, n, rho, base)
+            self._ca(m, n, rho, base)
+            torch.cuda.empty_cache()
+        self._spmd()
+
+    def _ranges_index(self, shards):
+        """The base steps of ``shards`` in shard order, and whether they
+        cover the base walk once."""
+        torch = self.torch
+        idx = torch.cat([torch.arange(a, b, device=self.s.dev)
+                         for sh in shards for a, b in sh.ranges])
+        base = shards[0].base
+        covers = torch.equal(torch.sort(idx).values,
+                             torch.arange(base.steps, device=self.s.dev))
+        return idx, covers
+
+    def _map(self, m, nb, base) -> None:
+        torch, body = self.torch, self.engine.get_body("map")
+        fused = self._kernel("map", m, 1, base)(nb)
+        for k in SHARD_KS:
+            shards = self.sharding.shard_schedules(base, k)
+            tables = [self._kernel("map", m, 1, sh)(nb) for sh in shards]
+            torch.cuda.synchronize()
+            idx, covers = self._ranges_index(shards)
+            equal = covers and torch.equal(torch.cat(tables), fused[idx])
+            plain = True
+            if k == SHARD_PLAIN_K:
+                plain = all(torch.equal(t, body.plain(sh, self.s.dev))
+                            for t, sh in zip(tables, shards))
+            _log(f"shard check map m={m} nb={nb} kind={base.kind} k={k} covers={covers} "
+                 f"equal={equal}" + (f" plain_equal={plain}" if k == SHARD_PLAIN_K else ""))
+            if not (equal and plain):
+                self.s.fail(f"shard map m={m} nb={nb} k={k}")
+            self._row("map", m, nb, 1, base.kind, k, shards=shards, base=base)
+            del tables, idx
+
+    def _accum(self, m, n, rho, base) -> None:
+        torch, body = self.torch, self.engine.get_body("accum")
+        x0 = torch.zeros((n,) * m, dtype=torch.int32, device=self.s.dev)
+        fused = self._kernel("accum", m, rho, base)(x0)
+        for k in SHARD_KS:
+            shards = self.sharding.shard_schedules(base, k)
+            total = torch.zeros_like(x0)
+            plain = True
+            for sh in shards:
+                out = self._kernel("accum", m, rho, sh)(x0)
+                total += out
+                if k == SHARD_PLAIN_K:
+                    want = x0.clone()
+                    body.plain_(want, sh, rho)
+                    plain = plain and torch.equal(out, want)
+                    del want
+                del out
+            torch.cuda.synchronize()
+            equal = torch.equal(total, fused)
+            _log(f"shard check accum m={m} n={n} rho={rho} kind={base.kind} k={k} "
+                 f"sum_equal={equal}" + (f" plain_equal={plain}" if k == SHARD_PLAIN_K else ""))
+            if not (equal and plain):
+                self.s.fail(f"shard accum m={m} n={n} k={k}")
+            self._row("accum", m, n, rho, base.kind, k, shards=shards, base=base)
+            del total
+        del x0, fused
+
+    def _edm(self, m, n, rho, base) -> None:
+        torch, body = self.torch, self.engine.get_body("edm")
+        p = torch.randn((n, EDM_D), generator=self.s.gen(60 + m), device=self.s.dev)
+        fused = self._kernel("edm", m, rho, base)(p)
+        tol = 1e-5 + 1e-5 * fused.abs().max().item()
+        for k in SHARD_KS:
+            shards = self.sharding.shard_schedules(base, k)
+            total = torch.zeros_like(fused)
+            err = 0.0
+            for sh in shards:
+                out = self._kernel("edm", m, rho, sh)(p)
+                total += out
+                if k == SHARD_PLAIN_K:
+                    want = torch.zeros_like(out)
+                    body.plain_(want, p, sh, rho)
+                    err = max(err, (out - want).abs().max().item())
+                    del want
+                del out
+            torch.cuda.synchronize()
+            equal = torch.equal(total, fused)
+            diff = (total - fused).abs().max().item()
+            self.err_edm = max(self.err_edm, err)
+            _log(f"shard check edm m={m} n={n} rho={rho} kind={base.kind} k={k} "
+                 f"sum_equal={equal} max_abs_diff={diff:.3e}"
+                 + (f" plain_max_abs_err={err:.3e} tol={tol:.3e}" if k == SHARD_PLAIN_K
+                    else ""))
+            if not equal or not math.isfinite(err) or err > tol:
+                self.s.fail(f"shard edm m={m} n={n} k={k}")
+            self._row("edm", m, n, rho, base.kind, k, shards=shards, base=base, p=p)
+            del total
+        del fused
+
+    def _state(self, m, n):
+        torch = self.torch
+        msk = self.ref.simplex_mask(m, n, torch.int32, self.s.dev)
+        return (torch.rand((n,) * m, generator=self.s.gen(70 + m), device=self.s.dev)
+                < CA_DENSITY[m]).to(torch.int32) * msk
+
+    def _ca(self, m, n, rho, base) -> None:
+        torch, body = self.torch, self.engine.get_body("ca")
+        fused = self._kernel("ca", m, rho, base)
+        s0 = self._state(m, n)
+        for k in SHARD_KS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runner = self.sharding.ShardedSimplexCA(m, n, k, rho=rho, kind=base.kind,
+                                                    devices=[self.s.dev])
+            cur, equal, plain = s0, True, True
+            for gen in range(SHARD_GENERATIONS):
+                outs = runner.shard_outputs(cur)
+                if k == SHARD_PLAIN_K and gen == 0:
+                    for out, sh in zip(outs, runner.shards):
+                        want = cur.clone()
+                        body.plain_(want, cur, sh, rho)
+                        plain = plain and torch.equal(out, want)
+                        del want
+                nxt = runner.stitch(cur, outs)
+                del outs
+                equal = equal and torch.equal(nxt, fused(cur))
+                cur = nxt
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            _log(f"shard check ca engine m={m} n={n} rho={rho} kind={base.kind} k={k} "
+                 f"generations={SHARD_GENERATIONS} equal={equal} peak_gib={peak:.3f}"
+                 + (f" plain_equal={plain}" if k == SHARD_PLAIN_K else ""))
+            if not (equal and plain) or peak > SHARD_PEAK_GIB:
+                self.s.fail(f"shard ca engine m={m} n={n} k={k}")
+            self._row("ca", m, n, rho, base.kind, k, shards=runner.shards, base=base,
+                      runner=runner, peak_gib=peak)
+            del cur, nxt
+
+    def _spmd(self) -> None:
+        """The SPMD executor on a one-rank NCCL group, three generations
+        of each case bit-equal to the fused engine launches."""
+        import torch.distributed as dist
+
+        torch = self.torch
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+            dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1)
+            try:
+                mesh = self.sharding.shard_mesh(1, device=self.s.dev)
+                try:
+                    self.sharding.shard_mesh(2, device=self.s.dev)
+                    self.s.fail("shard_mesh(2) on a one-rank group did not raise")
+                except ValueError:
+                    pass
+                for m, n, rho, kind in SHARD_CASES:
+                    base = self.engine.schedule_for(m, n // rho, kind)
+                    fused = self._kernel("ca", m, rho, base)
+                    runner = self.sharding.ShardedSimplexCA(m, n, 1, rho=rho, kind=base.kind,
+                                                            mesh=mesh)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    cur = want = self._state(m, n)
+                    t0 = time.perf_counter()
+                    for _ in range(SHARD_GENERATIONS):
+                        cur = runner.step(cur, executor="spmd")
+                        want = fused(want)
+                    full = cur.full_tensor()
+                    torch.cuda.synchronize()
+                    equal = torch.equal(full, want)
+                    ms = self.s.time_ms(lambda: runner.step(cur, executor="spmd"), runs=3,
+                                        warm=1)
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    _log(f"shard check ca spmd m={m} n={n} kind={base.kind} ranks=1 "
+                         f"backend={dist.get_backend()} generations={SHARD_GENERATIONS} "
+                         f"equal={equal} step_ms={ms:.4f} peak_gib={peak:.3f} "
+                         f"({time.perf_counter() - t0:.1f} s) card={self.card}")
+                    if not equal or peak > SHARD_PEAK_GIB:
+                        self.s.fail(f"shard ca spmd m={m} n={n}")
+                    del cur, want, full
+                    torch.cuda.empty_cache()
+            finally:
+                dist.destroy_process_group()
+
+    def timings(self) -> None:
+        """Time each shard's kernel beside the fused walk's, the CA
+        executor's stitch and whole step, and print one line per
+        (test, case, k)."""
+        torch, engine = self.torch, self.engine
+        dev = self.s.dev
+        for row in self.rows:
+            test, m, n, rho, k = row["test"], row["m"], row["n"], row["rho"], row["k"]
+            body, scheds = engine.get_body(test), [row["base"], *row["shards"]]
+            extra = ""
+            if test == "map":
+                times = [self.s.time_ms(lambda: body.kernel(sh, 128, dev)) for sh in scheds]
+            elif test == "accum":
+                buf = torch.zeros((n,) * m, dtype=torch.int32, device=dev)
+                times = [self.s.time_ms(lambda: body.kernel_(buf, sh, rho)) for sh in scheds]
+                del buf
+            elif test == "edm":
+                out = torch.zeros((n,) * m, device=dev)
+                times = [self.s.time_ms(lambda: body.kernel_(out, row["p"], sh, rho))
+                         for sh in scheds]
+                del out
+            else:
+                st = self._state(m, n)
+                out = st.clone()
+                times = [self.s.time_ms(lambda: body.kernel_(out, st, sh, rho))
+                         for sh in scheds]
+                del out
+                runner = row["runner"]
+                outs = runner.shard_outputs(st)
+                stitch = self.s.time_ms(lambda: runner.stitch(st, outs), runs=5, warm=1)
+                del outs
+                step = self.s.time_ms(lambda: runner.step_engine(st), runs=5, warm=1)
+                extra = (f" stitch_ms={stitch:.4f} step_ms={step:.4f} "
+                         f"peak_gib={row['peak_gib']:.3f}")
+                del st
+                torch.cuda.empty_cache()
+            fused, shard = times[0], times[1:]
+            row.update(fused_ms=fused, shard_ms=shard)
+            nb = row["base"].n
+            _log(f"shard case test={test} m={m} n={n} rho={rho} kind={row['kind']} k={k} "
+                 f"fused_ms={fused:.4f} shard_ms={[round(t, 4) for t in shard]} "
+                 f"sum_ms={sum(shard):.4f} max_over_mean={max(shard) / statistics.mean(shard):.4f} "
+                 f"shard_skew={self.sharding.shard_skew(row['base'], k):.5f} "
+                 f"slab_skew={self.sharding.slab_skew(m, nb, k):.4f}{extra} card={self.card}")
+        for row in self.rows:  # drop the tensors and launchers the rows held
+            for key in ("p", "runner", "shards", "base"):
+                row.pop(key, None)
+
+
 def main(argv=None) -> int:
     """Run every phase; 0 only when every check passed."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2748,6 +3038,7 @@ def main(argv=None) -> int:
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir.name, "autotune.json")
     from repro_torch.configs import ALL as configs
     from repro_torch.core import hmap
+    from repro_torch.distributed import simplex_sharding as sharding
     from repro_torch.kernels import _build, engine, legacy, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hmap_mxu
@@ -3007,6 +3298,23 @@ def main(argv=None) -> int:
     for name in ("accum", "map"):
         if xla_launches[name] <= 0:
             smoke.fail(f"kernel {name} was never launched on the xla path")
+    torch.cuda.empty_cache()
+
+    shard = ShardSmoke(smoke, sharding, card)
+    zero_counts()
+    t0 = time.perf_counter()
+    shard.path()
+    shard_launches = counts()
+    _log(f"phase shard path: {time.perf_counter() - t0:.1f} s, launches {shard_launches}")
+    for name in SIMPLEX:
+        launches[name] += shard_launches[name]
+        if shard_launches[name] <= 0:
+            smoke.fail(f"kernel {name} was never launched on the shard path")
+    smoke.err["edm"] = max(smoke.err["edm"], shard.err_edm)
+    t1 = time.perf_counter()
+    shard.timings()
+    _log(f"phase shard timing: {time.perf_counter() - t1:.1f} s; shard in all "
+         f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name in SIMPLEX:

@@ -5,7 +5,7 @@
 that serving and training every architecture on one card read: the
 dense, MoE, MLA, hybrid (Mamba), xLSTM, vision-language (patch
 embeddings, M-RoPE) and encoder-decoder families.  The sharding knobs
-wait for distribution (ROADMAP A.9).  ``param_count`` counts the port's
+wait for distribution (ROADMAP A.9b).  ``param_count`` counts the port's
 own ``Model`` on the meta device.
 """
 
@@ -38,7 +38,7 @@ class MoECfg:
     capacity_factor: float = 1.25
     router: str = "softmax"  # softmax | sigmoid (deepseek-v3)
     aux_loss_weight: float = 0.001
-    impl: str = "tp"  # tp | ep: the distributed forms (ROADMAP A.9)
+    impl: str = "tp"  # tp | ep: the distributed forms (ROADMAP A.9b)
 
 
 @dataclass(frozen=True)

@@ -59,6 +59,8 @@ __all__ = [
     "MAP_CODES",
     "HEADER_LEN",
     "MAX_LEVELS",
+    "SHARD_AT",
+    "launch_header",
 ]
 
 # Map codes of the device descriptor; kernels/csrc/simplex_maps.cuh
@@ -68,8 +70,13 @@ MAP_CODES = {
     "composite": 5, "table": 6,
 }
 MAX_LEVELS = 30
-# header: kind, m, n, steps, w, K, npieces, flip, prefix[31], side[30]
-HEADER_LEN = 8 + (MAX_LEVELS + 1) + MAX_LEVELS
+# header: kind, m, n, steps, w, K, npieces, flip, prefix[31], side[30],
+# then from SHARD_AT the launch: its steps, a0, l0, a1.  Launch step lin
+# walks the schedule's step lin < l0 ? a0 + lin : a1 + (lin - l0), so a
+# shard of the walk (at most two ranges of its steps) reuses the walk's
+# descriptor; the whole walk is (steps, 0, steps, 0).
+SHARD_AT = 8 + (MAX_LEVELS + 1) + MAX_LEVELS
+HEADER_LEN = SHARD_AT + 4
 
 
 def step_grid_indices(sched) -> Tuple[np.ndarray, ...]:
@@ -203,10 +210,39 @@ def resolve_kind(m: int, n: int, kind: str, device=None) -> str:
     return kind
 
 
+def launch_header(header: np.ndarray, ranges) -> np.ndarray:
+    """A copy of ``header`` that launches only ``ranges`` of its walk.
+
+    Args:
+        header: A descriptor's ``(HEADER_LEN,)`` int64 header.
+        ranges: One or two half-open ``(start, stop)`` ranges of the
+            walk's step order, launched in that order.
+
+    Returns:
+        The header with the launch slots from ``SHARD_AT`` set.
+
+    Example:
+        >>> h = SimplexSchedule(2, 4, "hmap").device_descriptor("cpu").header
+        >>> launch_header(h, ((0, 2), (8, 10)))[SHARD_AT:].tolist()
+        [4, 0, 2, 8]
+    """
+    (a0, b0), *rest = ranges
+    if len(rest) > 1:
+        raise ValueError(f"a launch walks at most two ranges, got {ranges}")
+    a1, b1 = rest[0] if rest else (b0, b0)
+    steps = int(header[3])
+    if not (0 <= a0 <= b0 <= steps and 0 <= a1 <= b1 <= steps):
+        raise ValueError(f"ranges {ranges} leave the walk's {steps} steps")
+    hdr = header.copy()
+    hdr[SHARD_AT:] = [(b0 - a0) + (b1 - a1), a0, b0 - a0, a1]
+    return hdr
+
+
 def _header(code: str, m: int, n: int, steps: int, w: int = 0,
             levels=None, npieces: int = 0, flip: bool = False) -> np.ndarray:
     hdr = np.zeros(HEADER_LEN, dtype=np.int64)
     hdr[:8] = [MAP_CODES[code], m, n, steps, w, 0, npieces, int(flip)]
+    hdr[SHARD_AT:] = [steps, 0, steps, 0]
     if levels is not None:
         prefix, sides = levels
         if len(sides) > MAX_LEVELS:

@@ -7,8 +7,19 @@
 // a domain array holds x_{m-1-j}.  The host packs a schedule into an
 // int64 header with SimplexSchedule.device_descriptor(); the header
 // layout and the map codes below match core/schedule.py (HEADER_LEN,
-// MAP_CODES).  Every grid here is below 2^31 steps, so all map
+// SHARD_AT, MAP_CODES).  Every grid here is below 2^31 steps, so all map
 // arithmetic is int32; element offsets in the kernels are int64.
+//
+// A launch may walk a shard of the schedule (distributed/
+// simplex_sharding.py): at most two ranges of its steps, described by
+// the header's last slots as (launch steps, a0, l0, a1).  Launch step
+// lin is the schedule's step lin < l0 ? a0 + lin : a1 + (lin - l0); the
+// map then decodes that step as it decodes any, so a shard of an hmap,
+// recursion or composite walk keeps the map's arithmetic and reuses the
+// schedule's table or pieces on the device.  The whole walk is
+// (steps, 0, steps, 0).  SimplexMap.steps is the launch's count, which
+// bounds every kernel's grid; the header's own steps slot stays the
+// schedule's, which the recursion's level check reads.
 //
 // A map evaluation lives in registers (ptxas: no stack frame):
 // - simplex_map is templated on the compile-time dimension M, as every
@@ -34,7 +45,9 @@
 
 #define SIMPLEX_MAX_M 8
 #define SIMPLEX_MAX_LEVELS 30
-#define SIMPLEX_HEADER_LEN (8 + (SIMPLEX_MAX_LEVELS + 1) + SIMPLEX_MAX_LEVELS)
+#define SIMPLEX_SHARD_SLOTS 4
+#define SIMPLEX_SHARD_AT (8 + (SIMPLEX_MAX_LEVELS + 1) + SIMPLEX_MAX_LEVELS)
+#define SIMPLEX_HEADER_LEN (SIMPLEX_SHARD_AT + SIMPLEX_SHARD_SLOTS)
 
 enum SimplexMapCode {
   MAP_HMAP2 = 0,      // hmap2_full over the (n/2, n+1) grid
@@ -49,10 +62,12 @@ enum SimplexMapCode {
 // What a kernel needs of a schedule: the header's scalars and the int32
 // payload (the level table stays on the host).
 struct SimplexMap {
-  int code, m, n, steps;
+  int code, m, n;
+  int steps;  // the launch's steps (a shard's, or the whole walk's)
   int w;  // the 2-D grid's width (axis 0)
   int K;  // recursion levels, n = 2^K
   int npieces, flip;
+  int a0, l0, d1;  // launch step lin walks lin + (lin < l0 ? a0 : d1), d1 = a1 - l0
   const int* data;  // table or packed pieces (device), else nullptr
 };
 
@@ -77,19 +92,27 @@ static inline bool simplex_levels_ok(const long long* h, int m, int n, int K, in
 }
 
 // Host: unpack the int64 header of core/schedule.py and reject what the
-// device maps cannot serve.
+// device maps cannot serve, a launch range outside the walk included.
 static inline bool simplex_map_unpack(const long long* h, const void* data, SimplexMap* M) {
+  const long long* launch = h + SIMPLEX_SHARD_AT;  // steps, a0, l0, a1
   M->code = (int)h[0];
   M->m = (int)h[1];
   M->n = (int)h[2];
-  M->steps = (int)h[3];
+  M->steps = (int)launch[0];
   M->w = (int)h[4];
   M->K = (int)h[5];
   M->npieces = (int)h[6];
   M->flip = (int)h[7];
+  M->a0 = (int)launch[1];
+  M->l0 = (int)launch[2];
+  M->d1 = (int)(launch[3] - launch[2]);
   M->data = (const int*)data;
   if (h[1] < 2 || h[1] > SIMPLEX_MAX_M || h[3] < 0 || h[3] > INT_MAX || h[2] < 1 ||
       h[2] > INT_MAX || h[4] < 0 || h[4] > INT_MAX)
+    return false;
+  if (launch[0] < 0 || launch[0] > INT_MAX || launch[1] < 0 || launch[2] < 0 ||
+      launch[2] > launch[0] || launch[3] < 0 || launch[1] + launch[2] > h[3] ||
+      launch[3] + (launch[0] - launch[2]) > h[3])
     return false;
   if (M->steps > 0 && (M->code == MAP_COMPOSITE || M->code == MAP_TABLE) && !data)
     return false;
@@ -102,7 +125,7 @@ static inline bool simplex_map_unpack(const long long* h, const void* data, Simp
     case MAP_TABLE:
       return true;
     case MAP_HREC:
-      return M->m >= 3 && simplex_levels_ok(h, M->m, M->n, M->K, M->steps);
+      return M->m >= 3 && simplex_levels_ok(h, M->m, M->n, M->K, (int)h[3]);
     case MAP_COMPOSITE:
       return M->npieces >= 1;
     default:
@@ -235,11 +258,12 @@ static __device__ __forceinline__ bool simplex_composite(const SimplexMap& map, 
   return valid;
 }
 
-// The schedule's map: linear step lin -> math-order block coordinates.
-// M is the schedule's m (the host dispatches on it).
+// The schedule's map: linear launch step lin -> math-order block
+// coordinates.  M is the schedule's m (the host dispatches on it).
 template <int M>
 static __device__ __forceinline__ bool simplex_map(const SimplexMap& map, int lin,
                                                    int (&x)[M]) {
+  lin += lin < map.l0 ? map.a0 : map.d1;  // the schedule's step
   const int n = map.n;
   switch (map.code) {
     case MAP_HMAP2:

@@ -10,7 +10,7 @@ prefill to the flash kernel (``kernels/flash_attention.py``) when a tile
 maps the shape.  ``full_attention`` is the bidirectional attention of
 the encoder and of cross attention, plain torch as in the reference
 (where it reaches no Pallas kernel).  Only the mesh-less path is ported;
-distribution is ROADMAP A.9.
+distribution is ROADMAP A.9b.
 """
 
 from __future__ import annotations
@@ -230,7 +230,7 @@ def simplex_attention(
 def sharded_causal_attention(q, k, v, cfg) -> torch.Tensor:
     """Causal attention of the decoder on one device: ``simplex_attention``
     with the config's executor knobs (the reference's mesh-less branch;
-    sharding over a mesh is ROADMAP A.9)."""
+    sharding over a mesh is ROADMAP A.9b)."""
     return simplex_attention(q, k, v, impl=cfg.attention_impl, chunk=cfg.attention_chunk,
                              schedule=cfg.attention_schedule)
 

@@ -15,7 +15,7 @@ reference computes it in XLA, outside any Pallas kernel.
 
 The distributed forms, expert-ff sharding under ``shard_map`` and expert
 parallelism over all-to-all (the reference's ``moe.py:127-164`` and
-``_moe_ep``), wait for ROADMAP A.9.
+``_moe_ep``), wait for ROADMAP A.9b.
 """
 
 from __future__ import annotations

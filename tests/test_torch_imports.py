@@ -49,7 +49,10 @@ def test_port_has_modules():
                  "repro_torch/configs/deepseek_v3_671b.py",
                  "repro_torch/configs/jamba_v01_52b.py", "repro_torch/models/xlstm.py",
                  "repro_torch/configs/xlstm_350m.py", "repro_torch/configs/qwen2_vl_72b.py",
-                 "repro_torch/configs/seamless_m4t_large_v2.py"):
+                 "repro_torch/configs/seamless_m4t_large_v2.py",
+                 "repro_torch/distributed/simplex_sharding.py",
+                 "repro_torch/distributed/fault_tolerance.py",
+                 "repro_torch/examples/simplex_ca.py"):
         assert want in names
     for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh",
                "flash_attention.cu", "legacy2d.cu", "legacy_md.cu", "hmap_mxu.cu",
@@ -72,7 +75,8 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.kernels.simplex_kernels, repro_torch.kernels.hmap_mxu, "
         "repro_torch.optim.optimizer, repro_torch.data.pipeline, "
         "repro_torch.checkpoint.checkpointing, repro_torch.launch.train, "
-        "repro_torch.examples.train_lm; "
+        "repro_torch.examples.train_lm, repro_torch.distributed, "
+        "repro_torch.distributed.fault_tolerance, repro_torch.examples.simplex_ca; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

@@ -51,6 +51,8 @@ def _define(name: str, src: str = HEADER) -> int:
 
 MAX_M = _define("SIMPLEX_MAX_M")
 MAX_LEVELS = _define("SIMPLEX_MAX_LEVELS")
+SHARD_SLOTS = _define("SIMPLEX_SHARD_SLOTS")
+SHARD_AT = 8 + (MAX_LEVELS + 1) + MAX_LEVELS
 CODES = {k.lower(): int(v) for k, v in re.findall(r"\bMAP_(\w+) = (\d+)", HEADER)}
 MAP_STEPS = _define("MAP_STEPS", MAP_CU)
 
@@ -86,10 +88,14 @@ def _levels_ok(h, m, n, K, steps) -> bool:
 def _unpack(h, data):
     """The SimplexMap the kernel gets, as a dict; None where refused."""
     h = [int(v) for v in h]
-    M = dict(code=h[0], m=h[1], n=h[2], steps=h[3], w=h[4], K=h[5], npieces=h[6],
-             flip=h[7], data=data)
-    if not (2 <= M["m"] <= MAX_M and 0 <= M["steps"] < I32 and 1 <= M["n"] < I32
+    launch, a0, l0, a1 = h[SHARD_AT:SHARD_AT + SHARD_SLOTS]
+    M = dict(code=h[0], m=h[1], n=h[2], steps=launch, w=h[4], K=h[5], npieces=h[6],
+             flip=h[7], a0=a0, l0=l0, d1=a1 - l0, data=data)
+    if not (2 <= M["m"] <= MAX_M and 0 <= h[3] < I32 and 1 <= M["n"] < I32
             and 0 <= M["w"] < I32):
+        return None
+    if not (0 <= launch < I32 and a0 >= 0 and 0 <= l0 <= launch and a1 >= 0
+            and a0 + l0 <= h[3] and a1 + (launch - l0) <= h[3]):
         return None
     if M["steps"] > 0 and M["code"] in (CODES["composite"], CODES["table"]) and data is None:
         return None
@@ -99,7 +105,7 @@ def _unpack(h, data):
     elif code in (CODES["bbmd"], CODES["table"]):
         ok = True
     elif code == CODES["hrec"]:
-        ok = M["m"] >= 3 and _levels_ok(h, M["m"], M["n"], M["K"], M["steps"])
+        ok = M["m"] >= 3 and _levels_ok(h, M["m"], M["n"], M["K"], h[3])
     elif code == CODES["composite"]:
         ok = M["npieces"] >= 1
     else:
@@ -222,8 +228,10 @@ def _composite(M: dict, m: int, lin):
 
 
 def device_map(M: dict, lin):
-    """simplex_map<M> for every step in ``lin``: (coords, valid)."""
+    """simplex_map<M> for every launch step in ``lin``: (coords, valid)."""
     m, n, code = M["m"], M["n"], M["code"]
+    lin = lin + np.where(lin < M["l0"], M["a0"], M["d1"])
+    _i32(lin)
     if code in (CODES["hmap2"], CODES["rb2"], CODES["bb2"]):
         wy = _div(lin, M["w"])
         wx = lin - wy * M["w"]
@@ -322,7 +330,8 @@ def test_constants_match_the_host():
     assert MAX_M == policy.MAX_M
     assert MAX_LEVELS == TS.MAX_LEVELS
     assert CODES == TS.MAP_CODES
-    assert 8 + (MAX_LEVELS + 1) + MAX_LEVELS == TS.HEADER_LEN
+    assert SHARD_AT == TS.SHARD_AT
+    assert SHARD_AT + SHARD_SLOTS == TS.HEADER_LEN
     assert MAP_STEPS >= 1
 
 
@@ -390,3 +399,47 @@ def test_map_store_order(m, n, kind, threads):
     rows = _emulated_table(sched)
     want = np.asarray(RS.SimplexSchedule(m, n, kind).table())
     assert np.array_equal(map_store(rows, threads), want)
+
+
+# ---------------------------------------------------------------------------
+# shards: the launch slots in front of the map
+# ---------------------------------------------------------------------------
+
+SHARD_KINDS = [(m, kind) for m, kind in KINDS if m <= 4]
+
+
+@pytest.mark.parametrize("m,kind", SHARD_KINDS, ids=[f"m{m}-{k}" for m, k in SHARD_KINDS])
+def test_shard_remap_is_the_reference_shard_walk(m, kind):
+    from repro.distributed import simplex_sharding as RSS
+    from repro_torch.distributed import simplex_sharding as TSS
+
+    merged = two = 0
+    for n in _sides(m, kind):
+        ours, ref = TS.SimplexSchedule(m, n, kind), RS.SimplexSchedule(m, n, kind)
+        for k in (1, 2, 3, 4, 8):
+            if k > ours.steps:
+                continue
+            for a, b in zip(TSS.shard_schedules(ours, k), RSS.shard_schedules(ref, k),
+                            strict=True):
+                assert a.ranges == b.ranges
+                merged += k > 1 and len(a.ranges) == 1
+                two += len(a.ranges) == 2
+                assert np.array_equal(_emulated_table(a), b.table()), (m, n, kind, k, a.ranges)
+    assert merged and two  # shards whose two ranges merged, and shards of two ranges
+
+
+def test_unpack_reads_and_checks_the_launch_slots():
+    h = TS.SimplexSchedule(2, 8, "hmap").device_descriptor("cpu").header  # 36 steps
+    M = _unpack(h, None)
+    assert (M["steps"], M["a0"], M["l0"], M["d1"]) == (36, 0, 36, -36)
+    ok = h.copy()
+    ok[SHARD_AT:] = [10, 0, 5, 31]  # the last range ends on the walk's last step
+    assert _unpack(ok, None)["steps"] == 10
+    assert np.array_equal(device_map(_unpack(ok, None), np.arange(10)),
+                          np.asarray(RS.SimplexSchedule(2, 8, "hmap").table())[
+                              np.r_[0:5, 31:36]])
+    for slots in ([10, 0, 5, 32], [10, 32, 5, 0], [10, 0, 11, 0], [-1, 0, 0, 0],
+                  [10, -1, 5, 0], [10, 0, -1, 0], [10, 0, 5, -1], [I32, 0, 0, 0]):
+        bad = h.copy()
+        bad[SHARD_AT:] = slots
+        assert _unpack(bad, None) is None, slots
