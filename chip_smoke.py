@@ -240,7 +240,28 @@ coordinates into element origins.  This script
     which must be > 0 for MAP, ACCUM, EDM and CA, then times each shard's
     kernel beside the fused one, the CA executor's stitch and whole step
     (``shard case`` lines, with ``shard_skew`` and ``slab_skew``);
-24. prints the ``kernels`` JSON line, then the result line.
+24. mesh: on the same one-rank NCCL group, a (1, 1) ``data``/``model``
+    mesh (``launch/mesh.py``; ``make_mesh`` of 4 ranks,
+    ``make_production_mesh`` and a CPU mesh over the NCCL group must
+    raise): ``launch/steps.py``'s ``StepBundle`` serves full-width yi-6b
+    (32 layers, float32, batch 4, prompt 2048, 16 greedy tokens; the
+    prefill must launch ``flash_wgmma`` once per layer, with the counters
+    at 0 just before it, the decode none), each step's logits held
+    against the mesh-less serve's on the same weights (rtol 2e-3, atol
+    2e-4, every argmax equal), the prefill's cache leaves handed back by
+    ``serve_step`` as the same ``DTensor``s, decode tok/s beside the
+    mesh-less serve's (``mesh serve`` lines); trains yi-6b cut to
+    4 layers (AdamW, batch 4 x 2048) 3 steps, the first step's loss
+    within 1e-5 relative of ``launch/train.train_step``'s on the same
+    weights and every parameter within ``1e-6 * max|leaf|``, then the
+    step's gradients through ``compress_bf16`` and ``compress_int8`` on
+    the card bit-equal to the CPU's, and one step with
+    ``gather_dtype="bfloat16"`` (``mesh train``, ``mesh compression``
+    lines); prefills qwen2-moe-a2.7b cut to 4 layers through the MoE's
+    TP and EP forms (an all-reduce and two all-to-alls over NCCL) against
+    the mesh-less prefill under the family phase's gate, router flips
+    counted (``mesh moe`` lines);
+25. prints the ``kernels`` JSON line, then the result line.
 
 The tuner's decisions go to a private cache in a temporary directory.
 
@@ -2922,49 +2943,42 @@ class ShardSmoke:
             del cur, nxt
 
     def _spmd(self) -> None:
-        """The SPMD executor on a one-rank NCCL group, three generations
-        of each case bit-equal to the fused engine launches."""
+        """The SPMD executor on the one-rank NCCL group ``main`` opened,
+        three generations of each case bit-equal to the fused engine
+        launches."""
         import torch.distributed as dist
 
         torch = self.torch
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
-            dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-                                    rank=0, world_size=1)
-            try:
-                mesh = self.sharding.shard_mesh(1, device=self.s.dev)
-                try:
-                    self.sharding.shard_mesh(2, device=self.s.dev)
-                    self.s.fail("shard_mesh(2) on a one-rank group did not raise")
-                except ValueError:
-                    pass
-                for m, n, rho, kind in SHARD_CASES:
-                    base = self.engine.schedule_for(m, n // rho, kind)
-                    fused = self._kernel("ca", m, rho, base)
-                    runner = self.sharding.ShardedSimplexCA(m, n, 1, rho=rho, kind=base.kind,
-                                                            mesh=mesh)
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                    cur = want = self._state(m, n)
-                    t0 = time.perf_counter()
-                    for _ in range(SHARD_GENERATIONS):
-                        cur = runner.step(cur, executor="spmd")
-                        want = fused(want)
-                    full = cur.full_tensor()
-                    torch.cuda.synchronize()
-                    equal = torch.equal(full, want)
-                    ms = self.s.time_ms(lambda: runner.step(cur, executor="spmd"), runs=3,
-                                        warm=1)
-                    peak = torch.cuda.max_memory_allocated() / 2**30
-                    _log(f"shard check ca spmd m={m} n={n} kind={base.kind} ranks=1 "
-                         f"backend={dist.get_backend()} generations={SHARD_GENERATIONS} "
-                         f"equal={equal} step_ms={ms:.4f} peak_gib={peak:.3f} "
-                         f"({time.perf_counter() - t0:.1f} s) card={self.card}")
-                    if not equal or peak > SHARD_PEAK_GIB:
-                        self.s.fail(f"shard ca spmd m={m} n={n}")
-                    del cur, want, full
-                    torch.cuda.empty_cache()
-            finally:
-                dist.destroy_process_group()
+        mesh = self.sharding.shard_mesh(1, device=self.s.dev)
+        try:
+            self.sharding.shard_mesh(2, device=self.s.dev)
+            self.s.fail("shard_mesh(2) on a one-rank group did not raise")
+        except ValueError:
+            pass
+        for m, n, rho, kind in SHARD_CASES:
+            base = self.engine.schedule_for(m, n // rho, kind)
+            fused = self._kernel("ca", m, rho, base)
+            runner = self.sharding.ShardedSimplexCA(m, n, 1, rho=rho, kind=base.kind, mesh=mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cur = want = self._state(m, n)
+            t0 = time.perf_counter()
+            for _ in range(SHARD_GENERATIONS):
+                cur = runner.step(cur, executor="spmd")
+                want = fused(want)
+            full = cur.full_tensor()
+            torch.cuda.synchronize()
+            equal = torch.equal(full, want)
+            ms = self.s.time_ms(lambda: runner.step(cur, executor="spmd"), runs=3, warm=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            _log(f"shard check ca spmd m={m} n={n} kind={base.kind} ranks=1 "
+                 f"backend={dist.get_backend()} generations={SHARD_GENERATIONS} "
+                 f"equal={equal} step_ms={ms:.4f} peak_gib={peak:.3f} "
+                 f"({time.perf_counter() - t0:.1f} s) card={self.card}")
+            if not equal or peak > SHARD_PEAK_GIB:
+                self.s.fail(f"shard ca spmd m={m} n={n}")
+            del cur, want, full
+            torch.cuda.empty_cache()
 
     def timings(self) -> None:
         """Time each shard's kernel beside the fused walk's, the CA
@@ -3015,6 +3029,324 @@ class ShardSmoke:
                 row.pop(key, None)
 
 
+# The mesh phase: the LM half of distribution (distributed/sharding.py,
+# distributed/collectives.py, launch/mesh.py, launch/steps.py) on the
+# one-rank NCCL group of the shard phase, a (1, 1) data/model mesh, so
+# every collective of the mesh forms runs on NCCL over one rank.
+# Serve: (arch, batch, prompt, greedy tokens) at full width and depth,
+# float32, held against the mesh-less serve on the same weights.
+MESH_SERVE = ("yi-6b", 4, 2048, 16)
+# Train: (arch, layers, batch, seq, steps), AdamW, float32; the first
+# step held against launch/train.train_step's on the same weights: the
+# loss within MESH_TRAIN_REL and every parameter within MESH_PARAM_REL *
+# max|leaf|.
+MESH_TRAIN = ("yi-6b", 4, 4, 2048, 3)
+MESH_TRAIN_REL = 1e-5
+MESH_PARAM_REL = 1e-6
+# A gather_dtype="bfloat16" step's loss against the float32 gather's on
+# the same weights (bfloat16 weights in the forward).
+MESH_GATHER16_REL = 1e-2
+# The MoE forms: (arch, layers, batch, prompt) prefilled through the TP and
+# EP forms against the mesh-less prefill, under the family phase's gate.
+MESH_MOE = ("qwen2-moe-a2.7b", 4, 4, 2048)
+
+
+class MeshSmoke:
+    """The LM mesh path on the card: ``StepBundle`` serve, train and the
+    MoE forms on a one-rank NCCL group, each held against the mesh-less
+    path on the same weights; the gradients' compression on the card held
+    bit for bit against the CPU's.  Shares the ``ModelSmoke``'s counters,
+    generators and failure list."""
+
+    def __init__(self, lm: "ModelSmoke", steps, mesh_mod, compression, card: str):
+        self.lm, self.s, self.torch, self.fa, self.card = lm, lm.s, lm.torch, lm.fa, card
+        self.steps, self.mesh_mod, self.comp = steps, mesh_mod, compression
+        self.stats: dict = {}
+        self.launches = dict.fromkeys(lm.fa.ROUTES, 0)
+
+    def _count(self) -> dict:
+        """The flash launches since the counters were last set to 0, added
+        to the phase's; the counters are set to 0 again."""
+        got = {k: v for k, v in self.lm.counts().items() if k in self.fa.ROUTES}
+        for k, v in got.items():
+            self.launches[k] += v
+        self.lm.zero_counts()
+        return got
+
+    def _sync(self) -> float:
+        self.torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def path(self) -> None:
+        """The refusals, then serve, train and the MoE forms."""
+        axes = ("data", "model")
+        mesh = self.mesh_mod.make_mesh((1, 1), axes)
+        for what, call in (("make_mesh (2, 2)", lambda: self.mesh_mod.make_mesh((2, 2), axes)),
+                           ("make_production_mesh",
+                            lambda: self.mesh_mod.make_production_mesh()),
+                           ("make_mesh on the CPU over the NCCL group",
+                            lambda: self.mesh_mod.make_mesh((1, 1), axes, device="cpu"))):
+            try:
+                call()
+                self.s.fail(f"mesh: {what} did not raise")
+            except ValueError as e:
+                _log(f"mesh refusal {what}: {e}")
+        self.serve(mesh)
+        self.train(mesh)
+        self.moe(mesh)
+
+    def _cfg(self, arch: str, **kw):
+        return self.lm.f.configs.config(arch).replace(act_dtype="float32",
+                                                      param_dtype="float32", **kw)
+
+    def serve(self, mesh) -> None:
+        """Full-depth serve through the bundle: prefill, then greedy decode
+        steps against the fixed prefill cache, each step's logits held
+        against the mesh-less serve's."""
+        torch, fa = self.torch, self.fa
+        arch, b, s, gen = MESH_SERVE
+        cfg = self._cfg(arch)
+        self.lm.live("mesh serve")
+        torch.cuda.reset_peak_memory_stats()
+        g = self.s.gen(9000)
+        model = self.lm.model_cls(cfg, device=self.s.dev).init(g)
+        prompts = torch.randint(0, cfg.vocab, (b, s), generator=g, device=self.s.dev)
+
+        def pos(i):
+            return torch.full((b,), s + i, dtype=torch.long, device=self.s.dev)
+
+        t0 = self._sync()
+        want, caches = model.prefill({"tokens": prompts})
+        plain_prefill_s = self._sync() - t0
+        want = [want]
+        for i in range(gen):
+            lg, _ = model.decode(caches, {"tokens": want[-1][:, -1].argmax(-1)[:, None],
+                                          "pos": pos(i)})
+            want.append(lg)
+        plain_decode_s = self._sync() - t0 - plain_prefill_s
+        del caches
+        self.lm._free()
+        bundle = self.steps.build(cfg, mesh, self.steps.ShapeCfg("serve", s, b, "decode"))
+        params = bundle.shard_params(model)
+        alias = all(params[n].to_local().data_ptr() == p.data_ptr()
+                    for n, p in model.named_parameters())
+        self.lm.zero_counts()
+        t0 = self._sync()
+        logits, caches = bundle.prefill_step(params, {"tokens": prompts})
+        prefill_s = self._sync() - t0
+        launches = self._count()
+        got = [logits.to_local()]
+        t0 = self._sync()
+        for i in range(gen):
+            lg, new = bundle.serve_step(params, caches,
+                                        {"tokens": got[-1][:, -1].argmax(-1)[:, None],
+                                         "pos": pos(i)})
+            got.append(lg.to_local())
+        decode_s = self._sync() - t0
+        # the prefill's keys and values come back as the caller's DTensors
+        passed = all(c is n for st, nst in zip(caches["stack"], new["stack"])
+                     for c, n in zip(st["l0"]["mixer"], nst["l0"]["mixer"]))
+        del new
+        decode_launches = self._count()
+        t0 = self._sync()  # again, warm: the first call made the NCCL communicators
+        warm, _ = bundle.prefill_step(params, {"tokens": prompts})
+        warm_s = self._sync() - t0
+        warm_launches = self._count()
+        warm_equal = torch.equal(warm.to_local(), got[0])
+        del warm, _
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        err = max((x - y).abs().max().item() for x, y in zip(got, want))
+        argmax = all(bool((x.argmax(-1) == y.argmax(-1)).all()) for x, y in zip(got, want))
+        close = all(torch.allclose(x, y, **LOGIT_TOL) for x, y in zip(got, want))
+        kinds = {type(c).__name__ for st in caches["stack"] for c in st["l0"]["mixer"]}
+        st = dict(prefill_s=prefill_s, warm_prefill_s=warm_s, decode_tok_s=gen * b / decode_s,
+                  plain_prefill_s=plain_prefill_s, plain_decode_tok_s=gen * b / plain_decode_s,
+                  peak_gib=peak, logit_err=err, launches=launches)
+        self.stats["mesh serve"] = st
+        want_launches = dict.fromkeys(fa.ROUTES, 0)
+        want_launches["flash_wgmma"] = cfg.n_layers
+        ok = (argmax and close and launches == want_launches and kinds == {"DTensor"}
+              and passed and not any(decode_launches.values()) and peak <= SERVE_PEAK_GIB
+              and warm_equal and warm_launches == want_launches)
+        _log(f"mesh serve {arch}: {cfg.n_layers} layers at full width, float32, batch {b}, "
+             f"prompt {s}, {gen} greedy tokens through StepBundle on a (1, 1) data/model mesh "
+             f"(backend {self.torch.distributed.get_backend()}, tp_size {cfg.tp_size}); "
+             f"weights aliased by the shards: {alias}; caches {sorted(kinds)}; the "
+             f"prefill's cache leaves handed back by serve_step unwrapped: {passed}")
+        _log(f"mesh serve {arch} prefill_s={prefill_s:.4f} (warm {warm_s:.4f}, equal "
+             f"{warm_equal}) decode_s={decode_s:.4f} decode_tok_s={st['decode_tok_s']:.2f} "
+             f"beside the mesh-less serve's prefill_s={plain_prefill_s:.4f} (first forward) "
+             f"decode_tok_s={st['plain_decode_tok_s']:.2f}; peak_gib={peak:.3f} "
+             f"launches={launches} decode_launches={decode_launches} card={self.card}")
+        _log(f"mesh serve {arch} hold vs mesh-less serve: {gen + 1} logit steps "
+             f"max_abs_err={err:.3e} argmax_equal={argmax} rtol 2e-3 atol 2e-4: {close} "
+             f"flash_wgmma={launches['flash_wgmma']} (want {cfg.n_layers}): ok={ok} "
+             f"card={self.card}")
+        if not ok:
+            self.s.fail(f"mesh serve {arch}: err {err}, argmax {argmax}, launches {launches}, "
+                        f"decode {decode_launches}, caches {kinds}, passed {passed}, peak {peak}")
+        del model, params, caches, logits, got, want, bundle
+        self.lm._free()
+
+    def train(self, mesh) -> None:
+        """Train steps through the bundle; the first against
+        ``launch/train.train_step`` on a copy of the same weights; the
+        step's gradients compressed on the card and on the CPU; one step
+        with the bfloat16 gather."""
+        import copy
+
+        torch, fa = self.torch, self.fa
+        arch, layers, b, seq, steps = MESH_TRAIN
+        cfg = self._cfg(arch, n_layers=layers, remat="none")
+        self.lm.live("mesh train")
+        torch.cuda.reset_peak_memory_stats()
+        g = self.s.gen(9100)
+        model = self.lm.model_cls(cfg, device=self.s.dev).init(g)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, seq + 1), generator=g,
+                                         device=self.s.dev)}
+        opt = self.lm.optimizer
+        ref = copy.deepcopy(model).requires_grad_(True)
+        trainer = self.lm.train.Trainer(
+            ref, opt.make_optimizer(cfg.optimizer, opt.warmup_cosine(3e-4, 2000, 100_000)),
+            None, None)
+        trainer.opt_state = trainer.opt.init(dict(ref.named_parameters()))
+        loss_ref = float(self.lm.train.train_step(trainer, 0, batch))
+        del trainer
+        self.lm._free()
+        bundle = self.steps.build(cfg, mesh, self.steps.ShapeCfg("train", seq, b, "train"))
+        params, state = bundle.shard_params(model), bundle.init_opt_state()
+        self.lm.zero_counts()
+        losses, times = [], []
+        for step in range(steps):
+            t0 = self._sync()
+            params, state, _, metrics = bundle.train_step(params, state, step, batch)
+            losses.append(float(metrics["loss"]))
+            times.append(self._sync() - t0)
+            if step == 0:
+                want = dict(ref.named_parameters())
+                worst = max(((params[n].to_local() - p).abs().max()
+                             / p.abs().max().clamp(min=1e-30)).item() for n, p in want.items())
+                del want, ref
+                self.lm._free()
+        launches = self._count()
+        rel = abs(losses[0] - loss_ref) / abs(loss_ref)
+        want_launches = dict.fromkeys(fa.ROUTES, 0)
+        want_launches["flash_wgmma"] = layers * steps
+        ok = (rel <= MESH_TRAIN_REL and worst <= MESH_PARAM_REL and launches == want_launches
+              and all(math.isfinite(x) for x in losses))
+        _log(f"mesh train {arch}: {layers} layers at full width, float32, {cfg.optimizer}, "
+             f"batch {b} x seq {seq}, {steps} steps through StepBundle on a (1, 1) mesh")
+        _log(f"mesh train {arch} losses={[round(x, 6) for x in losses]} "
+             f"step_s={[round(x, 4) for x in times]} launches={launches} card={self.card}")
+        _log(f"mesh train {arch} first step vs launch/train.train_step: loss {losses[0]:.7f} vs "
+             f"{loss_ref:.7f} (rel {rel:.3e}, gate {MESH_TRAIN_REL}), parameters max "
+             f"|diff|/max|leaf| {worst:.3e} (gate {MESH_PARAM_REL}): ok={ok} card={self.card}")
+        if not ok:
+            self.s.fail(f"mesh train {arch}: loss rel {rel}, parameters {worst}, "
+                        f"launches {launches}")
+        # the step's gradients, compressed on the card and on the CPU
+        t0 = self._sync()
+        loss32, grads = bundle.loss_and_grads(params, batch)
+        self._count()
+        self.compression(grads)
+        del grads
+        self.lm._free()
+        # one step with the parameters gathered in bfloat16
+        b16 = self.steps.build(cfg.replace(gather_dtype="bfloat16"), mesh,
+                               self.steps.ShapeCfg("train", seq, b, "train"))
+        t0 = self._sync()
+        params, state, _, metrics = b16.train_step(params, state, steps, batch)
+        step16 = self._sync() - t0
+        self._count()
+        loss16 = float(metrics["loss"])
+        rel16 = abs(loss16 - float(loss32)) / abs(float(loss32))
+        ok16 = rel16 <= MESH_GATHER16_REL
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        self.stats["mesh train"] = dict(losses=losses, step_s=times, step16_s=step16,
+                                        peak_gib=peak)
+        _log(f"mesh train {arch} gather_dtype=bfloat16 step_s={step16:.4f} loss {loss16:.6f} vs "
+             f"float32 gather {float(loss32):.6f} on the same weights (rel {rel16:.3e}, gate "
+             f"{MESH_GATHER16_REL}): ok={ok16} peak_gib={peak:.3f} card={self.card}")
+        if not ok16:
+            self.s.fail(f"mesh train {arch}: bfloat16 gather loss rel {rel16}")
+        del model, params, state, bundle, b16, batch
+        self.lm._free()
+
+    def compression(self, grads: dict) -> None:
+        """``compress_bf16`` and ``compress_int8`` of ``grads`` on the card,
+        the compressed gradients and the new error state bit-equal to the
+        same on the CPU (one step from a zero error state; the feedback's
+        addition is held over 8 steps against the JAX package on the CPU,
+        ``tests/test_torch_sharding.py``)."""
+        torch, comp = self.torch, self.comp
+        host = {n: g.cpu() for n, g in grads.items()}
+        for kind, fn in (("bf16", comp.compress_bf16), ("int8", comp.compress_int8)):
+            t0 = self._sync()
+            out_d, err_d = fn(grads, comp.init_error_state(grads))
+            card_s = self._sync() - t0
+            out_h, err_h = fn(host, comp.init_error_state(host))
+            equal = True
+            for n in grads:
+                a, b = out_d[n], out_h[n]
+                pairs = [(a[0], b[0]), (a[1], b[1])] if kind == "int8" else [(a, b)]
+                pairs.append((err_d[n], err_h[n]))
+                equal &= all(torch.equal(x.cpu(), y) for x, y in pairs)
+            del out_d, out_h, err_d, err_h
+            secs = self._sync() - t0
+            n_el = sum(g.numel() for g in grads.values())
+            _log(f"mesh compression {kind}: {len(grads)} gradient leaves, {n_el} elements, "
+                 f"card bit-equal to CPU: {equal} (card {card_s:.3f} s, with the CPU's and the "
+                 f"comparison {secs:.1f} s) card={self.card}")
+            if not equal:
+                self.s.fail(f"mesh compression {kind}: the card differs from the CPU")
+        del host
+
+    def moe(self, mesh) -> None:
+        """The MoE forms' prefill against the mesh-less prefill: the
+        family phase's gate, router flips counted."""
+        torch, fa = self.torch, self.fa
+        arch, layers, b, s = MESH_MOE
+        cfg = self._cfg(arch, n_layers=layers)
+        self.lm.live("mesh moe")
+        g = self.s.gen(9200)
+        model = self.lm.model_cls(cfg, device=self.s.dev).init(g)
+        prompts = torch.randint(0, cfg.vocab, (b, s), generator=g, device=self.s.dev)
+        with self.lm.moe.record_routing() as ids:
+            want, _ = model.prefill({"tokens": prompts})
+        routes = list(ids)
+        for impl in ("tp", "ep"):
+            bundle = self.steps.build(cfg.replace(moe_impl=impl), mesh,
+                                      self.steps.ShapeCfg("moe", s, b, "prefill"))
+            params = bundle.shard_params(model)
+            self.lm.zero_counts()
+            t0 = self._sync()
+            with self.lm.moe.record_routing() as ids:
+                logits, caches = bundle.prefill_step(params, {"tokens": prompts})
+            secs = self._sync() - t0
+            launches = self._count()
+            got = logits.to_local()
+            flips = self.lm.flips(routes, list(ids))
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            argmax = bool((got.argmax(-1) == want.argmax(-1)).all())
+            close = torch.allclose(got, want, **LOGIT_TOL)
+            ok = argmax and (err <= LOGIT16_TOL * scale if flips else close)
+            ok &= launches["flash_wgmma"] == layers and len(ids) == layers
+            self.stats[f"mesh moe {impl}"] = dict(prefill_s=secs, logit_err=err, flips=flips)
+            _log(f"mesh moe {arch} form={impl}: {layers} layers at full width (experts "
+                 f"{cfg.moe.n_experts} top-{cfg.moe.top_k} expert_ff {cfg.moe.expert_ff}), "
+                 f"float32, batch {b}, prompt {s}, prefill_s={secs:.4f} launches={launches} "
+                 f"vs mesh-less prefill: max_abs_err={err:.3e} max|logit|={scale:.3f} "
+                 f"router_flips={flips} of {sum(x.numel() for x in routes)} argmax_equal={argmax} "
+                 f"rtol 2e-3 atol 2e-4: {close}: ok={ok} card={self.card}")
+            if not ok:
+                self.s.fail(f"mesh moe {arch} {impl}: err {err}, flips {flips}, "
+                            f"launches {launches}")
+            del bundle, params, logits, caches, got
+        del model, want
+        self.lm._free()
+
+
 def main(argv=None) -> int:
     """Run every phase; 0 only when every check passed."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3038,11 +3370,13 @@ def main(argv=None) -> int:
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir.name, "autotune.json")
     from repro_torch.configs import ALL as configs
     from repro_torch.core import hmap
+    from repro_torch.distributed import compression
     from repro_torch.distributed import simplex_sharding as sharding
     from repro_torch.kernels import _build, engine, legacy, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hmap_mxu
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import mesh as lm_mesh
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import moe
     from repro_torch.models.model import Model
     from repro_torch.optim import optimizer
@@ -3300,21 +3634,40 @@ def main(argv=None) -> int:
             smoke.fail(f"kernel {name} was never launched on the xla path")
     torch.cuda.empty_cache()
 
-    shard = ShardSmoke(smoke, sharding, card)
-    zero_counts()
-    t0 = time.perf_counter()
-    shard.path()
-    shard_launches = counts()
-    _log(f"phase shard path: {time.perf_counter() - t0:.1f} s, launches {shard_launches}")
-    for name in SIMPLEX:
-        launches[name] += shard_launches[name]
-        if shard_launches[name] <= 0:
-            smoke.fail(f"kernel {name} was never launched on the shard path")
-    smoke.err["edm"] = max(smoke.err["edm"], shard.err_edm)
-    t1 = time.perf_counter()
-    shard.timings()
-    _log(f"phase shard timing: {time.perf_counter() - t1:.1f} s; shard in all "
-         f"{time.perf_counter() - t0:.1f} s")
+    # One NCCL group of one rank serves the shard and mesh phases.
+    import torch.distributed as dist
+
+    store = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store.name, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        shard = ShardSmoke(smoke, sharding, card)
+        zero_counts()
+        t0 = time.perf_counter()
+        shard.path()
+        shard_launches = counts()
+        _log(f"phase shard path: {time.perf_counter() - t0:.1f} s, launches {shard_launches}")
+        for name in SIMPLEX:
+            launches[name] += shard_launches[name]
+            if shard_launches[name] <= 0:
+                smoke.fail(f"kernel {name} was never launched on the shard path")
+        smoke.err["edm"] = max(smoke.err["edm"], shard.err_edm)
+        t1 = time.perf_counter()
+        shard.timings()
+        _log(f"phase shard timing: {time.perf_counter() - t1:.1f} s; shard in all "
+             f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        mesh = MeshSmoke(lm, steps, lm_mesh, compression, card)
+        t0 = time.perf_counter()
+        mesh.path()
+        _log(f"phase mesh: {time.perf_counter() - t0:.1f} s, launches {mesh.launches}")
+        if mesh.launches["flash_wgmma"] <= 0:
+            smoke.fail("kernel flash_wgmma was never launched on the mesh path")
+        launches["flash_wgmma"] += mesh.launches["flash_wgmma"]
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
 
     kernels = []
     for name in SIMPLEX:
@@ -3391,6 +3744,16 @@ def main(argv=None) -> int:
              f"{key} summary: step_s={d['step_s']:.4f} tok_s={d['tok_s']:.1f} "
              f"peak_gib={d['peak_gib']:.3f} loss {d['losses'][0]:.5f} -> "
              f"{d['losses'][-1]:.5f} aux {d['aux'][0]:.7f} -> {d['aux'][-1]:.7f} card={card}")
+    d = mesh.stats
+    _log(f"mesh summary: serve prefill_s={d['mesh serve']['prefill_s']:.4f} "
+         f"warm_prefill_s={d['mesh serve']['warm_prefill_s']:.4f} "
+         f"decode_tok_s={d['mesh serve']['decode_tok_s']:.2f} (mesh-less "
+         f"{d['mesh serve']['plain_decode_tok_s']:.2f}) "
+         f"peak_gib={d['mesh serve']['peak_gib']:.3f} train step_s="
+         f"{[round(x, 4) for x in d['mesh train']['step_s']]} "
+         f"bf16_gather_step_s={d['mesh train']['step16_s']:.4f} "
+         f"moe tp prefill_s={d['mesh moe tp']['prefill_s']:.4f} "
+         f"ep prefill_s={d['mesh moe ep']['prefill_s']:.4f} card={card}")
     _log(f"phase total: {time.perf_counter() - t_all:.1f} s")
     if smoke.failures:
         print(f"{len(smoke.failures)} failures: {smoke.failures}", file=sys.stderr)

@@ -4,9 +4,12 @@
 ``ArchConfig`` carry the fields of the JAX package's ``configs/base.py``
 that serving and training every architecture on one card read: the
 dense, MoE, MLA, hybrid (Mamba), xLSTM, vision-language (patch
-embeddings, M-RoPE) and encoder-decoder families.  The sharding knobs
-wait for distribution (ROADMAP A.9b).  ``param_count`` counts the port's
-own ``Model`` on the meta device.
+embeddings, M-RoPE) and encoder-decoder families, plus the distribution
+knobs the mesh forms read (``tp_size``, ``microbatches_override``,
+``gather_dtype``, ``moe_impl``, ``weights_resident_serve``, with the
+reference's defaults) and the reference's cell shapes (``ShapeCfg``,
+``SHAPES``).  ``param_count`` counts the port's own ``Model`` on the
+meta device.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-__all__ = ["LayerSpec", "MoECfg", "MLACfg", "MambaCfg", "XLSTMCfg", "ArchConfig"]
+__all__ = ["LayerSpec", "MoECfg", "MLACfg", "MambaCfg", "XLSTMCfg", "ArchConfig", "ShapeCfg",
+           "SHAPES"]
 
 
 @dataclass(frozen=True)
@@ -38,7 +42,10 @@ class MoECfg:
     capacity_factor: float = 1.25
     router: str = "softmax"  # softmax | sigmoid (deepseek-v3)
     aux_loss_weight: float = 0.001
-    impl: str = "tp"  # tp | ep: the distributed forms (ROADMAP A.9b)
+    # the mesh form: "tp" shards expert_ff over 'model' (one all-reduce
+    # after combine), "ep" puts whole experts on 'model' ranks (two
+    # all-to-alls); ``ArchConfig.moe_impl`` overrides it
+    impl: str = "tp"
 
 
 @dataclass(frozen=True)
@@ -116,6 +123,20 @@ class ArchConfig:
     # autotune.choose_attn_impl; "flash" / "chunked" force a path,
     # "flash-folded" / "flash-bb" also pin the kernel schedule.
     attention_impl: str = "auto"
+    # tensor-parallel width on the 'model' mesh axis: > 1 splits attention
+    # heads and the experts over 'model'; 1 folds the axis into the data
+    # axes (a small model needs no TP)
+    tp_size: int = 16
+    # overrides the shape's grad-accum microbatch count when > 0
+    microbatches_override: int = 0
+    # dtype the train step gathers parameters in ("bfloat16" halves the
+    # gather's bytes; the optimizer updates the param_dtype master)
+    gather_dtype: str = "float32"
+    # MoE mesh form override: "" = MoECfg.impl; "ep" or "tp"
+    moe_impl: str = ""
+    # prefill and decode keep weights resident (sharded over 'model' only,
+    # replicated over the data axes) instead of ZeRO-3; train keeps ZeRO-3
+    weights_resident_serve: bool = True
     source: str = ""
 
     @property
@@ -149,3 +170,23 @@ class ArchConfig:
 
         return sum(p.numel() for p in Model(self, device="meta").parameters())
 
+
+@dataclass(frozen=True)
+class ShapeCfg:
+    """One cell's shape: sequence length, global batch, mode (``train``,
+    ``prefill`` or ``decode``) and grad-accum microbatches."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+    microbatches: int = 1
+
+
+# The reference's cells.
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train", microbatches=8),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}

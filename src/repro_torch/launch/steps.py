@@ -1,0 +1,337 @@
+"""The step bundle: one cell's mesh, partition specs and step functions.
+
+The port's counterpart of the JAX package's ``launch/steps.py``, as
+explicit SPMD over ``torch.distributed``: every rank runs the step on its
+own rows.  The bundle keeps one representation of the sharding, its
+``Spec`` trees (``distributed/sharding.py``); the steps work on this
+rank's local blocks, and parameters, optimizer state and caches cross the
+API as ``DTensor``s with the specs' placements.
+
+* ``train_step``: the parameters are all-gathered in ``param_dtype`` and
+  cast to ``cfg.gather_dtype`` on each rank; the loss and its gradients
+  run on this rank's rows, over ``shape.microbatches`` equal slices of
+  them (``launch/train.py``'s loop, float32 accumulation); the gradients
+  are reduced (summed over ``'model'`` where the experts' work was split
+  there, then averaged over the data axes when the batch is split over
+  them); the optimizer updates the gathered masters and every rank keeps
+  its shard of the new parameters and state.  The optimizer runs on the
+  full tensors on every rank: the simple, exact form.  While it needs the
+  gathered masters, a gather in ``gather_dtype`` would move the
+  parameters a second time, and casting the gathered masters gives the
+  same bits; the cast before the gather comes back with the sharded
+  update (ROADMAP A.9c).
+* ``prefill_step`` and ``serve_step``: the weights (resident, sharded over
+  ``'model'`` only, with ``cfg.weights_resident_serve``) are gathered, and
+  the model runs on this rank's rows; the caches come back as ``DTensor``s
+  with ``cache_specs``' placements.  ``serve_step`` hands back a cache
+  leaf that the decode passes through unchanged (the prefill's keys and
+  values) as the caller's own ``DTensor``, so a token wraps only what it
+  made.
+
+Inside the model the causal attention and the MoE FFN take their mesh
+forms (``models/attention.py``, ``models/moe.py``).  A gather over axes
+of one rank in all is no copy: on a one-rank mesh the gathered tensors
+are the stored ones.  The reference's ``lower_*`` methods are its
+dry-run's; they come with ``launch/dryrun.py`` (ROADMAP A.11).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Dict, Iterator
+
+import torch
+
+from ..configs.base import ArchConfig, ShapeCfg
+from ..distributed.collectives import all_reduce, group_size
+from ..distributed.sharding import (Spec, batch_specs, cache_specs, dp_axes, drop_fsdp,
+                                    gather_tensor, local_block, local_shape, map_specs,
+                                    opt_state_specs, param_specs, shard_tensor)
+from ..models.convert import is_stacked, stacked_groups
+from ..models.model import Model
+from ..models.moe import experts_split
+from ..optim.optimizer import make_optimizer, warmup_cosine
+from .train import _loss_grads_metrics
+
+__all__ = ["StepBundle", "build", "input_shapes"]
+
+
+def input_shapes(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, tuple]:
+    """The global shape of every model input of a cell, as the reference's
+    ``Model.input_specs``: ``tokens`` (B, S+1) to train, (B, S) to prefill,
+    (B, 1) with ``pos`` (B,) to decode; ``patches`` (B, n_patches, d) and
+    ``src_embeds`` (B, S, d) where the config takes them.
+
+    Example:
+        >>> from repro_torch.configs.yi_6b import reduced
+        >>> input_shapes(reduced(), ShapeCfg("t", 32, 4, "train"))
+        {'tokens': (4, 33)}
+    """
+    b, s = shape.global_batch, shape.seq_len
+    if shape.mode == "train":
+        batch = {"tokens": (b, s + 1)}
+    elif shape.mode == "prefill":
+        batch = {"tokens": (b, s)}
+    else:
+        batch = {"tokens": (b, 1), "pos": (b,)}
+    if cfg.n_patches and shape.mode != "decode":
+        batch["tokens"] = (b, batch["tokens"][1] - cfg.n_patches)
+        batch["patches"] = (b, cfg.n_patches, cfg.d_model)
+    if cfg.encoder_layers and shape.mode != "decode":
+        batch["src_embeds"] = (b, s, cfg.d_model)
+    return batch
+
+
+def _with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its parallel spec tree."""
+    if isinstance(specs, Spec):
+        return fn(tree, specs)
+    if isinstance(specs, dict):
+        return {k: _with_specs(fn, tree[k], v) for k, v in specs.items()}
+    return type(specs)(_with_specs(fn, t, v) for t, v in zip(tree, specs))
+
+
+class StepBundle:
+    """One cell: the config, the mesh, the shape, the specs and the steps.
+
+    Args:
+        cfg: The architecture (its ``tp_size``, ``gather_dtype``,
+            ``moe_impl``, ``microbatches_override``,
+            ``weights_resident_serve``).
+        mesh: A ``DeviceMesh`` with named axes (``launch/mesh.py``).
+        shape: The cell's ``ShapeCfg``; ``mode`` picks train or serve
+            storage.
+
+    Attributes:
+        pspecs: ``{parameter name: Spec}`` (serve specs drop ``pod`` and
+            ``data`` with ``weights_resident_serve``).
+        ospecs: The optimizer state's spec tree (train).
+        bspecs: ``{input: Spec}``.
+        cspecs: The decode cache's spec tree (decode).
+
+    ``sharding.named(mesh, spec)`` gives a spec's DTensor placements.
+    """
+
+    def __init__(self, cfg: ArchConfig, mesh, shape: ShapeCfg):
+        if cfg.microbatches_override and shape.mode == "train":
+            shape = dataclasses.replace(shape, microbatches=cfg.microbatches_override)
+        self.cfg, self.mesh, self.shape = cfg, mesh, shape
+        self.tp = cfg.tp_size > 1
+        self.moe_ep = bool(cfg.moe) and (cfg.moe_impl or cfg.moe.impl) == "ep"
+        self.dp = dp_axes(mesh, self.tp)
+        self.model = Model(cfg, device="meta")  # parameters are bound per call
+        meta = dict(self.model.named_parameters())
+        self._owners = {}
+        for n in meta:
+            owner, _, leaf = n.rpartition(".")
+            self._owners[n] = (self.model.get_submodule(owner) if owner else self.model, leaf)
+        self._stacked = {n: is_stacked(k) for k, ms in stacked_groups(meta).items() for n in ms}
+        self._cache_specs: Dict[tuple, Spec] = {}
+        raw = param_specs(meta, mesh, self.tp, self.moe_ep)
+        if shape.mode != "train" and cfg.weights_resident_serve:
+            self.pspecs = {n: drop_fsdp(s) for n, s in raw.items()}
+        else:
+            self.pspecs = raw
+        if shape.mode == "train":
+            self.opt = make_optimizer(cfg.optimizer, warmup_cosine(3e-4, 2000, 100_000))
+            self.opt_shapes = map_specs(lambda _, t: tuple(t.shape), self.opt.init(meta))
+            self.ospecs = opt_state_specs(self.opt_shapes, raw, meta, mesh)
+        self.batch_shapes = input_shapes(cfg, shape)
+        self.bspecs = batch_specs(self.batch_shapes, mesh, self.tp)
+        self.rows_split = self.bspecs["tokens"][0] is not None
+        if shape.mode == "decode":
+            cache = self.model.init_cache(shape.global_batch, shape.seq_len, torch.bfloat16)
+            self.cspecs = cache_specs(map_specs(lambda _, t: tuple(t.shape), cache), mesh,
+                                      self.tp)
+        # the experts' leaves whose gradients are partial over 'model', in
+        # one order on every rank (their reduction is a collective per leaf)
+        self.split = [n for n, t in meta.items() if t.ndim == 3 and experts_split(cfg, mesh)
+                      and n.split(".")[-2:] in (["ffn", "w1"], ["ffn", "w3"], ["ffn", "w2"])]
+
+    # ------------------------------------------------------------ storage
+
+    def shard_params(self, params) -> Dict[str, Any]:
+        """Every parameter as a ``DTensor`` with ``pspecs``' placements.
+
+        Args:
+            params: A ``Model`` or ``{name: tensor}``, the full tensors, the
+                same on every rank.  Each shard is a view of its tensor (on
+                one rank, the tensor itself).
+        """
+        if isinstance(params, torch.nn.Module):
+            params = dict(params.named_parameters())
+        return {n: shard_tensor(params[n].detach(), self.mesh, s)
+                for n, s in self.pspecs.items()}
+
+    def init_opt_state(self, params=None):
+        """The optimizer's zero state as ``DTensor``s with ``ospecs``'
+        placements, each rank allocating only its shard on the mesh's
+        device (``params`` is not read: the state starts at zero)."""
+        del params
+        device = self._device()
+
+        def zeros(shape, spec):
+            local = torch.zeros(local_shape(shape, spec, self.mesh), dtype=torch.float32,
+                                device=device)
+            return shard_tensor(local, self.mesh, spec, presharded=range(len(shape)))
+
+        return _with_specs(zeros, self.opt_shapes, self.ospecs)
+
+    def shard_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """The global batch (the same on every rank) as ``DTensor``s with
+        ``bspecs``' placements."""
+        return {k: shard_tensor(v, self.mesh, self.bspecs[k]) for k, v in batch.items()}
+
+    # --------------------------------------------------------------- train
+
+    def gather_params(self, params) -> Dict[str, torch.Tensor]:
+        """The full parameters (``param_dtype``) on every rank."""
+        return {n: gather_tensor(t, self.mesh, self.pspecs[n]) for n, t in params.items()}
+
+    def loss_and_grads(self, params, batch):
+        """``(loss, grads)`` of this step's rows, as ``train_step`` computes
+        them: the loss averaged over the microbatches and the data shards,
+        the gradients float32 and reduced (every rank gets the same full
+        gradients)."""
+        return self._loss_and_grads(self.gather_params(params), batch)
+
+    def _loss_and_grads(self, masters, batch):
+        gdt = getattr(torch, self.cfg.gather_dtype)
+        leaves = {n: (t.to(gdt) if t.ndim + self._stacked[n] >= 2 else t)
+                  .detach().requires_grad_(True) for n, t in masters.items()}
+        with self._bound(leaves):
+            total, grads, _ = _loss_grads_metrics(self.model, self._rows(batch),
+                                                  self.shape.microbatches, self.mesh)
+        if group_size(self.mesh, "model") > 1:
+            for n in self.split:  # each rank computed its slice of the experts
+                all_reduce(grads[n], self.mesh, "model")
+        ndp = group_size(self.mesh, self.dp)
+        if self.rows_split and ndp > 1:
+            names = list(grads)
+            flat = torch.cat([total.reshape(1)] + [grads[n].reshape(-1) for n in names])
+            all_reduce(flat, self.mesh, self.dp).div_(ndp)
+            total, off = flat[0], 1
+            for n in names:
+                k = grads[n].numel()
+                grads[n] = flat[off:off + k].view_as(grads[n])
+                off += k
+        return total, grads
+
+    def train_step(self, params, opt_state, step, batch):
+        """One optimizer step.
+
+        Args:
+            params: ``{name: DTensor}`` (``shard_params``).
+            opt_state: The state tree of ``DTensor``s (``init_opt_state``).
+            step: The step number (an int or a scalar tensor).
+            batch: ``{input: DTensor}`` (``shard_batch``), or the global
+                batch (the same on every rank), whose rows this rank takes.
+
+        Returns:
+            ``(params, opt_state, step + 1, {"loss": loss})``, the new
+            parameters and state stored with the same placements and the
+            loss the mean over every row of the batch.
+        """
+        masters = self.gather_params(params)
+        loss, grads = self._loss_and_grads(masters, batch)
+        state = _with_specs(lambda dt, spec: gather_tensor(dt, self.mesh, spec), opt_state,
+                            self.ospecs)
+        _, state = self.opt.update(grads, state, masters, step)
+        new_params = {n: self._keep(masters[n], self.pspecs[n]) for n in masters}
+        new_state = _with_specs(self._keep, state, self.ospecs)
+        return new_params, new_state, step + 1, {"loss": loss}
+
+    # ----------------------------------------------------------- serving
+
+    def prefill_step(self, params, batch):
+        """Full-sequence forward on this rank's rows.
+
+        Returns:
+            ``(last_logits, caches)``: ``(B, 1, vocab)`` logits as a
+            ``DTensor`` split over the data axes like the batch, and the
+            caches (``Model.prefill``'s tree) as ``DTensor``s with
+            ``cache_specs``' placements.
+        """
+        with self._bound(self.gather_params(params)):
+            logits, caches = self.model.prefill(self._rows(batch), self.mesh)
+        return self._rows_out(logits), map_specs(lambda _, t: self._cache_out(t), caches)
+
+    def serve_step(self, params, caches, batch):
+        """One decoded token against ``caches`` (``prefill_step``'s): the
+        caches are gathered over every axis but the rows', and
+        ``Model.decode`` runs on this rank's rows.
+
+        Returns:
+            ``(logits, new_caches)`` as ``prefill_step`` returns them; a
+            leaf of ``new_caches`` that the decode passed through unchanged
+            is the ``DTensor`` of ``caches`` it came from.
+        """
+        given = {}
+
+        def rows(_, dt):
+            spec = self._cache_spec(tuple(dt.shape))
+            local = gather_tensor(dt, self.mesh, Spec((None,) + tuple(spec[1:])))
+            given[id(local)] = dt
+            return local
+
+        local = map_specs(rows, caches)
+        with self._bound(self.gather_params(params)):
+            logits, new = self.model.decode(local, self._rows(batch), self.mesh)
+        return self._rows_out(logits), map_specs(
+            lambda _, t: given[id(t)] if id(t) in given else self._cache_out(t), new)
+
+    # ------------------------------------------------------------ helpers
+
+    @contextlib.contextmanager
+    def _bound(self, tensors: Dict[str, torch.Tensor]) -> Iterator[None]:
+        """The bundle's model with its parameters replaced by ``tensors``
+        (by name) for the block."""
+        saved = []
+        for name, t in tensors.items():
+            mod, leaf = self._owners[name]
+            saved.append((mod, leaf, mod._parameters[leaf]))
+            mod._parameters[leaf] = t
+        try:
+            yield
+        finally:
+            for mod, leaf, p in saved:
+                mod._parameters[leaf] = p
+
+    def _device(self) -> torch.device:
+        if self.mesh.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.mesh.device_type)
+
+    def _keep(self, full: torch.Tensor, spec: Spec, presharded=()):
+        """This rank's shard of a result, copied out of ``full`` (unless it
+        is all of it) so that ``full`` can be freed."""
+        return shard_tensor(full, self.mesh, spec, presharded, copy=True)
+
+    def _rows(self, batch) -> Dict[str, torch.Tensor]:
+        """This rank's rows of every input: a ``DTensor``'s local shard, or
+        the rank's block of a global tensor."""
+        return {k: (v.to_local() if hasattr(v, "to_local")
+                    else local_block(v, self.mesh, self.bspecs[k]))
+                for k, v in batch.items()}
+
+    def _rows_out(self, x: torch.Tensor):
+        spec = Spec(((self.dp if self.rows_split else None),) + (None,) * (x.ndim - 1))
+        return shard_tensor(x, self.mesh, spec, presharded=(0,))
+
+    def _cache_spec(self, shape: tuple) -> Spec:
+        """``cache_specs``' spec of a cache leaf of global ``shape``."""
+        if shape not in self._cache_specs:
+            self._cache_specs[shape] = cache_specs({"c": shape}, self.mesh, self.tp)["c"]
+        return self._cache_specs[shape]
+
+    def _cache_out(self, t: torch.Tensor):
+        """A cache leaf of this rank's rows as a ``DTensor``."""
+        ndp = group_size(self.mesh, self.dp) if self.rows_split else 1
+        spec = self._cache_spec((t.shape[0] * ndp,) + tuple(t.shape[1:]))
+        return self._keep(t, spec, (0,))
+
+
+def build(cfg: ArchConfig, mesh, shape: ShapeCfg) -> StepBundle:
+    """The ``StepBundle`` of one cell."""
+    return StepBundle(cfg, mesh, shape)

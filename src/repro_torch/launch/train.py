@@ -161,18 +161,19 @@ def loss_and_grads(model: Model, batch: Dict[str, torch.Tensor], microbatches: i
     return _loss_grads_metrics(model, batch, microbatches)[:2]
 
 
-def _loss_grads_metrics(model, batch, microbatches):
+def _loss_grads_metrics(model, batch, microbatches, mesh=None):
     """``loss_and_grads`` and the loss's metrics (``ce``, ``aux``) as
-    floats, averaged the same way."""
+    floats, averaged the same way; every input of ``batch`` is cut into
+    the microbatches, and ``mesh`` goes to ``model.loss``."""
     params = dict(model.named_parameters())
     names = [n for n, p in params.items() if p.requires_grad]
     if not names:
         raise ValueError("no parameter records a gradient: call model.requires_grad_(True)")
-    tokens = batch["tokens"]
     total, grads = None, None
     sums = {"ce": 0.0, "aux": 0.0}
-    for mb in tokens.reshape((microbatches, -1) + tuple(tokens.shape[1:])):
-        loss, metrics = model.loss({"tokens": mb})
+    for i in range(microbatches):
+        mb = {k: v.reshape((microbatches, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
+        loss, metrics = model.loss(mb, mesh)
         g = torch.autograd.grad(loss, [params[n] for n in names])
         for key in sums:
             sums[key] += metrics[key].detach().item()

@@ -9,8 +9,10 @@ walks ``nq/2`` pairs of ``nq+1`` tiles.  ``simplex_attention`` sends
 prefill to the flash kernel (``kernels/flash_attention.py``) when a tile
 maps the shape.  ``full_attention`` is the bidirectional attention of
 the encoder and of cross attention, plain torch as in the reference
-(where it reaches no Pallas kernel).  Only the mesh-less path is ported;
-distribution is ROADMAP A.9b.
+(where it reaches no Pallas kernel).  ``sharded_causal_attention`` is the
+decoder's causal attention with the reference's mesh forms: on a mesh
+each rank attends over its own rows, and with tensor parallelism over
+its slice of the heads, gathered over ``'model'``.
 """
 
 from __future__ import annotations
@@ -227,12 +229,60 @@ def simplex_attention(
     return chunked_causal_attention(q, k, v, chunk=chunk, schedule=schedule, scale=scale)
 
 
-def sharded_causal_attention(q, k, v, cfg) -> torch.Tensor:
-    """Causal attention of the decoder on one device: ``simplex_attention``
-    with the config's executor knobs (the reference's mesh-less branch;
-    sharding over a mesh is ROADMAP A.9b)."""
-    return simplex_attention(q, k, v, impl=cfg.attention_impl, chunk=cfg.attention_chunk,
-                             schedule=cfg.attention_schedule)
+def sharded_causal_attention(q, k, v, cfg, mesh=None) -> torch.Tensor:
+    """The decoder's causal attention, with the reference's three branches.
+
+    Every branch attends through ``simplex_attention`` with the config's
+    executor knobs, so on the card prefill launches the flash kernel on
+    each rank.  (The reference keeps the chunked executor inside
+    ``shard_map`` because a Pallas call under GSPMD is outside its
+    dispatch contract; a rank here holds plain local tensors.)
+
+    * No mesh (or no ``'model'`` axis): one device.
+    * ``cfg.tp_size <= 1``: the batch is split over every axis, so the
+      rank's rows are its own and attention is local.  Where the batch
+      does not divide, every rank holds all rows and attends over them, as
+      the reference falls back to plain attention.
+    * Tensor parallel: the rank takes its ``Hq / |model|`` heads, and the
+      KV heads they read (``max(hq_loc // group, 1)`` from ``kv_start =
+      (m * hq_loc) // group``), and the heads are gathered over
+      ``'model'`` (``collectives.enter_tp`` / ``exit_gather``, so the
+      backward is the single-device one).  Where the heads do not split
+      into whole GQA groups, it attends over every head, as the reference
+      falls back.
+
+    Args:
+        q: ``(B, Hq, S, D)``, this rank's rows, replicated over ``'model'``.
+        k: ``(B, Hkv, S, D)``.
+        v: ``(B, Hkv, S, Dv)``.
+        cfg: The config: ``attention_impl``, ``attention_chunk``,
+            ``attention_schedule``, ``tp_size``.
+        mesh: A ``DeviceMesh`` with named axes, or None.
+
+    Returns:
+        ``(B, Hq, S, Dv)`` in q's dtype, replicated over ``'model'``.
+    """
+    def attend(ql, kl, vl):
+        return simplex_attention(ql, kl, vl, impl=cfg.attention_impl,
+                                 chunk=cfg.attention_chunk, schedule=cfg.attention_schedule)
+
+    if mesh is None or "model" not in mesh.mesh_dim_names or cfg.tp_size <= 1:
+        return attend(q, k, v)
+    from ..distributed import collectives as C
+
+    hq, hkv = q.shape[1], k.shape[1]
+    group = hq // hkv
+    msize = C.axis_sizes(mesh)["model"]
+    hq_loc = hq // msize if hq % msize == 0 else 0
+    if not (hq_loc > 0 and (hq_loc % group == 0 or group % hq_loc == 0)):
+        return attend(q, k, v)
+    m = mesh.get_local_rank("model")
+    kv_start, kv_needed = (m * hq_loc) // group, max(hq_loc // group, 1)
+    ql = C.enter_tp(q, mesh).narrow(1, m * hq_loc, hq_loc)
+    kl = C.enter_tp(k, mesh).narrow(1, kv_start, kv_needed)
+    vl = C.enter_tp(v, mesh).narrow(1, kv_start, kv_needed)
+    o = attend(ql.contiguous(), kl.contiguous(), vl.contiguous())
+    return C.exit_gather(o, mesh, dim=1)
 
 
 def decode_attention(q, k_cache, v_cache, k_new, v_new, *, scale=None) -> torch.Tensor:
@@ -288,6 +338,7 @@ def attn_apply(
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     bidirectional: bool = False,
     positions3: Optional[torch.Tensor] = None,
+    mesh=None,
 ):
     """Returns ``(out, new_cache)``.  Modes:
     train/prefill — full-sequence causal attention, or bidirectional with
@@ -298,7 +349,8 @@ def attn_apply(
     ``cross_kv`` attends to the given encoder ``(k, v)`` instead
     (bidirectional, no RoPE, no cache, in every mode).  With
     ``cfg.mrope_sections`` and ``positions3`` (B, S, 3), q and k take
-    M-RoPE instead of RoPE.
+    M-RoPE instead of RoPE.  ``mesh`` goes to the causal attention
+    (``sharded_causal_attention``).
     """
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -325,7 +377,8 @@ def attn_apply(
         if mode == "prefill" and cross_kv is None:
             new_cache = (k, v)
     else:
-        o = sharded_causal_attention(q.contiguous(), k.contiguous(), v.contiguous(), cfg)
+        o = sharded_causal_attention(q.contiguous(), k.contiguous(), v.contiguous(), cfg,
+                                     mesh)
         if mode == "prefill":
             new_cache = (k, v)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)

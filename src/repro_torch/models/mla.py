@@ -75,7 +75,8 @@ def _project_q(p, cfg, x, positions):
 
 
 def mla_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
-              cache: Optional[Tuple[torch.Tensor, ...]] = None, mode: str = "train"):
+              cache: Optional[Tuple[torch.Tensor, ...]] = None, mode: str = "train",
+              mesh=None):
     """One MLA mixer.
 
     Args:
@@ -87,6 +88,8 @@ def mla_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
             (B, S, R), ...)``; entries past the first two are ignored.
         mode: ``"train"`` / ``"prefill"`` (expanded attention) or
             ``"decode"`` (absorbed attention over the latent cache).
+        mesh: A ``DeviceMesh`` for the expanded attention's mesh forms
+            (``sharded_causal_attention``), or None.
 
     Returns:
         ``(out, new_cache)``: after prefill the latent pair ``(c_kv,
@@ -106,7 +109,8 @@ def mla_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
         v = (c_kv_new @ p["w_uv"].to(dt)).reshape(b, s, h, m.v_head_dim).transpose(1, 2)
         q = torch.cat([q_nope, q_pe], dim=-1)
         k = torch.cat([k_nope, k_pe_new[:, None].expand(b, h, s, m.qk_rope_dim)], dim=-1)
-        o = sharded_causal_attention(q.contiguous(), k.contiguous(), v.contiguous(), cfg)
+        o = sharded_causal_attention(q.contiguous(), k.contiguous(), v.contiguous(), cfg,
+                                     mesh)
         out = o.transpose(1, 2).reshape(b, s, h * m.v_head_dim) @ p["wo"].to(dt)
         return out, ((c_kv_new, k_pe_new) if mode == "prefill" else None)
 

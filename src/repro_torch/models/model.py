@@ -173,9 +173,9 @@ class Model(nn.Module):
         return x @ w.to(self.adtype)
 
     def _backbone(self, x, positions, *, caches=None, mode="train", enc_out=None,
-                  positions3=None):
+                  positions3=None, mesh=None):
         """The prefix blocks, then the stack, then the final norm; returns
-        ``(x, new_caches, aux)``."""
+        ``(x, new_caches, aux)``.  ``mesh`` goes to every block."""
         cfg = self.cfg
         new_caches: Dict[str, Any] = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -186,7 +186,8 @@ class Model(nn.Module):
                 cross_cache = c_i.get("cross") if (c_i and mode == "decode") else None
                 x, pc[f"p{i}"], a = block_apply(
                     self.prefix[f"p{i}"], cfg, spec, x, positions, cache=c_i, mode=mode,
-                    enc_out=enc_out, cross_cache=cross_cache, positions3=positions3)
+                    enc_out=enc_out, cross_cache=cross_cache, positions3=positions3,
+                    mesh=mesh)
                 if cross_cache is not None:
                     pc[f"p{i}"]["cross"] = cross_cache
                 aux = aux + a
@@ -194,7 +195,7 @@ class Model(nn.Module):
         x, new_caches["stack"], a = stack_apply(
             self.stack, cfg, self.specs, x, positions,
             caches=caches["stack"] if caches else None, mode=mode, enc_out=enc_out,
-            positions3=positions3)
+            positions3=positions3, mesh=mesh)
         return rmsnorm(self.final_norm, x, cfg.norm_eps), new_caches, aux + a
 
     def _encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
@@ -211,7 +212,7 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------ loss
 
-    def loss(self, batch: Dict[str, torch.Tensor]):
+    def loss(self, batch: Dict[str, torch.Tensor], mesh=None):
         """Next-token cross-entropy plus the extra terms, as the
         reference's ``Model.loss``.
 
@@ -220,7 +221,10 @@ class Model(nn.Module):
                 device: the inputs are ``[:, :-1]``, the labels ``[:, 1:]``;
                 plus ``"patches"`` (B, P, d) with ``cfg.n_patches`` (the
                 loss reads only the text positions) and ``"src_embeds"``
-                (B, Sk, d) with ``cfg.encoder_layers``.
+                (B, Sk, d) with ``cfg.encoder_layers``.  On a mesh, this
+                rank's rows.
+            mesh: A ``DeviceMesh`` for the mesh forms of the causal
+                attention and the MoE FFN (``launch/steps.py``), or None.
 
         Returns:
             ``(total, {"ce": ce, "aux": aux})``, float32 scalars; ``aux``
@@ -233,15 +237,15 @@ class Model(nn.Module):
         x, positions, pos3 = self._embed_inputs({**batch, "tokens": tokens[:, :-1]})
         enc_out = self._encode(batch["src_embeds"]) if self.is_encdec else None
         h, _, aux = self._backbone(x, positions, mode="train", enc_out=enc_out,
-                                   positions3=pos3)
+                                   positions3=pos3, mesh=mesh)
         h_text = h[:, -labels.shape[1]:]  # the text positions, after any patches
         ce = _cross_entropy(self._logits(h_text), labels)
         total = ce + aux
         if self.cfg.mtp:
-            total = total + MTP_WEIGHT * self._mtp_loss(h_text, tokens)
+            total = total + MTP_WEIGHT * self._mtp_loss(h_text, tokens, mesh)
         return total, {"ce": ce, "aux": aux}
 
-    def _mtp_loss(self, h: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    def _mtp_loss(self, h: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
         """DeepSeek-V3's multi-token prediction: the depth-1 head predicts
         token t+2 from ``[h_t ; embed(token_{t+1})]``."""
         cfg = self.cfg
@@ -249,20 +253,22 @@ class Model(nn.Module):
         x = torch.cat([h[:, :-1], emb_next], dim=-1) @ self.mtp["proj"].to(self.adtype)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        x, _, _ = block_apply(self.mtp.block, cfg, MTP_SPEC, x, positions, mode="train")
+        x, _, _ = block_apply(self.mtp.block, cfg, MTP_SPEC, x, positions, mode="train",
+                              mesh=mesh)
         x = rmsnorm(self.mtp.norm, x, cfg.norm_eps)
         return _cross_entropy(self._logits(x), tokens[:, 2:])
 
     # ------------------------------------------------------- prefill / decode
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor]):
+    def prefill(self, batch: Dict[str, torch.Tensor], mesh=None):
         """Full-sequence forward filling the caches.
 
         Args:
             batch: ``{"tokens": (B, S)}`` integer tensor on the model's
                 device, plus ``"patches"`` and ``"src_embeds"`` as ``loss``
                 takes them.
+            mesh: As ``loss`` takes it.
 
         Returns:
             ``(last_logits (B, 1, vocab), caches)`` with ``caches =
@@ -277,11 +283,11 @@ class Model(nn.Module):
         x, positions, pos3 = self._embed_inputs(batch)
         enc_out = self._encode(batch["src_embeds"]) if self.is_encdec else None
         h, caches, _ = self._backbone(x, positions, mode="prefill", enc_out=enc_out,
-                                      positions3=pos3)
+                                      positions3=pos3, mesh=mesh)
         return self._logits(h[:, -1:]), caches
 
     @torch.no_grad()
-    def decode(self, caches, batch: Dict[str, torch.Tensor]):
+    def decode(self, caches, batch: Dict[str, torch.Tensor], mesh=None):
         """One token against full caches.
 
         Args:
@@ -289,6 +295,7 @@ class Model(nn.Module):
             batch: ``{"tokens": (B, 1), "pos": (B,)}``: the new token and
                 its absolute position (with M-RoPE, the position of all
                 three streams).
+            mesh: As ``loss`` takes it.
 
         Returns:
             ``(logits (B, 1, vocab), new_caches)``; a GQA block's new cache
@@ -303,7 +310,7 @@ class Model(nn.Module):
         if self.cfg.mrope_sections is not None:
             pos3 = positions[..., None].expand(x.shape[0], 1, 3).to(torch.int32)
         h, new_caches, _ = self._backbone(x, positions, caches=caches, mode="decode",
-                                          positions3=pos3)
+                                          positions3=pos3, mesh=mesh)
         return self._logits(h), new_caches
 
     # ----------------------------------------------------------------- caches

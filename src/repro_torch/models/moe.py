@@ -1,21 +1,33 @@
 """Mixture-of-Experts: shared plus routed top-k with capacity-based dispatch.
 
-The port's counterpart of the JAX package's ``models/moe.py`` on one
-device (its ``mesh is None`` branch).  Dispatch is GShard/Switch-style:
-each (token, slot) gets its position in its expert from a cumulative sum
-(slot-major, then token order), the kept ones are scattered into an
-``(E * cap, d)`` buffer, the experts run one batched SwiGLU, and each
-token gathers its slots back weighted by its gates.  A slot past its
-expert's capacity is dropped: it goes to row ``E * cap`` of a buffer one
-row longer, which is thrown away, as the reference's ``mode="drop"``
-scatter discards it.  Each kept row receives exactly one token, so the
-buffer is the reference's exactly, on the card too, where ``index_add``
-adds in no fixed order.  The expert SwiGLU is ``torch.bmm``, as the
-reference computes it in XLA, outside any Pallas kernel.
+The port's counterpart of the JAX package's ``models/moe.py``.  Dispatch
+is GShard/Switch-style: each (token, slot) gets its position in its
+expert from a cumulative sum (slot-major, then token order), the kept
+ones are scattered into an ``(E * cap, d)`` buffer, the experts run one
+batched SwiGLU, and each token gathers its slots back weighted by its
+gates.  A slot past its expert's capacity is dropped: it goes to row
+``E * cap`` of a buffer one row longer, which is thrown away, as the
+reference's ``mode="drop"`` scatter discards it.  Each kept row receives
+exactly one token, so the buffer is the reference's exactly, on the card
+too, where ``index_add`` adds in no fixed order.  The expert SwiGLU is
+``torch.bmm``, as the reference computes it in XLA, outside any Pallas
+kernel.
 
-The distributed forms, expert-ff sharding under ``shard_map`` and expert
-parallelism over all-to-all (the reference's ``moe.py:127-164`` and
-``_moe_ep``), wait for ROADMAP A.9b.
+On a mesh (``moe_apply(..., mesh)``) every rank routes its own rows, so
+capacity is local to each data shard (the GShard "group" semantics), and
+the balance loss is averaged over the data axes.  Two forms split the
+experts' work over ``'model'``:
+
+* tensor parallel (``impl="tp"``, the reference's ``moe.py:132-164``):
+  each rank computes its ``expert_ff / |model|`` slice of every expert,
+  and the partial outputs are all-reduced after combine;
+* expert parallel (``impl="ep"``, ``_moe_ep``): each rank holds ``E /
+  |model|`` whole experts; the dispatch buffers go to their experts' ranks
+  and the results come back, two all-to-alls over ``'model'``.
+
+``moe_form`` says which form a config takes on a mesh, and
+``experts_split`` whether the experts' gradients are partial over
+``'model'`` (the step sums them there).
 """
 
 from __future__ import annotations
@@ -29,7 +41,8 @@ from torch import nn
 
 from .layers import Params, SwiGLU, dense_init, swiglu
 
-__all__ = ["MoE", "moe_init", "moe_apply", "route", "dispatch", "record_routing"]
+__all__ = ["MoE", "moe_init", "moe_apply", "route", "dispatch", "record_routing", "moe_form",
+           "experts_split"]
 
 # The expert ids of each MoE call while ``record_routing`` is active.
 _RECORD: Optional[List[torch.Tensor]] = None
@@ -134,38 +147,138 @@ def dispatch(idx: torch.Tensor, mc):
     return pos, keep, slot, cap
 
 
-def _dispatch_compute_combine(x2, gates, idx, probs, p, mc):
-    """The MoE core on ``x2`` (T, d); returns ``(out (T, d), aux)``."""
+def _buffer(x2, slot, mc, cap):
+    """The ``(E * cap, d)`` dispatch buffer: each kept (token, slot) in its
+    row, the dropped ones in a last row that is cut off."""
     t, d = x2.shape
-    e, k = mc.n_experts, mc.top_k
-    dt = x2.dtype
-    _, keep, slot, cap = dispatch(idx, mc)
-    flat = slot.reshape(-1)
+    k = slot.shape[1]
     xk = x2[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = x2.new_zeros((e * cap + 1, d)).index_add(0, flat, xk)[:-1].reshape(e, cap, d)
-    h = torch.bmm(buf, p["w1"].to(dt))
-    u = torch.bmm(buf, p["w3"].to(dt))
-    y = torch.bmm(nn.functional.silu(h) * u, p["w2"].to(dt)).reshape(e * cap, d)
-    out_k = y.index_select(0, flat.clamp(max=e * cap - 1)).reshape(t, k, d)
-    out = (out_k * (gates * keep).to(dt)[..., None]).sum(1)
-    # the Switch balance loss: E * sum_e f_e * p_e
+    return x2.new_zeros((mc.n_experts * cap + 1, d)).index_add(0, slot.reshape(-1), xk)[:-1]
+
+
+def _experts(buf, w1, w3, w2):
+    """The batched expert SwiGLU on ``buf`` (E, C, d)."""
+    dt = buf.dtype
+    h = torch.bmm(buf, w1.to(dt))
+    u = torch.bmm(buf, w3.to(dt))
+    return torch.bmm(nn.functional.silu(h) * u, w2.to(dt))
+
+
+def _combine(y, slot, gates, keep, t, k, mc, cap):
+    """Each token's slots gathered from ``y`` (E * cap, d) and weighted."""
+    out_k = y.index_select(0, slot.reshape(-1).clamp(max=mc.n_experts * cap - 1))
+    return (out_k.reshape(t, k, -1) * (gates * keep).to(y.dtype)[..., None]).sum(1)
+
+
+def _balance(idx, keep, probs, mc):
+    """The Switch balance loss: ``E * sum_e f_e * p_e``."""
+    e = mc.n_experts
     frac_tokens = (nn.functional.one_hot(idx, e).to(torch.float32)
                    * keep[..., None]).sum(1).mean(0)
-    aux = e * torch.sum(frac_tokens * probs.mean(0))
-    return out, aux
+    return e * torch.sum(frac_tokens * probs.mean(0))
 
 
-def moe_apply(p, cfg, x: torch.Tensor):
+def _dispatch_compute_combine(x2, gates, idx, probs, p, mc, mesh=None):
+    """The MoE core on ``x2`` (T, d); returns ``(out (T, d), aux)``.  With
+    ``mesh`` it computes this rank's ``expert_ff`` slice (TP form) and
+    all-reduces the partial outputs over ``'model'``."""
+    t, _ = x2.shape
+    _, keep, slot, cap = dispatch(idx, mc)
+    w1, w3, w2 = p["w1"], p["w3"], p["w2"]
+    if mesh is not None:
+        from ..distributed import collectives as C
+
+        f = mc.expert_ff // C.axis_sizes(mesh)["model"]
+        lo = mesh.get_local_rank("model") * f
+        w1, w3, w2 = w1.narrow(2, lo, f), w3.narrow(2, lo, f), w2.narrow(1, lo, f)
+        x2, gates = C.enter_tp(x2, mesh), C.enter_tp(gates, mesh)
+    buf = _buffer(x2, slot, mc, cap).reshape(mc.n_experts, cap, -1)
+    y = _experts(buf, w1, w3, w2).reshape(mc.n_experts * cap, -1)
+    out = _combine(y, slot, gates, keep, t, idx.shape[1], mc, cap)
+    if mesh is not None:
+        out = C.exit_reduce(out, mesh)
+    return out, _balance(idx, keep, probs, mc)
+
+
+def _moe_ep(x2, gates, idx, probs, p, mc, mesh):
+    """Expert parallelism on ``x2`` (T, d), this rank's rows (replicated
+    over ``'model'``): the rank holds experts ``[m e_loc, (m+1) e_loc)``;
+    its ``(E, cap, d)`` buffer goes out in ``|model|`` blocks of ``e_loc``
+    experts, each rank runs its experts over every rank's block, and the
+    results come back the same way.  Every rank sends the same rows, so
+    the return exchange's backward scales by ``1 / |model|`` and the
+    entry's sums over ``'model'``: the gradients are the single-device
+    ones, the experts' each on its own rank."""
+    from ..distributed import collectives as C
+
+    t, d = x2.shape
+    msize = C.axis_sizes(mesh)["model"]
+    e_loc = mc.n_experts // msize
+    lo = mesh.get_local_rank("model") * e_loc
+    _, keep, slot, cap = dispatch(idx, mc)
+    buf = _buffer(C.enter_tp(x2, mesh), slot, mc, cap).reshape(msize, e_loc, cap, d)
+    recv = C.all_to_all(buf, mesh)  # (peers, e_loc, cap, d): their rows for my experts
+    recv = recv.transpose(0, 1).reshape(e_loc, msize * cap, d)
+    y = _experts(recv, p["w1"].narrow(0, lo, e_loc), p["w3"].narrow(0, lo, e_loc),
+                 p["w2"].narrow(0, lo, e_loc))
+    y = y.reshape(e_loc, msize, cap, d).transpose(0, 1)
+    back = C.all_to_all(y, mesh, grad_scale=1.0 / msize).reshape(mc.n_experts * cap, d)
+    out = _combine(back, slot, gates, keep, t, idx.shape[1], mc, cap)
+    return out, _balance(idx, keep, probs, mc)
+
+
+def moe_form(cfg, mesh) -> str:
+    """The MoE form of ``cfg`` on ``mesh``: ``"local"`` (no mesh, or no
+    split of the experts' work: ``tp_size <= 1`` or ``expert_ff`` not
+    divisible by ``|model|``), ``"tp"`` or ``"ep"`` (``moe_impl or
+    impl`` is ``"ep"``, ``tp_size > 1`` and ``|model|`` divides ``E``), as
+    the reference selects them."""
+    if mesh is None:
+        return "local"
+    from ..distributed.collectives import axis_sizes
+
+    mc, msize = cfg.moe, axis_sizes(mesh).get("model", 1)
+    if (cfg.moe_impl or mc.impl) == "ep" and cfg.tp_size > 1 and mc.n_experts % msize == 0:
+        return "ep"
+    if cfg.tp_size > 1 and mc.expert_ff % msize == 0:
+        return "tp"
+    return "local"
+
+
+def experts_split(cfg, mesh) -> bool:
+    """Whether the experts' gradients are partial over ``'model'`` on
+    ``mesh`` (the TP and EP forms): the step sums them over that axis."""
+    return bool(cfg.moe) and moe_form(cfg, mesh) in ("tp", "ep")
+
+
+def moe_apply(p, cfg, x: torch.Tensor, mesh=None):
     """x: (B, S, d) -> ``(out (B, S, d), aux)``, ``aux`` the balance loss
     times ``aux_loss_weight`` (float32).  The router runs in float32;
-    capacity counts all B x S tokens of the call."""
+    capacity counts all B x S tokens of the call.
+
+    With ``mesh`` (a ``DeviceMesh``), ``x`` is this rank's rows (its data
+    shard, replicated over ``'model'``); the experts run in
+    ``moe_form(cfg, mesh)``, and ``aux``'s value is the mean over the data
+    axes (``'model'`` too when ``tp_size <= 1``), its gradient this rank's
+    own.
+    """
     mc = cfg.moe
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
     gates, idx, probs = route(x2.to(torch.float32) @ p["router"], mc)
     if _RECORD is not None:
         _RECORD.append(idx.detach())
-    out, aux = _dispatch_compute_combine(x2, gates, idx, probs, p, mc)
+    form = moe_form(cfg, mesh)
+    if form == "ep":
+        out, aux = _moe_ep(x2, gates, idx, probs, p, mc, mesh)
+    else:
+        out, aux = _dispatch_compute_combine(x2, gates, idx, probs, p, mc,
+                                             mesh if form == "tp" else None)
+    if mesh is not None:
+        from ..distributed.collectives import mean_value
+        from ..distributed.sharding import dp_axes
+
+        aux = mean_value(aux, mesh, dp_axes(mesh, cfg.tp_size > 1))
     out = out.reshape(b, s, d)
     if mc.n_shared:
         out = out + swiglu(p["shared"], x)

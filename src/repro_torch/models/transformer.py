@@ -90,7 +90,7 @@ def block_init(generator: torch.Generator, cfg, spec, dtype=torch.float32,
 def block_apply(p, cfg, spec, x: torch.Tensor, positions: torch.Tensor, *,
                 cache=None, mode: str = "train", enc_out: Optional[torch.Tensor] = None,
                 cross_cache=None, bidirectional: bool = False,
-                positions3: Optional[torch.Tensor] = None):
+                positions3: Optional[torch.Tensor] = None, mesh=None):
     """Returns ``(x, new_cache, aux)``: ``new_cache`` is ``{"mixer": ...}``
     in prefill and decode, ``{}`` in train; ``aux`` is the block's MoE
     balance loss (a float32 scalar, 0 without experts).  ``spec`` is one
@@ -99,7 +99,9 @@ def block_apply(p, cfg, spec, x: torch.Tensor, positions: torch.Tensor, *,
     A block with cross attention attends to ``enc_out`` (B, Sk, d), whose
     K/V it projects once and, in prefill, returns as ``new_cache["cross"]``;
     in decode it reads them from ``cross_cache``.  ``bidirectional`` and
-    ``positions3`` go to the attention mixer.
+    ``positions3`` go to the attention mixer, and ``mesh`` (a
+    ``DeviceMesh`` or None) to the causal attention and the MoE FFN, whose
+    mesh forms it selects.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -111,11 +113,12 @@ def block_apply(p, cfg, spec, x: torch.Tensor, positions: torch.Tensor, *,
     elif spec.mixer == "slstm":
         o, new_mixer = slstm_apply(p["mixer"], cfg, h, cache=mixer_cache, mode=mode)
     elif cfg.attention == "mla":
-        o, new_mixer = mla_apply(p["mixer"], cfg, h, positions, cache=mixer_cache, mode=mode)
+        o, new_mixer = mla_apply(p["mixer"], cfg, h, positions, cache=mixer_cache, mode=mode,
+                                 mesh=mesh)
     else:
         o, new_mixer = attn_apply(p["mixer"], cfg, h, positions, cache=mixer_cache,
                                   mode=mode, bidirectional=bidirectional,
-                                  positions3=positions3)
+                                  positions3=positions3, mesh=mesh)
     x = x + o
     new_cache: Dict[str, Any] = {}
     if new_mixer is not None:
@@ -137,7 +140,7 @@ def block_apply(p, cfg, spec, x: torch.Tensor, positions: torch.Tensor, *,
         return x, new_cache, aux
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.ffn == "moe":
-        o, aux = moe_apply(p["ffn"], cfg, h)
+        o, aux = moe_apply(p["ffn"], cfg, h, mesh)
     else:
         o = swiglu(p["ffn"], h)
     return x + o, new_cache, aux
@@ -177,7 +180,7 @@ def stack_init(cfg, specs: Sequence, n_periods: int, dtype, device,
 
 
 def _period_apply(period, cfg, specs, x, positions, caches, mode, enc_out, bidirectional,
-                  positions3):
+                  positions3, mesh):
     nc = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(specs):
@@ -186,7 +189,8 @@ def _period_apply(period, cfg, specs, x, positions, caches, mode, enc_out, bidir
         x, nc[f"l{i}"], a = block_apply(period[f"l{i}"], cfg, spec, x, positions,
                                         cache=c_i, mode=mode, enc_out=enc_out,
                                         cross_cache=cross_cache,
-                                        bidirectional=bidirectional, positions3=positions3)
+                                        bidirectional=bidirectional, positions3=positions3,
+                                        mesh=mesh)
         if cross_cache is not None:
             nc[f"l{i}"]["cross"] = cross_cache  # the encoder's K/V stay as they are
         aux = aux + a
@@ -210,11 +214,12 @@ def _dots_context():
 def stack_apply(params: nn.ModuleList, cfg, specs: Sequence, x: torch.Tensor,
                 positions: torch.Tensor, *, caches: Optional[List] = None,
                 mode: str = "train", enc_out: Optional[torch.Tensor] = None,
-                bidirectional: bool = False, positions3: Optional[torch.Tensor] = None):
+                bidirectional: bool = False, positions3: Optional[torch.Tensor] = None,
+                mesh=None):
     """Run the periods in order.  Returns ``(x, new_caches, aux)``: one
     dict of block caches per period, and the sum of the blocks' balance
-    losses (float32).  ``enc_out``, ``bidirectional`` and ``positions3``
-    go to every block (``block_apply``).
+    losses (float32).  ``enc_out``, ``bidirectional``, ``positions3`` and
+    ``mesh`` go to every block (``block_apply``).
 
     ``cfg.remat`` acts where autograd records, as the reference's
     ``jax.checkpoint`` of the scanned period: ``"none"`` keeps every
@@ -237,7 +242,7 @@ def stack_apply(params: nn.ModuleList, cfg, specs: Sequence, x: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for k, period in enumerate(params):
         args = (period, cfg, specs, x, positions, caches[k] if caches else None, mode, enc_out,
-                bidirectional, positions3)
+                bidirectional, positions3, mesh)
         if remat:
             x, nc, a = checkpoint(_period_apply, *args, use_reentrant=False, **context)
         else:

@@ -1,0 +1,338 @@
+"""The rank program of ``tests/test_torch_lm_spmd.py``: one rank of a
+4-rank gloo group runs the port's LM mesh forms and step bundle on the
+inputs the test wrote (``setup.npz``) and saves what it saw.
+
+Spawned processes import this module by name, so it stays importable
+from ``tests/`` and imports neither JAX nor the JAX package; torch is
+imported inside ``run_rank``.  The case tables are shared with the JAX
+side (``tests/port_lm_jax.py``) and the test.
+"""
+
+import datetime
+import json
+import os
+
+import numpy as np
+
+WORLD = 4
+MESH = ((2, 2), ("data", "model"))
+F32 = dict(act_dtype="float32", param_dtype="float32")
+
+# MoE forms on reduced qwen2-moe-a2.7b: x (B, S, d).
+MOE_X = (4, 16)
+MOE_CASES = {"tp": {}, "ep": {"moe_impl": "ep"}}
+
+# Attention: (B, S) of q, k, v on reduced yi-6b with the fields replaced.
+ATTN_BS = (4, 64)
+ATTN_CASES = {
+    "tp": {},  # Hq 4, Hkv 1: 2 heads a rank, one KV head
+    "unaligned": {"d_model": 96, "n_heads": 6, "n_kv_heads": 3},  # 3 heads a rank, groups of 2
+    "tp1": {"tp_size": 1},  # rows over every axis
+}
+
+# Train steps: (arch, fields, global batch, seq).  "yi" is held against
+# the reference's ``jit_train`` on the (2, 2) mesh, the others against its
+# single-device loss and optimizer run per data shard.
+TRAIN_CASES = {
+    "yi": ("yi-6b", {}, 4, 32),
+    "yi_tp1": ("yi-6b", {"tp_size": 1}, 8, 32),
+    "yi_mb2": ("yi-6b", {"microbatches_override": 2}, 8, 32),
+    "yi_bf16": ("yi-6b", {"gather_dtype": "bfloat16"}, 4, 32),
+    "yi_rep": ("yi-6b", {"tp_size": 1}, 2, 32),  # 2 rows on 4 data ranks: replicated
+    "moe_tp": ("qwen2-moe-a2.7b", {}, 4, 32),
+    "moe_ep": ("qwen2-moe-a2.7b", {"moe_impl": "ep"}, 4, 32),
+}
+
+# Serving: (arch, fields, batch, prompt) prefilled and decoded DECODE_STEPS
+# tokens through the bundle.
+SERVE_CASES = {
+    "yi": ("yi-6b", {}, 4, 32),
+    "yi_b1": ("yi-6b", {}, 1, 32),  # one row: replicated over the data axis
+    "moe_ep": ("qwen2-moe-a2.7b", {"moe_impl": "ep"}, 4, 32),
+}
+DECODE_STEPS = 2
+
+# Storage: bundles whose every stored shard is held against numpy slicing
+# on the (2, 2, 1) pod/data/model mesh.
+STORE_MESH = ((2, 2, 1), ("pod", "data", "model"))
+STORE_CASES = {
+    "yi_train": ("yi-6b", {}, "train"),
+    "moe_ep_train": ("qwen2-moe-a2.7b", {"moe_impl": "ep"}, "train"),
+    "yi_decode": ("yi-6b", {}, "decode"),
+}
+
+
+def weights_key(arch: str, fields: dict) -> str:
+    """The setup's weight prefix of a config (weights depend on widths)."""
+    wide = {k: v for k, v in fields.items() if k in ("d_model", "n_heads", "n_kv_heads")}
+    return arch + "".join(f"-{k}{v}" for k, v in sorted(wide.items()))
+
+
+def numpy_slice(full: np.ndarray, spec, sizes: dict, coords: dict) -> np.ndarray:
+    """The block of ``full`` that ``spec`` gives the rank at ``coords``:
+    a dim over several axes is cut pod-major, as JAX cuts it."""
+    out = full
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx, size = 0, 1
+        for a in axes:
+            idx, size = idx * sizes[a] + coords[a], size * sizes[a]
+        n = full.shape[d] // size
+        out = np.take(out, np.arange(idx * n, (idx + 1) * n), axis=d)
+    return out
+
+
+def _cfg(arch, fields):
+    from repro_torch.configs.ALL import REDUCED
+
+    return REDUCED[arch]().replace(**F32, **fields)
+
+
+def _model(setup, arch, fields):
+    import torch
+
+    from repro_torch.models.convert import load_stacked
+    from repro_torch.models.model import Model
+
+    key = weights_key(arch, fields) + "."
+    flat = {k[len(key):]: v for k, v in setup.items() if k.startswith(key)}
+    model = Model(_cfg(arch, fields), device="cpu")
+    load_stacked(model, flat)
+    return model.requires_grad_(False), torch
+
+
+def _rows_of(mesh, axes, b):
+    """This rank's row range of a batch of ``b`` rows split over ``axes``."""
+    from repro_torch.distributed.collectives import axis_coords, axis_sizes
+
+    sizes, coords = axis_sizes(mesh), axis_coords(mesh)
+    idx, size = 0, 1
+    for a in axes:
+        idx, size = idx * sizes[a] + coords[a], size * sizes[a]
+    if b % size:
+        return 0, b
+    n = b // size
+    return idx * n, (idx + 1) * n
+
+
+def _moe(setup, mesh, out):
+    import torch
+
+    from repro_torch.models.moe import MoE, moe_apply
+
+    for name, fields in MOE_CASES.items():
+        cfg = _cfg("qwen2-moe-a2.7b", fields)
+        p = MoE(cfg, torch.float32, "cpu")
+        with torch.no_grad():
+            for n, t in p.named_parameters():
+                t.copy_(torch.from_numpy(setup[f"moe_layer.{n}"]))
+        x = torch.from_numpy(setup["moe_x"])
+        lo, hi = _rows_of(mesh, ("data",), x.shape[0])
+        with torch.no_grad():
+            o, aux = moe_apply(p, cfg, x[lo:hi], mesh)
+        out[f"moe.{name}.out"] = o.numpy()
+        out[f"moe.{name}.aux"] = aux.numpy()
+
+
+def _attention(setup, mesh, out):
+    import torch
+
+    from repro_torch.models.attention import sharded_causal_attention
+
+    for name, fields in ATTN_CASES.items():
+        cfg = _cfg("yi-6b", fields)
+        q, k, v = (torch.from_numpy(setup[f"attn.{name}.{t}"]) for t in "qkv")
+        axes = ("data",) if cfg.tp_size > 1 else ("data", "model")
+        lo, hi = _rows_of(mesh, axes, q.shape[0])
+        with torch.no_grad():
+            o = sharded_causal_attention(q[lo:hi], k[lo:hi], v[lo:hi], cfg, mesh)
+        out[f"attn.{name}"] = o.numpy()
+
+
+def _gathered(bundle, tree, specs):
+    """Every leaf of a DTensor tree gathered to a numpy array."""
+    from repro_torch.distributed.sharding import Spec, gather_tensor
+
+    if isinstance(specs, Spec):
+        return gather_tensor(tree, bundle.mesh, specs).numpy()
+    return {k: _gathered(bundle, tree[k], v) for k, v in specs.items()}
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _train(setup, mesh, out):
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.steps import build
+    from repro_torch.models.convert import stacked_groups
+
+    for name, (arch, fields, b, s) in TRAIN_CASES.items():
+        model, _ = _model(setup, arch, fields)
+        bundle = build(model.cfg, mesh, ShapeCfg("t", s, b, "train"))
+        params = bundle.shard_params(model)
+        opt_state = bundle.init_opt_state(params)
+        batch = bundle.shard_batch({"tokens": torch.from_numpy(setup[f"train.{name}.tokens"])})
+        new_p, new_o, step, metrics = bundle.train_step(params, opt_state, 0, batch)
+        assert step == 1
+        out[f"train.{name}.loss"] = metrics["loss"].numpy()
+        full = _gathered(bundle, new_p, bundle.pspecs)
+        for key, members in stacked_groups(full).items():
+            arr = [full[m] for m in members]
+            out[f"train.{name}.p.{key}"] = np.stack(arr) if key.startswith("stack.") else arr[0]
+        for k, v in _flat(_gathered(bundle, new_o, bundle.ospecs)).items():
+            out[f"train.{name}.o.{k}"] = v
+
+
+def _serve(setup, mesh, out):
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.steps import build
+    from repro_torch.distributed.sharding import map_specs
+
+    for name, (arch, fields, b, s) in SERVE_CASES.items():
+        model, _ = _model(setup, arch, fields)
+        bundle = build(model.cfg, mesh, ShapeCfg("d", s, b, "decode"))
+        params = bundle.shard_params(model)
+        prompts = torch.from_numpy(setup[f"serve.{name}.tokens"])
+        logits, caches = bundle.prefill_step(params, bundle.shard_batch({"tokens": prompts}))
+        got = [logits.full_tensor().numpy()]
+        tok = torch.from_numpy(got[0][:, -1].argmax(-1))[:, None]
+        passed = True
+        for i in range(DECODE_STEPS):
+            step = {"tokens": tok, "pos": torch.full((b,), s + i, dtype=torch.long)}
+            logits, new = bundle.serve_step(params, caches, bundle.shard_batch(step))
+            got.append(logits.full_tensor().numpy())
+            tok = torch.from_numpy(got[-1][:, -1].argmax(-1))[:, None]
+            # the prefill's keys and values come back as the caller's DTensors
+            for st, nst in zip(caches["stack"], new["stack"]):
+                for blk, nblk in zip(st.values(), nst.values()):
+                    passed &= all(c is n for c, n in zip(blk["mixer"], nblk["mixer"]))
+        out[f"serve.{name}.got"] = np.stack(got)
+        out[f"serve.{name}.passed_through"] = np.array(passed)
+        # the mesh-less path on the same weights: each data shard's rows
+        # alone (MoE capacity is per shard), the same tokens fed back
+        lo, hi = _rows_of(mesh, bundle.dp, b) if bundle.rows_split else (0, b)
+        ref_logits, ref_caches = model.prefill({"tokens": prompts[lo:hi]})
+        want = [ref_logits.numpy()]
+        feed = torch.from_numpy(got[0][lo:hi, -1].argmax(-1))[:, None]
+        for i in range(DECODE_STEPS):
+            step = {"tokens": feed, "pos": torch.full((hi - lo,), s + i, dtype=torch.long)}
+            ref_logits, _ = model.decode(ref_caches, step)
+            want.append(ref_logits.numpy())
+            feed = torch.from_numpy(got[i + 1][lo:hi, -1].argmax(-1))[:, None]
+        out[f"serve.{name}.want"] = np.stack(want)
+        out[f"serve.{name}.rows"] = np.array([lo, hi])
+        kinds = set()
+        map_specs(lambda _, t: kinds.add(type(t).__name__), caches)
+        out[f"serve.{name}.cache_is_dtensor"] = np.array(kinds == {"DTensor"})
+
+
+def _storage(setup, errors):
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.distributed.collectives import axis_coords, axis_sizes
+    from repro_torch.distributed.sharding import named
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build
+
+    mesh = make_mesh(*STORE_MESH, device="cpu")
+    sizes, coords = axis_sizes(mesh), axis_coords(mesh)
+    bad = []
+    for name, (arch, fields, mode) in STORE_CASES.items():
+        model, _ = _model(setup, arch, fields)
+        bundle = build(model.cfg, mesh, ShapeCfg("s", 32, 4, mode))
+        params = bundle.shard_params(model)
+        for n, t in model.named_parameters():
+            spec = bundle.pspecs[n]
+            got = params[n].to_local().numpy()
+            if not np.array_equal(got, numpy_slice(t.numpy(), spec, sizes, coords)):
+                bad.append(f"{name} {n} {spec}")
+            dtensor = distribute_tensor(t, mesh, named(mesh, spec), src_data_rank=None)
+            if not torch.equal(dtensor.to_local(), params[n].to_local()):
+                bad.append(f"{name} {n} {spec}: distribute_tensor cuts another block")
+        if mode == "train":
+            state = bundle.init_opt_state()
+            for k, v in _flat(state).items():
+                if tuple(v.to_local().shape) != numpy_slice(
+                        np.zeros(v.shape), _leaf(bundle.ospecs, k), sizes, coords).shape:
+                    bad.append(f"{name} opt {k}")
+        tokens = torch.arange(4 * 33).reshape(4, 33)
+        local = bundle.shard_batch({"tokens": tokens})["tokens"].to_local().numpy()
+        if not np.array_equal(local, numpy_slice(tokens.numpy(), bundle.bspecs["tokens"],
+                                                 sizes, coords)):
+            bad.append(f"{name} batch")
+    errors["storage"] = bad
+
+
+def _leaf(tree, dotted):
+    """A leaf of a tree whose dict keys may hold dots, by its dotted path."""
+    if not isinstance(tree, dict):
+        return tree
+    for k, v in tree.items():
+        if dotted == k:
+            return v
+        if dotted.startswith(k + "."):
+            return _leaf(v, dotted[len(k) + 1:])
+    raise KeyError(dotted)
+
+
+def _refusals(errors):
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+
+    for name, call in (
+        ("mesh_size", lambda: make_mesh((2, 3), ("data", "model"), device="cpu")),
+        ("production", lambda: make_production_mesh(device="cpu")),
+        ("production_pods", lambda: make_production_mesh(multi_pod=True, device="cpu")),
+        ("mesh_backend", lambda: make_mesh(*MESH, device="cuda")),
+    ):
+        try:
+            call()
+            errors[name] = None
+        except ValueError as e:
+            errors[name] = str(e)
+
+
+def run_rank(rank: int, store_path: str, out_dir: str) -> None:
+    """Every case on this rank; each rank saves ``r<rank>.npz`` and
+    ``r<rank>.json`` (its coordinates and the errors it saw)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import axis_coords
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    os.environ["REPRO_TORCH_AUTOTUNE_DISABLE"] = "1"
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD), rank=rank,
+                            world_size=WORLD, timeout=datetime.timedelta(seconds=120))
+    try:
+        setup = dict(np.load(os.path.join(out_dir, "setup.npz")))
+        mesh = make_mesh(*MESH, device="cpu")
+        out, errors = {}, {}
+        _moe(setup, mesh, out)
+        _attention(setup, mesh, out)
+        _train(setup, mesh, out)
+        _serve(setup, mesh, out)
+        _storage(setup, errors)
+        _refusals(errors)
+        facts = {"coords": axis_coords(mesh), "errors": errors,
+                 "world": dist.get_world_size()}
+        np.savez(os.path.join(out_dir, f"r{rank}.npz"), **out)
+        with open(os.path.join(out_dir, f"r{rank}.json"), "w") as f:
+            json.dump(facts, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()

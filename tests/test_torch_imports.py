@@ -52,7 +52,11 @@ def test_port_has_modules():
                  "repro_torch/configs/seamless_m4t_large_v2.py",
                  "repro_torch/distributed/simplex_sharding.py",
                  "repro_torch/distributed/fault_tolerance.py",
-                 "repro_torch/examples/simplex_ca.py"):
+                 "repro_torch/examples/simplex_ca.py",
+                 "repro_torch/distributed/sharding.py",
+                 "repro_torch/distributed/compression.py",
+                 "repro_torch/distributed/collectives.py", "repro_torch/launch/mesh.py",
+                 "repro_torch/launch/steps.py"):
         assert want in names
     for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh",
                "flash_attention.cu", "legacy2d.cu", "legacy_md.cu", "hmap_mxu.cu",
@@ -76,7 +80,10 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.optim.optimizer, repro_torch.data.pipeline, "
         "repro_torch.checkpoint.checkpointing, repro_torch.launch.train, "
         "repro_torch.examples.train_lm, repro_torch.distributed, "
-        "repro_torch.distributed.fault_tolerance, repro_torch.examples.simplex_ca; "
+        "repro_torch.distributed.fault_tolerance, repro_torch.examples.simplex_ca, "
+        "repro_torch.distributed.sharding, repro_torch.distributed.compression, "
+        "repro_torch.distributed.collectives, repro_torch.launch.mesh, "
+        "repro_torch.launch.steps; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )
