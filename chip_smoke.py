@@ -209,7 +209,9 @@ coordinates into element origins.  This script
     and 60 (rho 4; CA at m <= 3) times every kind of
     ``autotune.candidate_kinds`` and, where it is composite, its fused
     walk and its one launch per piece (back-to-back calls, so a
-    launch-bound case times its host work too), and prints the tuner's
+    launch-bound case times its host work too; the candidates take turns,
+    9 rounds, 101 where the fastest call is launch-bound, under 0.1 ms),
+    and prints the tuner's
     decision (kind, source, scores), its ``split=None`` choice and the
     pick's time over the fastest (``tuner case`` lines); fails when that
     exceeds 1.10 for ACCUM or 1.25 for EDM and CA, or when the entry
@@ -224,6 +226,12 @@ coordinates into element origins.  This script
     ``executor='kernel'``, bit for bit, for ACCUM int32 at m=2 n=16384
     rho 16, m=3 n=1024 rho 8 and m=4 n=64 rho 4, and for MAP at nb=16384
     (m=2) and 512 (m=3), both timed (``xla check`` lines);
+22a. examples: the port's ``examples/quickstart.py`` (the H grid,
+    schedules, the composite walk, ACCUM, EDM, m=4 ACCUM and the folded
+    flash forward against their oracles) and ``examples/serve_lm.py``
+    (reduced yi-6b, 4 x 64, 24 tokens) on the card; every check they make
+    must hold (``examples`` lines), and the quickstart must launch ACCUM,
+    EDM and ``flash_wgmma``;
 23. shard: sets every counter to 0 and folds the walks of CA and ACCUM's
     paper sizes (m=2 n=16384 rho=16 hmap, m=3 n=1024 rho=8 hmap, m=2
     n=16000 rho=16 composite) k = 2, 4 and 8 ways
@@ -260,7 +268,18 @@ coordinates into element origins.  This script
     lines); prefills qwen2-moe-a2.7b cut to 4 layers through the MoE's
     TP and EP forms (an all-reduce and two all-to-alls over NCCL) against
     the mesh-less prefill under the family phase's gate, router flips
-    counted (``mesh moe`` lines);
+    counted (``mesh moe`` lines); the serve's resident cache bytes (the
+    stacked caches each rank stores, ``cache_specs`` of the reference's
+    stacked layout) must equal the rule's figure;
+24a. trace: ``torch.profiler`` (CPU and CUDA) over yi-6b's prefill and
+    one decode step after it (32 layers, float32, batch 4, prompt 2048),
+    then over one ``StepBundle`` decode step on the one-rank mesh, read by
+    ``roofline/trace_cost.py`` (``trace`` lines: kernel time by name and
+    launches, the device's busy and idle share, the longest idle gaps and
+    the host op under each, host ops, FLOPs by op, the collective census);
+    fails when a trace has no device events, when a hand-written kernel's
+    traced launches differ from its counter for the same step, or when
+    the summed kernel time passes the step's CUDA-event time;
 25. prints the ``kernels`` JSON line, then the result line.
 
 The tuner's decisions go to a private cache in a temporary directory.
@@ -2509,6 +2528,13 @@ TUNER_GATE = {"accum": 1.10, "edm": 1.25, "ca": 1.25}
 # median sample counts (the host's clock drifts between candidates).
 TUNER_SAMPLE_MS = 5.0
 TUNER_ROUNDS = 9
+# A launch-bound case, whose fastest call takes under TUNER_LAUNCH_BOUND_MS,
+# times the host more than the kernels: its 5 ms samples spread by about
+# 12 % between quartiles (ACCUM m=4 n=60, 201 rounds, PERF.md §6), so
+# 9 rounds let the medians of tied candidates part by more than the gate.
+# Its candidates take TUNER_ROUNDS_LAUNCH_BOUND rounds.
+TUNER_LAUNCH_BOUND_MS = 0.1
+TUNER_ROUNDS_LAUNCH_BOUND = 101
 # The attention tuner: (B, Hq, Hkv, S, D) and dtype; the pick within 1.10x.
 ATTN_TUNER_CASES = (((4, 32, 4, 2048, 128), "float32"), ((4, 32, 4, 2048, 128), "bfloat16"),
                     ((4, 32, 4, SMALL_TILE_S, 128), "bfloat16"))
@@ -2534,17 +2560,23 @@ class TunerSmoke:
         self.s, self.card = smoke, card
         self.torch, self.engine, self.ops = smoke.torch, smoke.engine, smoke.ops
         self.tuner, self.analysis = tuner, analysis
+        self.rounds = TUNER_ROUNDS  # of the last ``batch_ms``
 
     def batch_ms(self, fns: dict) -> dict:
         """Per function of ``fns``, the median time of one call over
         ``TUNER_ROUNDS`` samples of back-to-back calls that last at least
-        ``TUNER_SAMPLE_MS`` each, the functions taking turns."""
-        reps = {}
+        ``TUNER_SAMPLE_MS`` each, the functions taking turns;
+        ``TUNER_ROUNDS_LAUNCH_BOUND`` samples where the fastest call takes
+        under ``TUNER_LAUNCH_BOUND_MS``."""
+        reps, ones = {}, {}
         for key, fn in fns.items():
-            one = self.s.time_ms(fn, runs=3, warm=1)
-            reps[key] = max(1, min(200, math.ceil(TUNER_SAMPLE_MS / max(one, 1e-3))))
+            ones[key] = self.s.time_ms(fn, runs=3, warm=1)
+            reps[key] = max(1, min(200, math.ceil(TUNER_SAMPLE_MS / max(ones[key], 1e-3))))
+        rounds = (TUNER_ROUNDS_LAUNCH_BOUND if min(ones.values()) < TUNER_LAUNCH_BOUND_MS
+                  else TUNER_ROUNDS)
+        self.rounds = rounds
         samples = {key: [] for key in fns}
-        for _ in range(TUNER_ROUNDS):
+        for _ in range(rounds):
             for key, fn in fns.items():
                 n = reps[key]
                 samples[key].append(
@@ -2682,7 +2714,8 @@ class TunerSmoke:
         cands = " ".join(f"{k}{'+split' if sp else ''}={t:.4f}" for (k, sp), t in times.items())
         _log(f"tuner case test={test} m={m} n={n} rho={rho} nb={nb} decision kind={dec.kind} "
              f"source={dec.source} split={pick[1]} scores_us={json.dumps(scores)} "
-             f"candidates_ms {cands} pick_ms={times[pick]:.4f} fastest={best[0]}"
+             f"candidates_ms {cands} rounds={self.rounds} pick_ms={times[pick]:.4f} "
+             f"fastest={best[0]}"
              f"{'+split' if best[1] else ''} ratio={ratio:.3f} gate={gate:.2f} "
              f"default_launches={launched} default_equal={same} ok={ok}")
         if not ok:
@@ -3124,6 +3157,10 @@ class MeshSmoke:
                                           "pos": pos(i)})
             want.append(lg)
         plain_decode_s = self._sync() - t0 - plain_prefill_s
+        t0 = self._sync()  # the same steps again, warm
+        for i in range(gen):
+            model.decode(caches, {"tokens": want[i][:, -1].argmax(-1)[:, None], "pos": pos(i)})
+        plain_warm_s = self._sync() - t0
         del caches
         self.lm._free()
         bundle = self.steps.build(cfg, mesh, self.steps.ShapeCfg("serve", s, b, "decode"))
@@ -3143,14 +3180,20 @@ class MeshSmoke:
                                          "pos": pos(i)})
             got.append(lg.to_local())
         decode_s = self._sync() - t0
+        t0 = self._sync()  # the same steps again, warm
+        for i in range(gen):
+            bundle.serve_step(params, caches, {"tokens": got[i][:, -1].argmax(-1)[:, None],
+                                               "pos": pos(i)})
+        warm_decode_s = self._sync() - t0
         # the prefill's keys and values come back as the caller's DTensors
-        passed = all(c is n for st, nst in zip(caches["stack"], new["stack"])
-                     for c, n in zip(st["l0"]["mixer"], nst["l0"]["mixer"]))
+        passed = all(c is n for c, n in zip(caches["stack"]["l0"]["mixer"],
+                                            new["stack"]["l0"]["mixer"]))
         del new
+        resident, rule = self.cache_bytes(caches, mesh)
         decode_launches = self._count()
         t0 = self._sync()  # again, warm: the first call made the NCCL communicators
         warm, _ = bundle.prefill_step(params, {"tokens": prompts})
-        warm_s = self._sync() - t0
+        warm_prefill_s = self._sync() - t0
         warm_launches = self._count()
         warm_equal = torch.equal(warm.to_local(), got[0])
         del warm, _
@@ -3158,25 +3201,31 @@ class MeshSmoke:
         err = max((x - y).abs().max().item() for x, y in zip(got, want))
         argmax = all(bool((x.argmax(-1) == y.argmax(-1)).all()) for x, y in zip(got, want))
         close = all(torch.allclose(x, y, **LOGIT_TOL) for x, y in zip(got, want))
-        kinds = {type(c).__name__ for st in caches["stack"] for c in st["l0"]["mixer"]}
-        st = dict(prefill_s=prefill_s, warm_prefill_s=warm_s, decode_tok_s=gen * b / decode_s,
+        kinds = {type(c).__name__ for c in caches["stack"]["l0"]["mixer"]}
+        st = dict(prefill_s=prefill_s, warm_prefill_s=warm_prefill_s,
+                  decode_tok_s=gen * b / decode_s, warm_decode_tok_s=gen * b / warm_decode_s,
                   plain_prefill_s=plain_prefill_s, plain_decode_tok_s=gen * b / plain_decode_s,
-                  peak_gib=peak, logit_err=err, launches=launches)
+                  plain_warm_decode_tok_s=gen * b / plain_warm_s,
+                  peak_gib=peak, logit_err=err, launches=launches, cache_bytes=resident)
         self.stats["mesh serve"] = st
         want_launches = dict.fromkeys(fa.ROUTES, 0)
         want_launches["flash_wgmma"] = cfg.n_layers
         ok = (argmax and close and launches == want_launches and kinds == {"DTensor"}
               and passed and not any(decode_launches.values()) and peak <= SERVE_PEAK_GIB
-              and warm_equal and warm_launches == want_launches)
+              and warm_equal and warm_launches == want_launches and resident == rule)
         _log(f"mesh serve {arch}: {cfg.n_layers} layers at full width, float32, batch {b}, "
              f"prompt {s}, {gen} greedy tokens through StepBundle on a (1, 1) data/model mesh "
              f"(backend {self.torch.distributed.get_backend()}, tp_size {cfg.tp_size}); "
              f"weights aliased by the shards: {alias}; caches {sorted(kinds)}; the "
-             f"prefill's cache leaves handed back by serve_step unwrapped: {passed}")
-        _log(f"mesh serve {arch} prefill_s={prefill_s:.4f} (warm {warm_s:.4f}, equal "
+             f"prefill's cache leaves handed back by serve_step unwrapped: {passed}; "
+             f"resident cache bytes {resident} beside the reference rule's {rule} (the "
+             f"stacked caches' cache_specs on this mesh): equal {resident == rule}")
+        _log(f"mesh serve {arch} prefill_s={prefill_s:.4f} (warm {warm_prefill_s:.4f}, equal "
              f"{warm_equal}) decode_s={decode_s:.4f} decode_tok_s={st['decode_tok_s']:.2f} "
-             f"beside the mesh-less serve's prefill_s={plain_prefill_s:.4f} (first forward) "
-             f"decode_tok_s={st['plain_decode_tok_s']:.2f}; peak_gib={peak:.3f} "
+             f"(again, warm: {st['warm_decode_tok_s']:.2f}) beside the mesh-less serve's "
+             f"prefill_s={plain_prefill_s:.4f} (first forward) "
+             f"decode_tok_s={st['plain_decode_tok_s']:.2f} (again, warm: "
+             f"{st['plain_warm_decode_tok_s']:.2f}); peak_gib={peak:.3f} "
              f"launches={launches} decode_launches={decode_launches} card={self.card}")
         _log(f"mesh serve {arch} hold vs mesh-less serve: {gen + 1} logit steps "
              f"max_abs_err={err:.3e} argmax_equal={argmax} rtol 2e-3 atol 2e-4: {close} "
@@ -3184,9 +3233,28 @@ class MeshSmoke:
              f"card={self.card}")
         if not ok:
             self.s.fail(f"mesh serve {arch}: err {err}, argmax {argmax}, launches {launches}, "
-                        f"decode {decode_launches}, caches {kinds}, passed {passed}, peak {peak}")
+                        f"decode {decode_launches}, caches {kinds}, passed {passed}, peak {peak}, "
+                        f"cache bytes {resident} (rule {rule})")
         del model, params, caches, logits, got, want, bundle
         self.lm._free()
+
+    @staticmethod
+    def cache_bytes(caches, mesh):
+        """The cache bytes this rank stores, and the bytes the reference's
+        rule gives a rank: ``cache_specs`` on the stacked caches' global
+        shapes, through ``local_shape``."""
+        import math
+
+        from repro_torch.distributed.sharding import (cache_specs, leaf_at, local_shape,
+                                                      map_specs)
+
+        leaves = []
+        map_specs(lambda path, t: leaves.append((path, t)), caches)
+        specs = cache_specs(map_specs(lambda _, t: tuple(t.shape), caches), mesh)
+        resident = sum(t.to_local().nbytes for _, t in leaves)
+        rule = sum(math.prod(local_shape(t.shape, leaf_at(specs, p), mesh)) * t.element_size()
+                   for p, t in leaves)
+        return resident, rule
 
     def train(self, mesh) -> None:
         """Train steps through the bundle; the first against
@@ -3345,6 +3413,157 @@ class MeshSmoke:
             del bundle, params, logits, caches, got
         del model, want
         self.lm._free()
+
+
+# The trace phase: yi-6b in full, float32, batch 4, a 2048-token prompt
+# (the serve row's), traced by torch.profiler and read by
+# roofline/trace_cost.py.  Each hand-written kernel's symbol, by its
+# launch counter's name.
+TRACE_SERVE = ("yi-6b", 4, 2048)
+TRACE_SYMBOLS = {"flash_wgmma": "flash_wgmma_kernel", "flash16_wgmma": "flash16_wgmma_kernel",
+                 "flash16": "flash16_stacked_kernel", "flash": "flash_fwd_kernel",
+                 "map": "simplex_map_kernel", "accum": "simplex_accum_kernel",
+                 "edm": "simplex_edm_kernel", "ca": "simplex_ca_kernel"}
+# CUDA events resolve about half a microsecond: the summed kernel time may
+# pass the step's event time by this much.
+TRACE_EVENT_SLACK_MS = 1e-3
+TRACE_TOP = 12
+
+
+class TraceSmoke:
+    """The trace phase: ``torch.profiler`` traces (CPU and CUDA
+    activities) of yi-6b's prefill and of one decode step after it, and of
+    one ``StepBundle`` decode step on the one-rank mesh, each read by
+    ``roofline/trace_cost.py``: kernel time by name, launches, the device's
+    busy and idle share, its longest idle gaps with the host op under
+    them, the step's FLOPs (``flop_count``, a second run) and the
+    collective census.  Checks: the trace has device events; each
+    hand-written kernel's traced launches equal its launch counter for the
+    same step; the summed kernel time is at most the step's CUDA-event
+    time.  Shares the ``ModelSmoke``'s counters and failure list."""
+
+    def __init__(self, lm: "ModelSmoke", steps, card: str):
+        from repro_torch.roofline import trace_cost
+
+        self.lm, self.s, self.torch, self.card = lm, lm.s, lm.torch, card
+        self.steps, self.tc = steps, trace_cost
+        self.stats: dict = {}
+
+    def traced(self, label: str, fn) -> None:
+        """Trace one call of ``fn`` (already warm), check it and log it."""
+        import re
+
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.lm.zero_counts()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+        counts = self.lm.counts()
+        step_ms = a.elapsed_time(b)
+        events = prof.events()
+        _, flops, moved = self.tc.flop_count(fn)
+        self.lm.zero_counts()
+        out = self.tc.summarize(events, flops, group_size=1, gaps=5)
+        kernels, dev = out["kernels"], out["device"]
+        kernel_ms = sum(r["us"] for r in kernels.values()) / 1e3
+        traced = {k: sum(r["launches"] for name, r in kernels.items()
+                         if re.search(rf"(?<!\w){sym}(?!\w)", name))
+                  for k, sym in TRACE_SYMBOLS.items()}
+        want = {k: counts[k] for k in TRACE_SYMBOLS}
+        ok = (dev is not None and traced == want
+              and kernel_ms <= step_ms + TRACE_EVENT_SLACK_MS)
+        self.stats[label] = dict(step_ms=step_ms, kernel_ms=kernel_ms, device=dev,
+                                 flops=out["flops_total"], bytes=moved,
+                                 top={k: v for k, v in list(kernels.items())[:TRACE_TOP]},
+                                 host_ops=dict(list(out["host_ops"].items())[:TRACE_TOP]),
+                                 collectives=out["collectives"], launches=traced)
+        busy = dev["busy_share"] if dev else float("nan")
+        _log(f"trace {label}: step_ms={step_ms:.4f} (CUDA events, under the profiler) "
+             f"kernel_ms={kernel_ms:.4f} device_events={sum(r['launches'] for r in kernels.values())} "
+             f"kernel_names={len(kernels)} busy_share={busy:.4f} "
+             f"idle_share={(1 - busy) if dev else float('nan'):.4f} "
+             f"window_ms={(dev['window_us'] / 1e3) if dev else float('nan'):.4f} "
+             f"flops={out['flops_total']:.4e} bytes={moved:.4e} card={self.card}")
+        for name, r in list(kernels.items())[:TRACE_TOP]:
+            _log(f"trace {label} kernel us={r['us']:.1f} launches={r['launches']} "
+                 f"name={name[:110]}")
+        for gap in (dev["gaps"] if dev else []):
+            _log(f"trace {label} gap us={gap['us']:.1f} at_us={gap['at_us']:.1f} "
+                 f"host_op={gap['host_op']}")
+        for name, r in list(out["host_ops"].items())[:TRACE_TOP]:
+            _log(f"trace {label} host_op calls={r['calls']} host_us={r['host_us']:.1f} "
+                 f"name={name[:80]}")
+        _log(f"trace {label} flops_by_op {json.dumps(flops)}")
+        _log(f"trace {label} census {json.dumps(out['collectives'])}")
+        _log(f"trace {label} hand-written launches traced={traced} counters={want} "
+             f"kernel_ms <= step_ms: {kernel_ms <= step_ms + TRACE_EVENT_SLACK_MS} ok={ok}")
+        if not ok:
+            self.s.fail(f"trace {label}: device events {dev is not None}, traced launches "
+                        f"{traced} against counters {want}, kernel_ms {kernel_ms} against "
+                        f"step_ms {step_ms}")
+
+    def path(self, mesh) -> None:
+        """yi-6b's prefill and decode step, then the bundle's decode step."""
+        torch = self.torch
+        arch, b, s = TRACE_SERVE
+        cfg = self.lm.f.configs.config(arch).replace(act_dtype="float32",
+                                                     param_dtype="float32")
+        self.lm.live("trace")
+        g = self.s.gen(9100)
+        model = self.lm.model_cls(cfg, device=self.s.dev).init(g)
+        prompts = torch.randint(0, cfg.vocab, (b, s), generator=g, device=self.s.dev)
+        logits, caches = model.prefill({"tokens": prompts})
+        step = {"tokens": logits[:, -1].argmax(-1)[:, None],
+                "pos": torch.full((b,), s, dtype=torch.long, device=self.s.dev)}
+        model.decode(caches, step)
+        self.traced(f"{arch} prefill", lambda: model.prefill({"tokens": prompts}))
+        self.traced(f"{arch} decode", lambda: model.decode(caches, step))
+        del caches
+        self.lm._free()
+        bundle = self.steps.build(cfg, mesh, self.steps.ShapeCfg("serve", s, b, "decode"))
+        params = bundle.shard_params(model)
+        _, bcaches = bundle.prefill_step(params, {"tokens": prompts})
+        bundle.serve_step(params, bcaches, step)
+        self.traced(f"{arch} bundle decode", lambda: bundle.serve_step(params, bcaches, step))
+        del model, params, bcaches, bundle, logits
+        self.lm._free()
+
+
+def examples_phase(smoke: Smoke, counts, zero_counts) -> dict:
+    """The port's quickstart and serve_lm on the card, their output kept
+    in the log; a failed check fails the script.  Returns the launches."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import quickstart, serve_lm
+
+    zero_counts()
+    for name, run in (("quickstart", lambda: quickstart.main(["--device", "cuda"])),
+                      ("serve_lm", lambda: serve_lm.main(["--device", "cuda"]))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                run()
+        except quickstart.ExampleCheckFailed as e:
+            smoke.fail(f"examples {name}: check failed: {e}")
+        checks = [line.strip() for line in buf.getvalue().splitlines()
+                  if line.strip().endswith((": ok", ": FAILED"))]
+        for line in checks:
+            _log(f"examples {name}: {line}")
+        _log(f"examples {name}: {len(checks)} checks in {time.perf_counter() - t0:.1f} s")
+    got = counts()
+    for name in ("accum", "edm", "flash_wgmma"):
+        if got[name] <= 0:
+            smoke.fail(f"examples: kernel {name} was never launched by the quickstart")
+    return got
 
 
 def main(argv=None) -> int:
@@ -3634,6 +3853,11 @@ def main(argv=None) -> int:
             smoke.fail(f"kernel {name} was never launched on the xla path")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    example_launches = examples_phase(smoke, counts, zero_counts)
+    _log(f"phase examples: {time.perf_counter() - t0:.1f} s, launches {example_launches}")
+    torch.cuda.empty_cache()
+
     # One NCCL group of one rank serves the shard and mesh phases.
     import torch.distributed as dist
 
@@ -3665,6 +3889,11 @@ def main(argv=None) -> int:
         if mesh.launches["flash_wgmma"] <= 0:
             smoke.fail("kernel flash_wgmma was never launched on the mesh path")
         launches["flash_wgmma"] += mesh.launches["flash_wgmma"]
+
+        trace = TraceSmoke(lm, steps, card)
+        t0 = time.perf_counter()
+        trace.path(lm_mesh.make_mesh((1, 1), ("data", "model")))
+        _log(f"phase trace: {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
         store.cleanup()

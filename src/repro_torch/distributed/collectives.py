@@ -32,7 +32,7 @@ from typing import Dict, Mapping, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["axis_sizes", "axis_coords", "group_size", "gather_dim", "all_reduce",
+__all__ = ["axis_sizes", "axis_coords", "group_size", "gather_dim", "all_reduce", "broadcast_from",
            "enter_tp", "exit_gather", "exit_reduce", "all_to_all", "mean_value"]
 
 Axes = Union[str, Sequence[str]]
@@ -82,6 +82,26 @@ def all_reduce(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     axis); returns ``x``."""
     for a in _tuple(axes):
         dist.all_reduce(x, group=mesh.get_group(a))
+    return x
+
+
+def broadcast_from(x: torch.Tensor, mesh, axes: Axes, src: int) -> torch.Tensor:
+    """The rank at index ``src`` of the group of ``axes`` (pod-major)
+    sends its ``x`` to every rank of that group; the others pass a buffer
+    of the same shape and dtype, filled in place.  One broadcast per axis,
+    the innermost first, among the ranks that share the sender's
+    coordinates on the axes outside it.  Returns ``x``."""
+    axes = _tuple(axes)
+    sizes, coords = axis_sizes(mesh), axis_coords(mesh)
+    at = {}
+    for a in reversed(axes):
+        at[a], src = src % sizes[a], src // sizes[a]
+    for i in reversed(range(len(axes))):
+        a = axes[i]
+        if sizes[a] == 1 or any(coords[b] != at[b] for b in axes[:i]):
+            continue
+        group = mesh.get_group(a)
+        dist.broadcast(x, src=dist.get_global_rank(group, at[a]), group=group)
     return x
 
 

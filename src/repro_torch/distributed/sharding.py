@@ -22,10 +22,11 @@ reference's are stacked over the periods.  A per-period tensor's spec is
 the reference's stacked spec without its leading ``None``
 (``models.convert.stacked_groups`` names the reference's leaf).  The
 optimizer state is the reference's stacked tree, and takes the
-reference's specs as they are.  The caches are per period too, and the
-cache rule is applied to each period's leaf, whose dim 0 is the batch
-(the reference applies it to the stacked leaf, whose dim 0 is the period
-axis).
+reference's specs as they are.  The caches are placed as the reference
+places its stacked caches: ``stacked_cache`` gives the reference's
+layout, which the step bundle stores, and there the cache rule sees a
+``stack`` leaf with the period axis as dim 0, so the periods, not the
+batch, go over ``dp`` when their count divides.
 
 ``named`` turns specs into DTensor placements: a tensor dim sharded over
 ``('pod', 'data')`` is ``Shard(d)`` on both mesh dims, which DTensor
@@ -52,6 +53,8 @@ __all__ = [
     "opt_state_specs",
     "batch_specs",
     "cache_specs",
+    "stacked_cache",
+    "leaf_at",
     "drop_fsdp",
     "named",
     "placements",
@@ -326,36 +329,72 @@ def batch_specs(batch, mesh, tp: bool = True):
     return map_specs(walk, batch)
 
 
-def cache_specs(cache, mesh, tp: bool = True):
-    """The generic rule on every cache leaf: dim 0 (the batch) over ``dp``
-    when it divides; then the largest remaining dim that ``|model|``
-    divides shards over ``'model'``.
+def _cache_rule(shape, sizes: Mapping[str, int], dp, msize: int) -> Spec:
+    """The reference's cache rule on one leaf of ``shape``."""
+    if not shape:
+        return Spec()
+    dims = [None] * len(shape)
+    if _divisible(shape[0], sizes, dp):
+        dims[0] = dp
+    best, best_size = None, 0
+    if msize > 1:
+        for i in range(1, len(shape)):
+            if shape[i] % msize == 0 and shape[i] > best_size:
+                best, best_size = i, shape[i]
+    if best is not None:
+        dims[best] = "model"
+    return Spec(dims)
+
+
+def stacked_cache(cache, fn: Callable[[list], Any] = None):
+    """The reference's layout of a cache tree: ``stack``'s list of
+    per-period trees as one tree whose leaves are ``fn(list of the
+    periods' leaves)`` (by default the stacked shape ``(periods,) +
+    shape``); the other entries as they are.
 
     Example:
-        >>> cache_specs({"k": (8, 4, 64, 16)}, {"data": 2, "model": 2})
-        {'k': Spec(('data', None, 'model', None))}
+        >>> stacked_cache({"stack": [{"k": (8, 4)}, {"k": (8, 4)}], "prefix": {"k": (8, 2)}})
+        {'stack': {'k': (2, 8, 4)}, 'prefix': {'k': (8, 2)}}
+    """
+    fn = fn or (lambda leaves: (len(leaves),) + _shape(leaves[0]))
+    periods = cache["stack"]
+    out = dict(cache)
+    out["stack"] = map_specs(lambda path, _: fn([leaf_at(p, path) for p in periods]),
+                             periods[0])
+    return out
+
+
+def leaf_at(tree, path: Sequence[str]):
+    """The leaf of a tree of dicts, lists and tuples at a ``map_specs``
+    path (a list or tuple index as its string).
+
+    Example:
+        >>> leaf_at({"a": [(1, 2), (3, 4)]}, ("a", "1", "0"))
+        3
+    """
+    for key in path:
+        tree = tree[int(key)] if isinstance(tree, (list, tuple)) else tree[key]
+    return tree
+
+
+def cache_specs(cache, mesh, tp: bool = True):
+    """The reference's rule on every cache leaf: dim 0 over ``dp`` when it
+    divides; then the largest remaining dim that ``|model|`` divides
+    shards over ``'model'``.
+
+    Give it the reference's layout (``stacked_cache``): there dim 0 of a
+    ``stack`` leaf is the period axis, of a prefix leaf the batch.
+
+    Example:
+        >>> cache_specs({"stack": {"k": (2, 1, 64, 16)}}, {"data": 2, "model": 2})
+        {'stack': {'k': Spec(('data', None, 'model', None))}}
+        >>> cache_specs({"prefix": {"k": (8, 4, 64, 16)}}, {"data": 2, "model": 2})
+        {'prefix': {'k': Spec(('data', None, 'model', None))}}
     """
     sizes = axis_sizes(mesh)
     dp = dp_axes(sizes, tp)
     msize = sizes["model"] if tp else 1
-
-    def walk(_, leaf):
-        shape = _shape(leaf)
-        if not shape:
-            return Spec()
-        dims = [None] * len(shape)
-        if _divisible(shape[0], sizes, dp):
-            dims[0] = dp
-        best, best_size = None, 0
-        if msize > 1:
-            for i in range(1, len(shape)):
-                if shape[i] % msize == 0 and shape[i] > best_size:
-                    best, best_size = i, shape[i]
-        if best is not None:
-            dims[best] = "model"
-        return Spec(dims)
-
-    return map_specs(walk, cache)
+    return map_specs(lambda _, leaf: _cache_rule(_shape(leaf), sizes, dp, msize), cache)
 
 
 def drop_fsdp(spec: Spec) -> Spec:

@@ -567,19 +567,36 @@ class EDMBody(KernelBody):
         return 4 * EDMBody._warp_floats(m, rho, EDMBody.row_stride(m, rho, d))
 
     def launch(self, kernel: "SimplexKernel", p, device: torch.device):
-        """The ``(n,)*m`` distance field of points ``p`` on ``device``."""
+        """The ``(n,)*m`` distance field of points ``p`` on ``device``.
+
+        The registered body on a schedule kind runs as one dispatcher op,
+        ``torch.ops.repro_torch.edm`` (``_edm_field``), so that a dispatch
+        mode sees the field as one op (its FLOP formula is registered in
+        ``roofline/trace_cost.py``) and ``meta`` tensors get its shape
+        without a walk.  An explicit schedule object (a shard's) cannot
+        cross the dispatcher, and its walk runs here directly.
+        """
         m, rho = kernel.m, kernel.rho
         p = torch.as_tensor(p, device=device)
         if p.ndim != 2:
             raise ValueError(f"edm: expected (n, d) points, got {tuple(p.shape)}")
-        n, d = p.shape
-        check_tile(self.name, m, n, rho, self.smem_bytes(m, rho, d))
-        out = torch.zeros((n,) * m, dtype=p.dtype, device=device)
+        check_tile(self.name, m, p.shape[0], rho, self.smem_bytes(m, rho, p.shape[1]))
+        if kernel.schedule is None and self is _BODIES.get(self.name):
+            return _edm_field(p, m, rho, kernel.kind, kernel.split)
+        return self.field(p, m, rho, kernel.kind, kernel.split, kernel.schedule)
+
+    def field(self, p: torch.Tensor, m: int, rho: int, kind: str, split: Optional[bool],
+              schedule) -> torch.Tensor:
+        """The distance field of checked points ``p``, every piece of the
+        launch plan of ``(m, n / rho, kind)`` (or of ``schedule``) run on
+        ``p``'s device: the kernel on the card, the plain version on the
+        CPU."""
+        n = p.shape[0]
+        out = torch.zeros((n,) * m, dtype=p.dtype, device=p.device)
         card = on_card(out, self.name)
         p = p.contiguous()
-        for sched in launch_plan(m, n // rho, kernel.kind, kernel.split,
-                                 self.element_local, schedule=kernel.schedule,
-                                 device=out.device):
+        for sched in launch_plan(m, n // rho, kind, split, self.element_local,
+                                 schedule=schedule, device=out.device):
             if card:
                 self.kernel_(out, p, sched, rho)
             else:
@@ -597,6 +614,24 @@ class CABody(KernelBody):
 
     name = "ca"
     element_local = False
+
+    @staticmethod
+    def stencil(m: int) -> Tuple[Tuple[int, ...], ...]:
+        """The element offsets one cell's update reads: itself and its
+        ``3^m - 1`` neighbours (checked against ``plain_``'s reads and
+        ``ca.cu``'s halo slice by ``analysis/halo_passes.py``).
+
+        Example:
+            >>> len(CABody.stencil(3)), (0, 0) in CABody.stencil(2)
+            (27, True)
+        """
+        return tuple(itertools.product((-1, 0, 1), repeat=m))
+
+    @staticmethod
+    def boundary(m: int) -> str:
+        """How a neighbour past the edge is read: ``'periodic'`` at m=2
+        (the underlying square wraps), ``'free'`` beyond (dead)."""
+        return "periodic" if m == 2 else "free"
 
     def plain_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
         """Step the domain cells of the tiles ``sched`` visits from
@@ -718,6 +753,19 @@ register_body(AccumBody())
 register_body(EDMBody())
 register_body(CABody())
 register_body(MapBody())
+
+
+@torch.library.custom_op("repro_torch::edm", mutates_args=())
+def _edm_field(p: torch.Tensor, m: int, rho: int, kind: str,
+               split: Optional[bool]) -> torch.Tensor:
+    """The registered EDM body's distance field of points ``p`` (checked
+    by ``EDMBody.launch``) as one dispatcher op."""
+    return _BODIES["edm"].field(p, m, rho, kind, split, None)
+
+
+@_edm_field.register_fake
+def _edm_field_shape(p, m, rho, kind, split) -> torch.Tensor:
+    return p.new_zeros((p.shape[0],) * m)
 
 
 # ---------------------------------------------------------------------------

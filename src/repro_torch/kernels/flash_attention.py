@@ -485,10 +485,24 @@ def flash_attention(
     return _flash_forward(kind, block_q, float(scale), q, k, v, bias, segment_ids)
 
 
-def _flash_forward(kind, block_q, scale, q, k, v, bias, seg) -> torch.Tensor:
-    """The CUDA kernel on the card, the plain version on the CPU."""
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_forward(kind: str, block_q: int, scale: float, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, bias: Optional[torch.Tensor],
+                   seg: Optional[torch.Tensor]) -> torch.Tensor:
+    """The CUDA kernel on the card, the plain version on the CPU.
+
+    One dispatcher op, ``torch.ops.repro_torch.flash_attention``: a
+    dispatch mode sees the forward as one op (its FLOP formula is
+    registered in ``roofline/trace_cost.py``), and on ``meta`` tensors it
+    gives its output's shape without a walk.
+    """
     run = FLASH.kernel if on_card(q, "flash_attention") else FLASH.plain
     return run(kind, block_q, scale, q, k, v, bias, seg)
+
+
+@_flash_forward.register_fake
+def _flash_forward_shape(kind, block_q, scale, q, k, v, bias, seg) -> torch.Tensor:
+    return torch.empty_like(q)
 
 
 class FlashFunction(torch.autograd.Function):

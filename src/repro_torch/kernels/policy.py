@@ -84,14 +84,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def on_card(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU one.
+    """True for a CUDA tensor (launch the kernel), False for a CPU one or a
+    ``meta`` one: the plain version, which on ``meta`` tensors computes
+    nothing but shapes (the dry run counts a step's FLOPs so).
 
     Raises:
         ValueError: for a tensor on any other device.
     """
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{what}: no kernel for tensors on {t.device}")
 

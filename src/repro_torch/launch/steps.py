@@ -22,17 +22,24 @@ API as ``DTensor``s with the specs' placements.
   update (ROADMAP A.9c).
 * ``prefill_step`` and ``serve_step``: the weights (resident, sharded over
   ``'model'`` only, with ``cfg.weights_resident_serve``) are gathered, and
-  the model runs on this rank's rows; the caches come back as ``DTensor``s
-  with ``cache_specs``' placements.  ``serve_step`` hands back a cache
-  leaf that the decode passes through unchanged (the prefill's keys and
-  values) as the caller's own ``DTensor``, so a token wraps only what it
-  made.
+  the model runs on this rank's rows.  The caches are stored in the
+  reference's layout, stacked over the periods (``stacked_cache``), with
+  ``cache_specs``' placements: where the period count divides the data
+  axes, a data rank stores only its periods, as the reference's does.
+  The decode fetches each period's cache for the layer that reads it
+  from the rank that stores it, and frees it after; each period's new
+  caches are stored as soon as it has run.  ``serve_step`` hands back a
+  cache leaf that the decode passes through unchanged (the prefill's
+  keys and values) as the caller's own ``DTensor``, so a token wraps
+  only what it made.
 
 Inside the model the causal attention and the MoE FFN take their mesh
 forms (``models/attention.py``, ``models/moe.py``).  A gather over axes
 of one rank in all is no copy: on a one-rank mesh the gathered tensors
 are the stored ones.  The reference's ``lower_*`` methods are its
-dry-run's; they come with ``launch/dryrun.py`` (ROADMAP A.11).
+dry run's; the port's dry run (``launch/dryrun.py``) reads a cell from
+the bundle's specs on an ``{axis: size}`` mapping and from the model on
+``meta`` tensors instead.
 """
 
 from __future__ import annotations
@@ -44,10 +51,11 @@ from typing import Any, Dict, Iterator
 import torch
 
 from ..configs.base import ArchConfig, ShapeCfg
-from ..distributed.collectives import all_reduce, group_size
-from ..distributed.sharding import (Spec, batch_specs, cache_specs, dp_axes, drop_fsdp,
-                                    gather_tensor, local_block, local_shape, map_specs,
-                                    opt_state_specs, param_specs, shard_tensor)
+from ..distributed.collectives import (all_reduce, axis_coords, axis_sizes, broadcast_from,
+                                      gather_dim, group_size)
+from ..distributed.sharding import (Spec, _axes, batch_specs, cache_specs, dp_axes, drop_fsdp,
+                                    gather_tensor, leaf_at, local_block, local_shape, map_specs,
+                                    opt_state_specs, param_specs, shard_tensor, stacked_cache)
 from ..models.convert import is_stacked, stacked_groups
 from ..models.model import Model
 from ..models.moe import experts_split
@@ -108,7 +116,9 @@ class StepBundle:
             ``data`` with ``weights_resident_serve``).
         ospecs: The optimizer state's spec tree (train).
         bspecs: ``{input: Spec}``.
-        cspecs: The decode cache's spec tree (decode).
+        cache_shapes: The decode cache's global shapes in the stacked
+            layout (decode).
+        cspecs: Their spec tree (decode).
 
     ``sharding.named(mesh, spec)`` gives a spec's DTensor placements.
     """
@@ -128,6 +138,7 @@ class StepBundle:
             self._owners[n] = (self.model.get_submodule(owner) if owner else self.model, leaf)
         self._stacked = {n: is_stacked(k) for k, ms in stacked_groups(meta).items() for n in ms}
         self._cache_specs: Dict[tuple, Spec] = {}
+        self._layouts: Dict[tuple, _Layout] = {}
         raw = param_specs(meta, mesh, self.tp, self.moe_ep)
         if shape.mode != "train" and cfg.weights_resident_serve:
             self.pspecs = {n: drop_fsdp(s) for n, s in raw.items()}
@@ -140,10 +151,11 @@ class StepBundle:
         self.batch_shapes = input_shapes(cfg, shape)
         self.bspecs = batch_specs(self.batch_shapes, mesh, self.tp)
         self.rows_split = self.bspecs["tokens"][0] is not None
+        self.ndp = group_size(mesh, self.dp)
         if shape.mode == "decode":
             cache = self.model.init_cache(shape.global_batch, shape.seq_len, torch.bfloat16)
-            self.cspecs = cache_specs(map_specs(lambda _, t: tuple(t.shape), cache), mesh,
-                                      self.tp)
+            self.cache_shapes = stacked_cache(map_specs(lambda _, t: tuple(t.shape), cache))
+            self.cspecs = cache_specs(self.cache_shapes, mesh, self.tp)
         # the experts' leaves whose gradients are partial over 'model', in
         # one order on every rank (their reduction is a collective per leaf)
         self.split = [n for n, t in meta.items() if t.ndim == 3 and experts_split(cfg, mesh)
@@ -206,7 +218,7 @@ class StepBundle:
         if group_size(self.mesh, "model") > 1:
             for n in self.split:  # each rank computed its slice of the experts
                 all_reduce(grads[n], self.mesh, "model")
-        ndp = group_size(self.mesh, self.dp)
+        ndp = self.ndp
         if self.rows_split and ndp > 1:
             names = list(grads)
             flat = torch.cat([total.reshape(1)] + [grads[n].reshape(-1) for n in names])
@@ -250,17 +262,24 @@ class StepBundle:
         Returns:
             ``(last_logits, caches)``: ``(B, 1, vocab)`` logits as a
             ``DTensor`` split over the data axes like the batch, and the
-            caches (``Model.prefill``'s tree) as ``DTensor``s with
-            ``cache_specs``' placements.
+            caches in the reference's layout (``stacked_cache``):
+            ``caches["stack"]`` one ``DTensor`` a leaf, stacked over the
+            periods, of which each rank stores the periods ``cache_specs``
+            gives it; ``caches["prefix"]`` as the model's, a ``DTensor`` a
+            leaf.  Each period's caches are stored as soon as it has run.
         """
+        store = _Periods(self)
         with self._bound(self.gather_params(params)):
-            logits, caches = self.model.prefill(self._rows(batch), self.mesh)
-        return self._rows_out(logits), map_specs(lambda _, t: self._cache_out(t), caches)
+            logits, caches = self.model.prefill(self._rows(batch), self.mesh, keep=store.keep)
+        return self._rows_out(logits), self._caches_out(caches, store, {}, {})
 
     def serve_step(self, params, caches, batch):
-        """One decoded token against ``caches`` (``prefill_step``'s): the
-        caches are gathered over every axis but the rows', and
-        ``Model.decode`` runs on this rank's rows.
+        """One decoded token against ``caches`` (``prefill_step``'s): each
+        layer runs against its period's cache, fetched from the rank that
+        stores it and gathered over ``'model'`` for this rank's rows, then
+        freed (the fetch GSPMD makes for a scan over a sharded period
+        axis); the prefix caches are gathered over every axis but the
+        rows'.  ``Model.decode`` runs on this rank's rows.
 
         Returns:
             ``(logits, new_caches)`` as ``prefill_step`` returns them; a
@@ -275,11 +294,14 @@ class StepBundle:
             given[id(local)] = dt
             return local
 
-        local = map_specs(rows, caches)
+        store = _Periods(self, caches["stack"])
+        local = {"stack": store}
+        if "prefix" in caches:
+            local["prefix"] = map_specs(rows, caches["prefix"])
         with self._bound(self.gather_params(params)):
-            logits, new = self.model.decode(local, self._rows(batch), self.mesh)
-        return self._rows_out(logits), map_specs(
-            lambda _, t: given[id(t)] if id(t) in given else self._cache_out(t), new)
+            logits, new = self.model.decode(local, self._rows(batch), self.mesh,
+                                            keep=store.keep)
+        return self._rows_out(logits), self._caches_out(new, store, caches, given)
 
     # ------------------------------------------------------------ helpers
 
@@ -320,16 +342,153 @@ class StepBundle:
         return shard_tensor(x, self.mesh, spec, presharded=(0,))
 
     def _cache_spec(self, shape: tuple) -> Spec:
-        """``cache_specs``' spec of a cache leaf of global ``shape``."""
+        """``cache_specs``' spec of a cache leaf of global ``shape`` (a
+        stacked leaf's shape has the periods first)."""
         if shape not in self._cache_specs:
             self._cache_specs[shape] = cache_specs({"c": shape}, self.mesh, self.tp)["c"]
         return self._cache_specs[shape]
 
+    def _layout(self, shape: tuple) -> "_Layout":
+        """The ``_Layout`` of a stacked cache leaf of global ``shape``,
+        worked out once a shape: the mesh and the specs do not change."""
+        if shape not in self._layouts:
+            spec = self._cache_spec(shape)
+            sizes, coords = axis_sizes(self.mesh), axis_coords(self.mesh)
+            axes, n, mine = _axes(spec[0]), 1, 0
+            for a in axes:
+                n, mine = n * sizes[a], mine * sizes[a] + coords[a]
+            split = any(sizes[a] > 1 for e in spec[1:] for a in _axes(e))
+            self._layouts[shape] = _Layout(spec, Spec(spec[1:]), axes, shape[0] // n, mine,
+                                           n > 1, split)
+        return self._layouts[shape]
+
     def _cache_out(self, t: torch.Tensor):
         """A cache leaf of this rank's rows as a ``DTensor``."""
-        ndp = group_size(self.mesh, self.dp) if self.rows_split else 1
+        ndp = self.ndp if self.rows_split else 1
         spec = self._cache_spec((t.shape[0] * ndp,) + tuple(t.shape[1:]))
         return self._keep(t, spec, (0,))
+
+    def _caches_out(self, new, store: "_Periods", caches, given):
+        """The decode's or prefill's caches as ``DTensor``s: the stacked
+        leaves from ``store``, a leaf passed through unchanged as the
+        caller's own."""
+        def stacked(path, _):
+            if store.passed[path] is not None:
+                return leaf_at(caches["stack"], store.passed[path])
+            local, spec = store.slots[path]
+            return shard_tensor(local, self.mesh, spec, presharded=range(local.ndim))
+
+        out = {"stack": map_specs(stacked, new["stack"][0])}
+        if "prefix" in new:
+            out["prefix"] = map_specs(
+                lambda _, t: given[id(t)] if id(t) in given else self._cache_out(t),
+                new["prefix"])
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """Where a stacked cache leaf lives: its spec and the spec of one
+    period (``inner``), the axes of the period dim, the periods a rank
+    stores (``per``), this rank's index over those axes (``mine``), and
+    whether the periods (``spread``) or one period's dims (``split``) go
+    over more than one rank."""
+
+    spec: Spec
+    inner: Spec
+    axes: tuple
+    per: int
+    mine: int
+    spread: bool
+    split: bool
+
+
+@dataclasses.dataclass
+class _Stored:
+    """One stacked cache leaf: its path, this rank's block, its layout."""
+
+    path: tuple
+    local: torch.Tensor
+    layout: _Layout
+
+
+class _Periods:
+    """A bundle's stacked caches, one period at a time, for ``stack_apply``.
+
+    ``self[k]`` is period ``k``'s caches for this rank's rows: the block of
+    the rank that stores the period (broadcast over the axes of the
+    stacked spec's dim 0), gathered over ``'model'``.  ``keep(k, caches)``
+    stores a period's new caches as ``cache_specs`` places the stacked
+    leaf: the rows are gathered over the data axes, and each rank copies
+    the block of the periods it stores into its stacked block and drops
+    the rest.  So no rank holds more than the periods it stores and one
+    period besides.  A leaf that comes back from the decode as it was
+    fetched is marked passed (``passed[path]``, the input's path) and not
+    stored.
+    """
+
+    def __init__(self, bundle: StepBundle, stored=None):
+        self.b, self.given = bundle, {}
+        self.slots: Dict[tuple, tuple] = {}
+        self.passed: Dict[tuple, Any] = {}
+        self.layouts: Dict[tuple, _Layout] = {}
+        self.stored = map_specs(
+            lambda path, dt: _Stored(path, dt.to_local(), bundle._layout(tuple(dt.shape))),
+            stored or {})
+
+    def __len__(self) -> int:
+        return self.b.cfg.n_periods
+
+    def __getitem__(self, k: int):
+        b = self.b
+        self.given = {}
+
+        def fetch(_, leaf: _Stored):
+            lay = leaf.layout
+            owner, i = divmod(k, lay.per)
+            if owner == lay.mine:
+                x = leaf.local[i]
+            else:
+                x = torch.empty(leaf.local.shape[1:], dtype=leaf.local.dtype,
+                                device=leaf.local.device)
+            if lay.spread:
+                x = broadcast_from(x, b.mesh, lay.axes, owner)
+            full = gather_tensor(x, b.mesh, lay.inner) if lay.split else x
+            if b.rows_split and b.ndp > 1:
+                full = local_block(full, b.mesh, Spec((b.dp,) + (None,) * (full.ndim - 1)))
+            self.given[id(full)] = leaf.path
+            return full
+
+        return map_specs(fetch, self.stored)
+
+    def keep(self, k: int, caches):
+        """Store period ``k``'s new caches (this rank's rows); returns
+        their tree with ``None`` leaves."""
+        b = self.b
+
+        def one(path, t):
+            came = self.given.get(id(t))
+            if self.passed.setdefault(path, came) != came:
+                raise RuntimeError(f"cache leaf {path}: period {k} passes through unlike "
+                                   "period 0")
+            if came is not None:
+                return
+            if b.rows_split and b.ndp > 1:
+                t = gather_dim(t, b.mesh, b.dp, 0)
+            lay = self.layouts.get(path)
+            if lay is None:
+                lay = self.layouts[path] = b._layout((len(self),) + tuple(t.shape))
+            owner, i = divmod(k, lay.per)
+            if owner != lay.mine:
+                return
+            block = local_block(t, b.mesh, lay.inner) if lay.split else t
+            if path not in self.slots:
+                self.slots[path] = (torch.empty((lay.per,) + tuple(block.shape),
+                                                dtype=block.dtype, device=block.device),
+                                    lay.spec)
+            self.slots[path][0][i].copy_(block)
+
+        return map_specs(one, caches)
 
 
 def build(cfg: ArchConfig, mesh, shape: ShapeCfg) -> StepBundle:

@@ -138,8 +138,8 @@ def chunked_causal_attention(
         acc = acc * alpha[..., None] + _gqa_out(pr, vb)
         m = m_new
         for p in range(P):
-            if j in (p, nq):  # flush the finished q tile of pair p
-                out[:, :, :, int(qsel[p])] = acc[:, :, :, p] / torch.where(
+            if j in (p, nq):  # flush the finished q tile of pair p (qsel[p], on the host)
+                out[:, :, :, p if j == p else nq - 1 - p] = acc[:, :, :, p] / torch.where(
                     l[:, :, :, p] == 0, 1.0, l[:, :, :, p])[..., None]
     return out.reshape(b, hq, s, dv).to(q.dtype)
 

@@ -173,9 +173,10 @@ class Model(nn.Module):
         return x @ w.to(self.adtype)
 
     def _backbone(self, x, positions, *, caches=None, mode="train", enc_out=None,
-                  positions3=None, mesh=None):
+                  positions3=None, mesh=None, keep=None):
         """The prefix blocks, then the stack, then the final norm; returns
-        ``(x, new_caches, aux)``.  ``mesh`` goes to every block."""
+        ``(x, new_caches, aux)``.  ``mesh`` goes to every block and
+        ``keep`` to ``stack_apply``."""
         cfg = self.cfg
         new_caches: Dict[str, Any] = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -195,7 +196,7 @@ class Model(nn.Module):
         x, new_caches["stack"], a = stack_apply(
             self.stack, cfg, self.specs, x, positions,
             caches=caches["stack"] if caches else None, mode=mode, enc_out=enc_out,
-            positions3=positions3, mesh=mesh)
+            positions3=positions3, mesh=mesh, keep=keep)
         return rmsnorm(self.final_norm, x, cfg.norm_eps), new_caches, aux + a
 
     def _encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
@@ -261,7 +262,7 @@ class Model(nn.Module):
     # ------------------------------------------------------- prefill / decode
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor], mesh=None):
+    def prefill(self, batch: Dict[str, torch.Tensor], mesh=None, keep=None):
         """Full-sequence forward filling the caches.
 
         Args:
@@ -269,6 +270,8 @@ class Model(nn.Module):
                 device, plus ``"patches"`` and ``"src_embeds"`` as ``loss``
                 takes them.
             mesh: As ``loss`` takes it.
+            keep: Given to ``stack_apply``: each period's caches are
+                ``keep(k, caches)``.
 
         Returns:
             ``(last_logits (B, 1, vocab), caches)`` with ``caches =
@@ -283,11 +286,11 @@ class Model(nn.Module):
         x, positions, pos3 = self._embed_inputs(batch)
         enc_out = self._encode(batch["src_embeds"]) if self.is_encdec else None
         h, caches, _ = self._backbone(x, positions, mode="prefill", enc_out=enc_out,
-                                      positions3=pos3, mesh=mesh)
+                                      positions3=pos3, mesh=mesh, keep=keep)
         return self._logits(h[:, -1:]), caches
 
     @torch.no_grad()
-    def decode(self, caches, batch: Dict[str, torch.Tensor], mesh=None):
+    def decode(self, caches, batch: Dict[str, torch.Tensor], mesh=None, keep=None):
         """One token against full caches.
 
         Args:
@@ -296,6 +299,8 @@ class Model(nn.Module):
                 its absolute position (with M-RoPE, the position of all
                 three streams).
             mesh: As ``loss`` takes it.
+            keep: Given to ``stack_apply``: each period's caches are
+                ``keep(k, caches)``.
 
         Returns:
             ``(logits (B, 1, vocab), new_caches)``; a GQA block's new cache
@@ -310,7 +315,7 @@ class Model(nn.Module):
         if self.cfg.mrope_sections is not None:
             pos3 = positions[..., None].expand(x.shape[0], 1, 3).to(torch.int32)
         h, new_caches, _ = self._backbone(x, positions, caches=caches, mode="decode",
-                                          positions3=pos3, mesh=mesh)
+                                          positions3=pos3, mesh=mesh, keep=keep)
         return self._logits(h), new_caches
 
     # ----------------------------------------------------------------- caches

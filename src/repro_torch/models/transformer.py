@@ -14,7 +14,7 @@ the stack sums them, as the reference's scan carries them.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -215,11 +215,15 @@ def stack_apply(params: nn.ModuleList, cfg, specs: Sequence, x: torch.Tensor,
                 positions: torch.Tensor, *, caches: Optional[List] = None,
                 mode: str = "train", enc_out: Optional[torch.Tensor] = None,
                 bidirectional: bool = False, positions3: Optional[torch.Tensor] = None,
-                mesh=None):
+                mesh=None, keep: Optional[Callable[[int, Any], Any]] = None):
     """Run the periods in order.  Returns ``(x, new_caches, aux)``: one
     dict of block caches per period, and the sum of the blocks' balance
     losses (float32).  ``enc_out``, ``bidirectional``, ``positions3`` and
-    ``mesh`` go to every block (``block_apply``).
+    ``mesh`` go to every block (``block_apply``).  ``caches`` is indexed
+    by period, once each, in order.  With ``keep``, period ``k``'s entry
+    of ``new_caches`` is ``keep(k, its caches)``, called as soon as the
+    period has run, so that a caller can store each period's caches
+    elsewhere and free them (the step bundle's placement).
 
     ``cfg.remat`` acts where autograd records, as the reference's
     ``jax.checkpoint`` of the scanned period: ``"none"`` keeps every
@@ -247,6 +251,7 @@ def stack_apply(params: nn.ModuleList, cfg, specs: Sequence, x: torch.Tensor,
             x, nc, a = checkpoint(_period_apply, *args, use_reentrant=False, **context)
         else:
             x, nc, a = _period_apply(*args)
-        new_caches.append(nc)
+        new_caches.append(keep(k, nc) if keep else nc)
         aux = aux + a
+        del args, nc  # a kept period's caches are freed before the next runs
     return x, new_caches, aux

@@ -11,14 +11,31 @@ Every constant is this card's: the values below are those of the
 phase measures each one the way its comment says and prints it beside
 the value here, on an NVIDIA H100 80GB HBM3 at 700.00 W (``nvidia-smi
 --query-gpu=name,power.limit``).  The per-step costs are throughputs of the whole card: the time one step adds to a
-launch that has hundreds of thousands of them in flight.  HLO parsing
-(collectives, roofline terms of a compiled program) is not here: it
-waits for a trace analogue (ROADMAP A.11).
+launch that has hundreds of thousands of them in flight.
+
+The reference's second half reads compiled HLO; the port's reads what a
+step did (``roofline/trace_cost.py``): ``wire_bytes`` is the reference's
+ring model of a collective's per-rank traffic, ``collective_census``
+counts the collectives of a ``torch.profiler`` trace, ``roofline_terms``
+gives a dry-run record's compute, memory-floor and collective seconds on
+the card's peaks (``PEAK_FLOPS``, ``HBM_BW``, ``LINK_BW``), and
+``load_cells`` reads the dry run's records back.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import re
+from typing import Dict, List, Mapping, Optional
+
 __all__ = [
+    "PEAK_FLOPS",
+    "LINK_BW",
+    "wire_bytes",
+    "collective_census",
+    "roofline_terms",
+    "load_cells",
     "HBM_BW",
     "SELECT_S",
     "SMEM_READ_S",
@@ -198,3 +215,149 @@ def schedule_cost_model(
     else:  # hmap / octant / rb: select chain over the recursion levels
         per_step = SELECT_S * (LEVELS_2D if m == 2 and LEVELS_2D else levels)
     return t_mem + steps * per_step + build
+
+
+# ------------------------------------------------- traces and dry runs
+
+# FLOP/s of one H100 SXM at 700 W by operand type (NVIDIA's data sheet,
+# dense): float32 outside the tensor cores, TF32 and 16-bit on them.  The
+# measured ``ATTN_PEAK_FLOPS`` above are what ``torch.matmul`` reaches.
+PEAK_FLOPS = {"float32": 67e12, "tfloat32": 495e12, "bfloat16": 989e12, "float16": 989e12}
+# Bytes/s one H100 SXM sends over NVLink 4: 900 GB/s in both directions
+# together over its 18 links (NVIDIA's data sheet), so 450e9 each way.
+LINK_BW = 450e9
+
+# A trace's collective records: ``gloo:<op>`` and ``nccl:<op>`` host ops.
+_COLL_RE = re.compile(r"^(?:gloo|nccl):(\w+)$")
+_COLL_KIND = {"all_gather": "all-gather", "allgather": "all-gather",
+              "all_gather_into_tensor": "all-gather", "_allgather_base": "all-gather",
+              "reduce_scatter": "reduce-scatter", "reduce_scatter_tensor": "reduce-scatter",
+              "_reduce_scatter_base": "reduce-scatter", "all_reduce": "all-reduce",
+              "allreduce": "all-reduce", "all_to_all": "all-to-all", "alltoall": "all-to-all",
+              "all_to_all_single": "all-to-all", "alltoall_base": "all-to-all",
+              "broadcast": "broadcast", "send": "collective-permute",
+              "recv": "collective-permute"}
+_TYPE_BYTES = {"float": 4, "double": 8, "c10::Half": 2, "c10::BFloat16": 2, "int": 4,
+               "long int": 8, "short int": 2, "signed char": 1, "unsigned char": 1,
+               "bool": 1}
+
+
+def wire_bytes(kind: str, operand: int, result: int, g: int) -> float:
+    """Bytes one rank sends for one collective of a group of ``g``, on a
+    ring: the reference's model (``broadcast`` from a ring's root moves
+    the operand once a rank).
+
+    Example:
+        >>> wire_bytes("all-reduce", 1024, 1024, 4)
+        1536.0
+    """
+    if g <= 1:
+        return 0.0
+    if kind == "all-gather":
+        return result * (g - 1) / g
+    if kind == "reduce-scatter":
+        return operand * (g - 1) / g
+    if kind == "all-reduce":
+        return operand * 2 * (g - 1) / g
+    if kind == "all-to-all":
+        return operand * (g - 1) / g
+    if kind in ("collective-permute", "broadcast"):
+        return float(operand)
+    return 0.0
+
+
+def collective_census(events, group_size: int = 2) -> Dict:
+    """Per-kind counts, operand bytes and wire bytes of the collectives of
+    a ``torch.profiler`` trace taken with ``record_shapes=True``.
+
+    Args:
+        events: ``prof.events()`` (each with ``name``, ``input_shapes``
+            and ``input_dtypes``).
+        group_size: The ranks of the collectives' groups; a trace does not
+            record it, so the caller, who built the mesh, says.
+
+    Returns:
+        ``{"per_kind": {kind: {"count", "operand_bytes", "wire_bytes"}},
+        "wire_bytes_per_chip": total}``, the reference's layout.  An
+        all-gather's result is its operand times ``group_size``.
+    """
+    per_kind: Dict[str, Dict[str, float]] = {}
+    total = 0.0
+    for e in events:
+        m = _COLL_RE.match(e.name)
+        if not m or m.group(1) not in _COLL_KIND:
+            continue
+        kind = _COLL_KIND[m.group(1)]
+        dtypes = list(getattr(e, "input_dtypes", None) or [])
+        operand = 0
+        for i, shape in enumerate(e.input_shapes or []):
+            n = 1
+            for d in shape:
+                n *= d
+            operand += n * _TYPE_BYTES.get(dtypes[i] if i < len(dtypes) else "float", 4)
+        result = operand * group_size if kind == "all-gather" else operand
+        wb = wire_bytes(kind, operand, result, group_size)
+        k = per_kind.setdefault(kind, {"count": 0, "operand_bytes": 0.0, "wire_bytes": 0.0})
+        k["count"] += 1
+        k["operand_bytes"] += operand
+        k["wire_bytes"] += wb
+        total += wb
+    return {"per_kind": per_kind, "wire_bytes_per_chip": total}
+
+
+def roofline_terms(rec: Mapping, peak_flops: Optional[float] = None,
+                   hbm_bw: Optional[float] = None, link_bw: Optional[float] = None) -> Dict:
+    """The reference's three terms of one dry-run record
+    (``launch/dryrun.py``), per chip, on the card's peaks.
+
+    ``compute_s`` is the step's FLOPs over the chips' peak (``rec
+    ["dtype"]``'s entry of ``PEAK_FLOPS``, float32 by default);
+    ``memory_floor_s`` each chip streaming its model-parallel slice of the
+    float32 weights once a pass (three passes a microbatch to train);
+    ``memory_s`` the record's bytes over ``HBM_BW`` (an upper bound);
+    ``collective_s`` its wire bytes over ``LINK_BW``.  ``useful_ratio`` is
+    ``6 N tokens`` (train; ``2 N`` otherwise) over the counted FLOPs, and
+    ``roofline_fraction`` that ideal time over the largest term.
+
+    Example:
+        >>> rec = {"n_chips": 4, "flops": 8e12, "bytes_accessed": 1e9, "mode": "decode",
+        ...        "params": 1e6, "params_active": 1e6, "tokens": 4,
+        ...        "collectives": {"wire_bytes_per_chip": 0.0}}
+        >>> roofline_terms(rec)["dominant"]
+        'compute'
+    """
+    peak = peak_flops or PEAK_FLOPS[rec.get("dtype", "float32")]
+    bw = hbm_bw or HBM_BW
+    link = link_bw or LINK_BW
+    chips = rec["n_chips"]
+    passes = (3 * rec.get("microbatches", 1)) if rec["mode"] == "train" else 1
+    terms = {
+        "compute_s": rec["flops"] / (chips * peak),
+        "memory_floor_s": passes * (rec["params"] * 4.0) / rec.get("model_axis", 16) / bw,
+        "collective_s": rec["collectives"]["wire_bytes_per_chip"] / link,
+    }
+    dom = max(terms, key=terms.get)
+    model_flops = (6 if rec["mode"] == "train" else 2) * rec["params_active"] * rec["tokens"]
+    bound = max(terms.values())
+    return {
+        **terms,
+        "memory_s": rec["bytes_accessed"] / (chips * bw),
+        "dominant": dom.replace("_s", "").replace("_floor", ""),
+        "model_flops": model_flops,
+        "useful_ratio": model_flops / max(rec["flops"], 1.0),
+        "roofline_fraction": (model_flops / (chips * peak)) / bound if bound > 0 else 0.0,
+    }
+
+
+def load_cells(outdir: str, mesh: str) -> List[Dict]:
+    """The dry run's records of one mesh (``<outdir>/<mesh>/*.json``), in
+    file-name order; none when the directory is absent."""
+    d = os.path.join(outdir, mesh)
+    if not os.path.isdir(d):
+        return []
+    cells = []
+    for f in sorted(os.listdir(d)):
+        if f.endswith(".json"):
+            with open(os.path.join(d, f)) as fh:
+                cells.append(json.load(fh))
+    return cells

@@ -66,6 +66,8 @@ def _serve(setup, mesh) -> dict:
         logits, caches = jax.jit(bundle.prefill_step_fn())(
             params, {"tokens": put(setup[f"serve.{name}.tokens"], "tokens")})
         caches = jax.device_put(caches, bundle.cspecs)
+        out[f"serve.{name}.cache_bytes"] = np.array(sum(
+            x.addressable_shards[0].data.nbytes for x in jax.tree_util.tree_leaves(caches)))
         serve = jax.jit(bundle.serve_step_fn())
         got = [np.asarray(logits)]
         for i in range(P.DECODE_STEPS):

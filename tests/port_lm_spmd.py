@@ -47,7 +47,7 @@ TRAIN_CASES = {
 # tokens through the bundle.
 SERVE_CASES = {
     "yi": ("yi-6b", {}, 4, 32),
-    "yi_b1": ("yi-6b", {}, 1, 32),  # one row: replicated over the data axis
+    "yi_b1": ("yi-6b", {}, 1, 32),  # one row on (2, 2): the 2 periods go over data, the row not
     "moe_ep": ("qwen2-moe-a2.7b", {"moe_impl": "ep"}, 4, 32),
 }
 DECODE_STEPS = 2
@@ -215,11 +215,14 @@ def _serve(setup, mesh, out):
             got.append(logits.full_tensor().numpy())
             tok = torch.from_numpy(got[-1][:, -1].argmax(-1))[:, None]
             # the prefill's keys and values come back as the caller's DTensors
-            for st, nst in zip(caches["stack"], new["stack"]):
-                for blk, nblk in zip(st.values(), nst.values()):
-                    passed &= all(c is n for c, n in zip(blk["mixer"], nblk["mixer"]))
+            for blk, nblk in zip(caches["stack"].values(), new["stack"].values()):
+                passed &= all(c is n for c, n in zip(blk["mixer"], nblk["mixer"]))
         out[f"serve.{name}.got"] = np.stack(got)
         out[f"serve.{name}.passed_through"] = np.array(passed)
+        # the bytes this rank stores, and its stacked blocks' shapes
+        resident = []
+        map_specs(lambda _, t: resident.append(t.to_local().nbytes), caches)
+        out[f"serve.{name}.cache_bytes"] = np.array(sum(resident))
         # the mesh-less path on the same weights: each data shard's rows
         # alone (MoE capacity is per shard), the same tokens fed back
         lo, hi = _rows_of(mesh, bundle.dp, b) if bundle.rows_split else (0, b)

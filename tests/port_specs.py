@@ -39,31 +39,9 @@ OPTIMIZERS = ("adamw", "adafactor")
 
 # The port's per-rank cache elements over the reference's, at full width,
 # in every (architecture, batch, mesh, tp) cell where they are not equal.
-# The reference's rule runs on its stacked leaves, whose dim 0 is the
-# period axis: it puts the periods over the data axes when their count
-# divides.  The port's caches are per period, and it puts the batch over
-# the data axes when the batch divides, else replicates it.  Where the
-# periods divide and the batch does not, the port holds |dp| times the
-# reference's cache a rank; where the batch divides and the periods do
-# not, it holds less.
-CACHE_RATIO_FULL = {
-    ("yi-6b", 1, (2, 2), True): 2.0, ("yi-6b", 1, (2, 2), False): 4.0,
-    ("yi-6b", 1, (16, 16), True): 16.0, ("yi-6b", 1, (2, 16, 16), True): 32.0,
-    ("yi-6b", 8, (16, 16), True): 16.0, ("yi-6b", 8, (2, 16, 16), True): 32.0,
-    ("granite-8b", 1, (2, 2), True): 2.0, ("granite-8b", 1, (2, 2), False): 4.0,
-    ("internlm2-20b", 1, (2, 2), True): 2.0, ("internlm2-20b", 1, (2, 2), False): 4.0,
-    ("internlm2-20b", 1, (16, 16), True): 16.0, ("internlm2-20b", 8, (16, 16), True): 16.0,
-    ("stablelm-12b", 1, (2, 2), True): 2.0, ("stablelm-12b", 1, (2, 2), False): 4.0,
-    ("qwen2-moe-a2.7b", 1, (2, 2), True): 2.0, ("qwen2-moe-a2.7b", 1, (2, 2), False): 4.0,
-    ("deepseek-v3-671b", 1, (2, 2), True): 1.906,
-    ("deepseek-v3-671b", 8, (2, 2), False): 0.26,
-    ("jamba-v0.1-52b", 1, (2, 2), True): 2.0, ("jamba-v0.1-52b", 1, (2, 2), False): 4.0,
-    ("xlstm-350m", 8, (2, 2), True): 0.5, ("xlstm-350m", 8, (2, 2), False): 0.25,
-    ("qwen2-vl-72b", 1, (2, 2), True): 2.0, ("qwen2-vl-72b", 1, (2, 2), False): 4.0,
-    ("qwen2-vl-72b", 1, (16, 16), True): 16.0, ("qwen2-vl-72b", 8, (16, 16), True): 16.0,
-    ("seamless-m4t-large-v2", 1, (2, 2), True): 2.0,
-    ("seamless-m4t-large-v2", 1, (2, 2), False): 4.0,
-}
+# The port places its caches as the reference's stacked specs do, so no
+# cell differs.
+CACHE_RATIO_FULL = {}
 
 
 def meshes():
@@ -158,37 +136,25 @@ def _per_rank(shape, spec, sizes) -> int:
     return n
 
 
-def _shapes(tree, prefix=""):
-    """{dotted path: shape} of a port tree of tensors."""
-    if isinstance(tree, torch.Tensor):
-        return {prefix[:-1]: tuple(tree.shape)}
-    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
-    out = {}
-    for k, v in items:
-        out.update(_shapes(v, f"{prefix}{k}."))
-    return out
-
-
 def check_batch_and_cache_specs(arch, full):
     """Every batch leaf's spec (each mode, batch 1 and 8) equal to the
-    reference's.  Every cache leaf's spec equal to the reference's rule on
-    its stacked leaves cut to one period (its prefix leaves as they are);
-    then against the reference's real specs of its stacked leaves: the
-    port's ``'model'`` placement is the reference's on the dims after the
-    batch (unless the reference put ``'model'`` on the batch itself), and,
-    at full width, the per-rank cache size over the reference's is
-    ``CACHE_RATIO_FULL``'s (1 where it does not name the cell)."""
+    reference's.  The cache specs of the bundle's stacked layout
+    (``stacked_cache``) equal to the reference's real specs leaf for
+    leaf; at full width, the per-rank cache size of the
+    stacked layout over the reference's is ``CACHE_RATIO_FULL``'s (1 where
+    it does not name the cell)."""
     rmodel, tcfg = RModel(ref_cfg(arch, full)), port_cfg(arch, full)
     tmodel = port_trees(arch, full)[0]
     for b in BATCHES:
         rcache = jax.eval_shape(lambda: rmodel.init_cache(b, CACHE_SEQ, jnp.bfloat16))
         rshapes = {_path(p): tuple(x.shape)
                    for p, x in jax.tree_util.tree_flatten_with_path(rcache)[0]}
-        per_period = dict(rcache)
-        per_period["stack"] = jax.tree_util.tree_map(
-            lambda x: jax.ShapeDtypeStruct(x.shape[1:], x.dtype), rcache["stack"])
-        tcache = tmodel.init_cache(b, CACHE_SEQ, torch.bfloat16)
-        tshapes = _shapes(tcache)
+        tcache = TS.map_specs(lambda _, t: tuple(t.shape),
+                              tmodel.init_cache(b, CACHE_SEQ, torch.bfloat16))
+        stacked = TS.stacked_cache(tcache)
+        tshapes = {n: s for n, s in port_flat(TS.map_specs(lambda _, t: TS.Spec(t), stacked)
+                                              ).items()}
+        assert tshapes == rshapes, (b, tshapes, rshapes)
         for mesh, sizes in meshes():
             for tp in (True, False):
                 for mode in ("train", "prefill", "decode"):
@@ -198,24 +164,12 @@ def check_batch_and_cache_specs(arch, full):
                                         sizes, tp)
                     assert {k: tuple(v) for k, v in rb.items()} == \
                         {k: tuple(v) for k, v in tb.items()}, (sizes, tp, mode, b)
-                want = ref_flat(RS.cache_specs(per_period, mesh, tp), per_period)
                 real = ref_flat(RS.cache_specs(rcache, mesh, tp), rcache)
-                got = port_flat(TS.cache_specs(tcache, sizes, tp))
-                seen = set()
-                for name, spec in got.items():
-                    parts = name.split(".")
-                    ref_name = ".".join(parts[:1] + parts[2:]) if parts[0] == "stack" else name
-                    assert spec == want[ref_name], (sizes, tp, b, name, spec, want[ref_name])
-                    if parts[0] == "stack":
-                        r = real[ref_name]
-                        assert spec[1:] == r[2:] or r[1] == "model", (sizes, tp, b, name, r)
-                    else:
-                        assert spec == real[ref_name], (sizes, tp, b, name)
-                    seen.add(ref_name)
-                assert seen == set(want)
+                mine = port_flat(TS.cache_specs(stacked, sizes, tp))
+                assert mine == real, (sizes, tp, b)
                 if full:
-                    mine = sum(_per_rank(tshapes[n], got[n], sizes) for n in got)
+                    ours = sum(_per_rank(tshapes[n], TS.Spec(mine[n]), sizes) for n in mine)
                     ref = sum(_per_rank(rshapes[n], real[n], sizes) for n in real)
                     key = (arch, b, tuple(sizes.values()), tp)
-                    assert round(mine / ref, 3) == CACHE_RATIO_FULL.get(key, 1.0), \
-                        (key, mine / ref)
+                    assert round(ours / ref, 3) == CACHE_RATIO_FULL.get(key, 1.0), \
+                        (key, ours / ref)

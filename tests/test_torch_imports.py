@@ -56,7 +56,12 @@ def test_port_has_modules():
                  "repro_torch/distributed/sharding.py",
                  "repro_torch/distributed/compression.py",
                  "repro_torch/distributed/collectives.py", "repro_torch/launch/mesh.py",
-                 "repro_torch/launch/steps.py"):
+                 "repro_torch/launch/steps.py", "repro_torch/analysis/__init__.py",
+                 "repro_torch/analysis/registry.py", "repro_torch/analysis/ast_passes.py",
+                 "repro_torch/analysis/schedule_passes.py",
+                 "repro_torch/analysis/halo_passes.py", "repro_torch/analysis/cli.py",
+                 "repro_torch/roofline/trace_cost.py", "repro_torch/launch/dryrun.py",
+                 "repro_torch/examples/quickstart.py", "repro_torch/examples/serve_lm.py"):
         assert want in names
     for cu in ("map.cu", "accum.cu", "edm.cu", "ca.cu", "simplex_maps.cuh",
                "flash_attention.cu", "legacy2d.cu", "legacy_md.cu", "hmap_mxu.cu",
@@ -83,7 +88,9 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.distributed.fault_tolerance, repro_torch.examples.simplex_ca, "
         "repro_torch.distributed.sharding, repro_torch.distributed.compression, "
         "repro_torch.distributed.collectives, repro_torch.launch.mesh, "
-        "repro_torch.launch.steps; "
+        "repro_torch.launch.steps, repro_torch.analysis, repro_torch.analysis.cli, "
+        "repro_torch.roofline.trace_cost, repro_torch.launch.dryrun, "
+        "repro_torch.examples.quickstart, repro_torch.examples.serve_lm; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

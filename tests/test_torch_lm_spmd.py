@@ -267,6 +267,8 @@ def test_serve_steps_match_the_reference_mesh(sides, name):
         np.testing.assert_allclose(mine, ref, **SERVE_TOL)
         assert (mine.argmax(-1) == ref.argmax(-1)).all()
         assert bool(out[f"serve.{name}.passed_through"])
+        # each rank stores the caches the reference's stacked specs give it
+        assert int(out[f"serve.{name}.cache_bytes"]) == int(want[f"serve.{name}.cache_bytes"])
 
 
 @pytest.mark.parametrize("name", list(P.SERVE_CASES))

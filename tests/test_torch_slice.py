@@ -5,6 +5,8 @@ without a card raises, and CPU tensors never touch a launch counter."""
 
 import doctest
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -105,8 +107,12 @@ def test_cpu_never_touches_launch_counters():
 
 
 def test_other_devices_are_refused():
-    with pytest.raises(ValueError, match="no kernel"):
-        policy.on_card(torch.empty(1, device="meta"), "accum")
+    # meta tensors take the plain version (the dry run counts FLOPs on
+    # them); a device with no kernel and no plain version is refused
+    assert policy.on_card(torch.empty(1, device="meta"), "accum") is False
+    for device in ("xpu", "mps"):
+        with pytest.raises(ValueError, match="no kernel"):
+            policy.on_card(types.SimpleNamespace(device=torch.device(device)), "accum")
 
 
 def test_tile_contract():
