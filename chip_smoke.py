@@ -25,7 +25,9 @@ coordinates into element origins.  This script
    (registers, stack, spills, shared memory), then the ``map_frame``
    line: the stack frame of every kernel of a source that includes
    ``simplex_maps.cuh``, which must be 0 bytes for the engine's MAP,
-   ACCUM, CA and EDM kernels at m = 2 and 3 (``FRAMELESS``);
+   ACCUM, CA and EDM kernels at m = 2 and 3 (``FRAMELESS``), and the
+   ``legacy_md frame`` lines: the ACCUM originals' kernels at m = 3 and 4
+   must keep no stack frame and spill nothing (``LEGACY_MD_FRAMELESS``);
 3. sets every launch counter to 0, drives the public entry points of
    ``repro_torch.kernels.ops`` (MAP, ACCUM, EDM, CA at m=2 and m=3, plus
    ACCUM, EDM and MAP at m=4, and MAP at m = 5..8 on small sides, so that
@@ -60,9 +62,15 @@ coordinates into element origins.  This script
    whole cube.  Checks the launches of each call against its plan, holds
    each output bit for bit against its plain version and against the
    engine kernel of the same kind and split (``ops.simplex_accum3d``,
-   ``simplex_accum_md``, ``simplex_ca3d``), reads the counters, which
-   must be > 0, and times each kernel beside its engine twin, its plain
-   version and a dense ``torch.where``;
+   ``simplex_accum_md``, ``simplex_ca3d``); then the ACCUM originals off
+   their 16-byte pieces and across types, each bit-equal to its plain
+   version with its launches and access path checked (``legacy_md
+   check`` lines): ``accum3d`` and ``accum_md`` on the scalar path (m=3,
+   n = 256, rho = 2, int32), ``kernel_`` of each in place on a view 4
+   bytes past a 16-byte boundary, and ``accum3d`` at m=3, n = 64 in every
+   ACCUM dtype with values at each type's edge (rho 4 and 16); reads the
+   counters, which must be > 0, and times each kernel beside its engine
+   twin, its plain version and a dense ``torch.where``;
 7. tensor-core map: sets every counter to 0 and maps the whole hmap2 grid
    of nb = 16384 (134,209,536 blocks, rho = 16) through
    ``hmap_mxu.hmap2_coords_mxu``; holds it bit for bit against its plain
@@ -359,6 +367,24 @@ LEGACY_MD_CASES = {
     3: [(1024, 8, ("hmap", "octant", "table", "bb")), (960, 8, ("composite", "bb"))],
     4: [(64, 4, ("hmap", "bb")), (60, 4, ("composite", "bb"))],
 }
+# The ACCUM originals off their 16-byte pieces and across element types,
+# each bit-equal to its plain version: (m, n, rho) in int32 where rho
+# elements are not a whole number of pieces (legacy.legacy_vector_access);
+# (n, rho) of the in-place case on a view 4 bytes past a 16-byte
+# boundary (m=3, rho 8: pieces if it were aligned); and accum3d at m=3 on
+# a side of LEGACY_MD_DTYPE_N in every ACCUM dtype with values at each
+# type's edge (DTYPE_EDGES and these), at rho 4 (pieces for the 4- and
+# 8-byte types) and 16 (pieces for every type).
+LEGACY_MD_SCALAR = (3, 256, 2)
+LEGACY_MD_MISALIGNED = (256, 8)
+LEGACY_MD_DTYPE_N, LEGACY_MD_DTYPE_RHOS = 64, (4, 16)
+LEGACY_MD_EDGES = {"int32": (2**31 - 1, -1, 7), "int64": (2**63 - 1, -1, 7),
+                   "float32": (2.0**24 - 1, 2.0**24, 3.5),
+                   "float64": (2.0**53 - 1, 2.0**53, 0.25)}
+# The ACCUM originals' kernels at m = 3 and 4, which must keep no stack
+# frame and spill nothing (ptxas).
+LEGACY_MD_FRAMELESS = ("legacy_accum3d_kernel", "legacy_accum_md_kernel<3>",
+                       "legacy_accum_md_kernel<4>")
 
 # The tensor-core H map: the whole hmap2 grid of nb tiles a side,
 # (wx, wy) for wx < nb/2 and 1 <= wy < nb, in elements of rho.
@@ -1138,6 +1164,85 @@ class LegacyMdSmoke:
                         torch.cuda.empty_cache()
                 del d
                 torch.cuda.empty_cache()
+        self.access()
+
+    def access(self) -> None:
+        """The ACCUM originals off their 16-byte pieces and in every element
+        type, each bit-equal to its plain version: ``accum3d`` and
+        ``accum_md`` on the scalar path (``LEGACY_MD_SCALAR``), ``kernel_``
+        of each in place on a view 4 bytes past a 16-byte boundary, whose
+        neighbours must stay as they were, and ``accum3d`` in every ACCUM
+        dtype with values at the type's edge."""
+        torch, L, dev = self.torch, self.legacy, self.s.dev
+        m, n, rho = LEGACY_MD_SCALAR
+        x = torch.randint(0, 100, (n,) * m, generator=self.s.gen(60), device=dev,
+                          dtype=torch.int32)
+        for name in ("accum3d", "accum_md"):
+            self.entry_case(name, x, rho, f"scalar path m={m} n={n} rho={rho} int32",
+                            vector=False)
+        del x
+        n, rho = LEGACY_MD_MISALIGNED
+        store = torch.randint(0, 100, (n**3 + 8,), generator=self.s.gen(61), device=dev,
+                              dtype=torch.int32)
+        lead = (-store.data_ptr() % 16) // 4 + 1  # one element past a 16-byte boundary
+        sched = L._schedule(3, n // rho, "hmap")
+        for name in ("accum3d", "accum_md"):
+            k = self.kernel(name)
+            x = store[lead:lead + n**3].view(n, n, n)
+            kept = store.clone()
+            want = x.clone()
+            k.plain_(want, sched, rho)
+            vector = L.legacy_vector_access(rho, 4, x.data_ptr())
+            before = k.launches
+            k.kernel_(x, sched, rho)
+            torch.cuda.synchronize()
+            equal = (torch.equal(x, want) and torch.equal(store[:lead], kept[:lead])
+                     and torch.equal(store[lead + n**3:], kept[lead + n**3:]))
+            _log(f"legacy_md check {name} misaligned view m=3 n={n} rho={rho} int32 "
+                 f"data_ptr%16={x.data_ptr() % 16} vector={vector} "
+                 f"launches={k.launches - before} equal={equal}")
+            if vector or k.launches - before != 1 or not equal:
+                self.s.fail(f"legacy {name} misaligned view n={n} rho={rho}")
+            del x, kept, want
+        del store
+        n = LEGACY_MD_DTYPE_N
+        for dt_name, edges in {**DTYPE_EDGES, **LEGACY_MD_EDGES}.items():
+            dt = getattr(torch, dt_name)
+            x = torch.randint(0, 100, (n,) * 3, generator=self.s.gen(62), device=dev,
+                              dtype=torch.int64)
+            x = x.to(torch.float64) if dt.is_floating_point else x
+            flat = x.view(-1)
+            flat[::3] = torch.tensor(edges, dtype=x.dtype, device=dev)[
+                torch.arange(flat[::3].numel(), device=dev) % len(edges)]
+            x = x.to(dt)
+            for rho in LEGACY_MD_DTYPE_RHOS:
+                vector = (rho * x.element_size()) % 16 == 0
+                self.entry_case("accum3d", x, rho, f"dtype {dt_name} m=3 n={n} rho={rho}",
+                                vector=vector)
+            del x, flat
+        torch.cuda.empty_cache()
+
+    def entry_case(self, name, x, rho, what, vector) -> None:
+        """One ``kind='hmap'`` entry-point call on ``x``: one launch, the
+        access path ``vector`` by the host's rule, bit-equal to the plain
+        version."""
+        torch, L = self.torch, self.legacy
+        k = self.kernel(name)
+        m, n = x.ndim, x.shape[0]
+        plan = L._launch_plan(m, n // rho, "hmap")
+        rule = L.legacy_vector_access(rho, x.element_size(), x.data_ptr())
+        before = k.launches
+        out = getattr(L, name)(x, rho=rho, kind="hmap")
+        torch.cuda.synchronize()
+        want = x.clone()
+        for sched in plan:
+            k.plain_(want, sched, rho)
+        equal = out.dtype == want.dtype and torch.equal(out, want)
+        _log(f"legacy_md check {name} {what} vector={rule} "
+             f"launches={k.launches - before} equal={equal}")
+        if (rule is not vector or k.launches - before != len(plan) or len(plan) != 1
+                or not equal):
+            self.s.fail(f"legacy {name} {what}")
 
     def case(self, name, m, n, rho, kind, split, d, engine_fn) -> None:
         """One entry-point call: launches per the plan, then bit-equal to
@@ -3638,6 +3743,13 @@ def main(argv=None) -> int:
             stack = [f[f"{kernel}<{m}>"] for f in frames.values() if f"{kernel}<{m}>" in f]
             if stack != [0]:
                 smoke.fail(f"ptxas: {kernel}<{m}> keeps a stack frame {stack} (want [0])")
+    for kernel in LEGACY_MD_FRAMELESS:
+        recs = [r for r in records if kernel_name(r["name"]) == kernel]
+        frame = [(r.get("stack"), r.get("spill_stores"), r.get("spill_loads")) for r in recs]
+        _log(f"legacy_md frame {kernel}: (stack, spill stores, spill loads) {frame}")
+        if frame != [(0, 0, 0)]:
+            smoke.fail(f"ptxas: {kernel} keeps a stack frame or spills {frame} "
+                       "(want [(0, 0, 0)])")
     old = LegacySmoke(smoke, legacy)
     old_md = LegacyMdSmoke(smoke, legacy)
     mxu = MxuSmoke(smoke, hmap_mxu, hmap)

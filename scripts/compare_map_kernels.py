@@ -9,7 +9,10 @@ compared with its base inside one process: the users' sources
 each tree are compiled into a library of their own, and each case runs
 base, change, change, base, its time the median of ``RUNS`` CUDA-event
 timed runs after warm-up.  The Python side is this tree's, so the base
-must export the same C entry points (``kernels/_build.py``).  Every
+must export the same C entry points (``kernels/_build.py``), except that
+a base whose ``legacy_accum3d_launch`` and ``legacy_accum_md_launch`` take
+no ``vec`` argument (before the ACCUM originals took 16-byte pieces) is
+called with its own argument list.  Every
 case's outputs must agree between the trees (integers bit for bit, EDM
 within ``1e-5 + 1e-5 * max|p|``); the script exits 1 where they do not.
 
@@ -17,7 +20,10 @@ The cases are the head cases of ``chip_smoke.py`` (int32, EDM in
 float32 with d = 64): MAP at m=2 hmap nb=16384, m=3 octant nb=512 and
 m=4 hmap nb=16; ACCUM, CA and EDM at m=2 hmap n=16384 rho=16 and m=3
 octant n=1024 rho=8, ACCUM and EDM also at m=4 hmap n=64 rho=4;
-``accum3d``, ``accum_md`` and ``ca3d`` at m=3 hmap n=1024 rho=8.  Each
+``accum3d`` and ``accum_md`` at m=3 n=1024 rho=8 for hmap, octant, table
+and bb and at n=960 for composite (fused and one launch per piece) and
+bb, ``accum_md`` also at m=4 hmap n=64 rho=4; ``ca3d`` at m=3 hmap
+n=1024 rho=8.  Each
 prints ``compare <case> base=<ms>/<ms> change=<ms>/<ms>`` (both runs of
 each) and the change's time over the base's.
 
@@ -33,6 +39,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -41,6 +48,11 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 USERS = ("map.cu", "accum.cu", "ca.cu", "edm.cu", "legacy_md.cu")
 RUNS = 10
+# (m, n, rho, kind, split) of the ACCUM originals, int32.
+LEGACY_ACCUM_CASES = (
+    (3, 1024, 8, "hmap", None), (3, 1024, 8, "octant", None), (3, 1024, 8, "table", None),
+    (3, 1024, 8, "bb", None), (3, 960, 8, "composite", False), (3, 960, 8, "composite", True),
+    (3, 960, 8, "bb", None), (4, 64, 4, "hmap", None))
 
 
 def build(csrc: pathlib.Path, out: pathlib.Path, nvcc: str, flags) -> ctypes.CDLL:
@@ -85,6 +97,25 @@ def main(argv=None) -> int:
                 getattr(lib, name).argtypes = list(argtypes)
                 getattr(lib, name).restype = ctypes.c_int
         libs[tag] = lib
+    entry = re.search(r'extern "C" int legacy_accum3d_launch\(([^)]*)\)',
+                      (args.base / "src/repro_torch/kernels/csrc/legacy_md.cu").read_text())
+    base_takes_vec = entry is not None and "vec" in entry.group(1)
+    if not base_takes_vec:
+        for name in ("legacy_accum3d_launch", "legacy_accum_md_launch"):
+            getattr(libs["base"], name).argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                                    ctypes.c_void_p, ctypes.c_void_p,
+                                                    ctypes.c_int, ctypes.c_int,
+                                                    ctypes.c_void_p]
+
+    def legacy_accum(k, buf, sched, rho) -> None:
+        """``k.kernel_``, or the base's entry with its own arguments."""
+        if _build._LIB is libs["base"] and not base_takes_vec:
+            code = getattr(_build._LIB, k.entry)(
+                buf.data_ptr(), legacy.DTYPE_CODES[buf.dtype], *legacy._desc_args(sched, dev),
+                buf.shape[0], rho, torch.cuda.current_stream().cuda_stream)
+            _build.check(code, k.name)
+        else:
+            k.kernel_(buf, sched, rho)
 
     def time_ms(fn) -> float:
         for _ in range(2):
@@ -159,14 +190,20 @@ def main(argv=None) -> int:
                 lambda: out.clone())
         del p, out
         torch.cuda.empty_cache()
+    for m, n, rho, kind, split in LEGACY_ACCUM_CASES:
+        plan = legacy._launch_plan(m, n // rho, kind, split)
+        x = torch.randint(0, 100, (n,) * m, generator=gen, device=dev, dtype=torch.int32)
+        buf = x.clone()
+        names = (("accum3d", legacy.ACCUM3D), ("accum_md", legacy.ACCUM_MD)) if m == 3 else (
+            ("accum_md", legacy.ACCUM_MD),)
+        for name, k in names:
+            compare(f"{name} m={m} n={n} kind={kind} split={split}",
+                    lambda: [legacy_accum(k, buf, s, rho) for s in plan],
+                    lambda: buf.clone(), lambda: buf.copy_(x))
+        del x, buf
+        torch.cuda.empty_cache()
     n, rho = 1024, 8
     sched = legacy._schedule(3, n // rho, "hmap")
-    x = torch.randint(0, 100, (n,) * 3, generator=gen, device=dev, dtype=torch.int32)
-    buf = x.clone()
-    for name, k in (("accum3d", legacy.ACCUM3D), ("accum_md", legacy.ACCUM_MD)):
-        compare(f"{name} m=3 n={n} kind=hmap", lambda: k.kernel_(buf, sched, rho),
-                lambda: buf.clone(), lambda: buf.copy_(x))
-    del x, buf
     st = (torch.rand((n,) * 3, generator=gen, device=dev) < 0.35).to(torch.int32)
     out = st.clone()
     compare(f"ca3d m=3 n={n} kind=hmap", lambda: legacy.CA3D.kernel_(out, st, sched, rho),

@@ -80,9 +80,9 @@ _SIGNATURES = {
     # out, in, dtype, kind, nb, n, rho, stream
     "legacy_ca2d_launch": (_P, _P, _I, _I, _I, _I, _I, _P),
     # the frozen m >= 3 originals (legacy_md.cu)
-    # x, dtype, header, data, n, rho, stream
-    "legacy_accum3d_launch": (_P, _I, _P, _P, _I, _I, _P),
-    "legacy_accum_md_launch": (_P, _I, _P, _P, _I, _I, _P),
+    # x, dtype, header, data, n, rho, vec (16-byte pieces), stream
+    "legacy_accum3d_launch": (_P, _I, _P, _P, _I, _I, _I, _P),
+    "legacy_accum_md_launch": (_P, _I, _P, _P, _I, _I, _I, _P),
     # out, in, dtype, header, data, n, rho, stream
     "legacy_ca3d_launch": (_P, _P, _I, _P, _P, _I, _I, _P),
     # the tensor-core H map (hmap_mxu.cu): out, wxy, t, rho, stream

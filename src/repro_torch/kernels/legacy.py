@@ -69,6 +69,7 @@ __all__ = [
     "CA3D",
     "ACCUM_MD",
     "launch_counts",
+    "legacy_vector_access",
 ]
 
 # Elements per chunk of a plain version's tile gather (bounds its memory).
@@ -593,6 +594,22 @@ def _desc_args(sched, device) -> tuple:
     return desc.header.ctypes.data, None if desc.data is None else desc.data.data_ptr()
 
 
+def legacy_vector_access(rho: int, itemsize: int, data_ptr: int) -> bool:
+    """Whether ``legacy_md.cu``'s ACCUM reads and writes 16-byte pieces
+    of a tile row (else single elements): a fixed rule, true when a row of
+    ``rho`` elements of ``itemsize`` bytes is a whole number of pieces and
+    the array starts on a 16-byte boundary (then every tile row does,
+    since ``rho`` divides the side).
+
+    Example:
+        >>> legacy_vector_access(8, 4, 0), legacy_vector_access(3, 4, 0)
+        (True, False)
+        >>> legacy_vector_access(12, 4, 32), legacy_vector_access(8, 4, 4)
+        (True, False)
+    """
+    return (rho * itemsize) % 16 == 0 and data_ptr % 16 == 0
+
+
 class _LinearAccum(_Legacy):
     """ACCUM over a linear grid: +1 where the coordinates sum below n.
 
@@ -615,12 +632,14 @@ class _LinearAccum(_Legacy):
 
     def kernel_(self, buf: torch.Tensor, sched, rho: int) -> None:
         """+1 on the simplex cells of each visited tile of ``buf``, in
-        place (``legacy_md.cu``)."""
+        place (``legacy_md.cu``: 16-byte pieces where
+        ``legacy_vector_access`` says so, single elements elsewhere)."""
         if self.m and sched.m != self.m:
             raise ValueError(f"{self.name}: serves m={self.m}, got a schedule of m={sched.m}")
         _check_linear_launch(self.name, sched, rho, buf, ACCUM_DTYPES)
+        vec = legacy_vector_access(rho, buf.element_size(), buf.data_ptr())
         self._launch(self.entry, buf.device, buf.data_ptr(), DTYPE_CODES[buf.dtype],
-                     *_desc_args(sched, buf.device), buf.shape[0], rho)
+                     *_desc_args(sched, buf.device), buf.shape[0], rho, int(vec))
 
     def run(self, x, m: int, rho: int, kind: str, split: Optional[bool],
             device: torch.device) -> torch.Tensor:
