@@ -26,8 +26,10 @@ coordinates into element origins.  This script
    line: the stack frame of every kernel of a source that includes
    ``simplex_maps.cuh``, which must be 0 bytes for the engine's MAP,
    ACCUM, CA and EDM kernels at m = 2 and 3 (``FRAMELESS``), and the
-   ``legacy_md frame`` lines: the ACCUM originals' kernels at m = 3 and 4
-   must keep no stack frame and spill nothing (``LEGACY_MD_FRAMELESS``);
+   ``legacy_md frame`` and ``legacy2d frame`` lines: the ACCUM originals'
+   kernels at m = 3 and 4, the CA original's and the 2-D EDM original's
+   must keep no stack frame and spill nothing (``LEGACY_MD_FRAMELESS``,
+   ``LEGACY2D_FRAMELESS``);
 3. sets every launch counter to 0, drives the public entry points of
    ``repro_torch.kernels.ops`` (MAP, ACCUM, EDM, CA at m=2 and m=3, plus
    ACCUM, EDM and MAP at m=4, and MAP at m = 5..8 on small sides, so that
@@ -51,9 +53,12 @@ coordinates into element origins.  This script
    same kind (``ops.map_table``, ``simplex_accum2d``, ``simplex_edm2d``,
    ``simplex_ca2d``) with the tolerances of step 3; runs ``accum2d`` once
    more at n = 65536, rho = 1, whose hmap grid is taller than the 65535
-   blocks of ``gridDim.y``, and checks the triangle exactly; reads the
-   counters, which must be > 0; times each kernel, its plain version and
-   the library call;
+   blocks of ``gridDim.y``, and checks the triangle exactly; runs
+   ``edm2d`` at ``LEGACY_EDM_ODD`` (d = 5, rho = 6: single floats staged
+   and partial register blocks) against its plain version for every
+   kind; reads the counters, which must be > 0; times each kernel, its
+   plain version and the library call (the ``edm2d`` lines also give
+   ``bound_direct_ms``, the direct-difference form's own float32 floor);
 6. legacy m >= 3: sets every counter to 0 and drives ``accum3d``,
    ``accum_md`` and ``ca3d`` at m=3 (n = 1024, rho = 8; hmap, octant,
    table, bb; composite and bb at n = 960) and ``accum_md`` at m=4
@@ -68,9 +73,13 @@ coordinates into element origins.  This script
    check`` lines): ``accum3d`` and ``accum_md`` on the scalar path (m=3,
    n = 256, rho = 2, int32), ``kernel_`` of each in place on a view 4
    bytes past a 16-byte boundary, and ``accum3d`` at m=3, n = 64 in every
-   ACCUM dtype with values at each type's edge (rho 4 and 16); reads the
-   counters, which must be > 0, and times each kernel beside its engine
-   twin, its plain version and a dense ``torch.where``;
+   ACCUM dtype with values at each type's edge (rho 4 and 16); then
+   ``ca3d`` off the main case (``LEGACY_CA3D_CASES``: rho 16, rho 12 and
+   the scalar path at rho 2; int8 states of any value at n = 64, rho 8
+   and 16), each one launch, its access path by ``CA3D.vector_access``,
+   bit-equal to its plain version and to the engine's ``simplex_ca3d``;
+   reads the counters, which must be > 0, and times each kernel beside
+   its engine twin, its plain version and a dense ``torch.where``;
 7. tensor-core map: sets every counter to 0 and maps the whole hmap2 grid
    of nb = 16384 (134,209,536 blocks, rho = 16) through
    ``hmap_mxu.hmap2_coords_mxu``; holds it bit for bit against its plain
@@ -381,10 +390,26 @@ LEGACY_MD_DTYPE_N, LEGACY_MD_DTYPE_RHOS = 64, (4, 16)
 LEGACY_MD_EDGES = {"int32": (2**31 - 1, -1, 7), "int64": (2**63 - 1, -1, 7),
                    "float32": (2.0**24 - 1, 2.0**24, 3.5),
                    "float64": (2.0**53 - 1, 2.0**53, 0.25)}
-# The ACCUM originals' kernels at m = 3 and 4, which must keep no stack
-# frame and spill nothing (ptxas).
+# The CA original off the main case, each bit-equal to its plain version
+# (and, where the engine takes the same tile, to its engine twin): (n,
+# rho, kind) in int32 at rho 16 (one warp's halo is 31 KiB, seven warps a
+# block), at rho 12 (not a power of two: the kernel divides) and on the
+# scalar path (rho 2: 8 bytes a row); and int8 states of any value (the
+# neighbour counts wrap) at n = 64, on single cells (rho 8) and 16-byte
+# pieces (rho 16).
+LEGACY_CA3D_CASES = ((1024, 16, "hmap"), (960, 12, "composite"), (256, 2, "hmap"))
+LEGACY_CA3D_INT8_N, LEGACY_CA3D_INT8_RHOS = 64, (8, 16)
+# The m >= 3 originals' kernels at m = 3 and 4 (legacy_md.cu) and the
+# redesigned 2-D EDM's (legacy2d.cu), which must keep no stack frame and
+# spill nothing (ptxas).
 LEGACY_MD_FRAMELESS = ("legacy_accum3d_kernel", "legacy_accum_md_kernel<3>",
-                       "legacy_accum_md_kernel<4>")
+                       "legacy_accum_md_kernel<4>", "legacy_ca3d_kernel<0>",
+                       "legacy_ca3d_kernel<1>")
+LEGACY2D_FRAMELESS = ("legacy_edm2d_kernel",)
+# edm2d off its 16-byte staging and its 4 x 4 register blocks: (n, rho,
+# d) with d not a multiple of 4 and rho not a multiple of 4, held to its
+# plain version within the EDM gate for every kind.
+LEGACY_EDM_ODD = (1536, 6, 5)
 
 # The tensor-core H map: the whole hmap2 grid of nb tiles a side,
 # (wx, wy) for wx < nb/2 and 1 <= wy < nb, in elements of rho.
@@ -540,10 +565,14 @@ def map_frames(records: list, csrc: pathlib.Path) -> dict:
 
 
 def _f32(row) -> str:
-    """The float32 CUDA-core bound of a row that has one, for its case line."""
+    """The float32 CUDA-core bounds of a row that has them, for its case
+    line: the Gram form's, and the direct-difference form's where it is
+    the row's own."""
     if row.get("bound_f32_ms") is None:
         return ""
-    return f"bound_f32_ms={row['bound_f32_ms']:.4f} "
+    direct = row.get("bound_direct_ms")
+    return (f"bound_f32_ms={row['bound_f32_ms']:.4f} "
+            + ("" if direct is None else f"bound_direct_ms={direct:.4f} "))
 
 
 def _card_line() -> str:
@@ -1004,6 +1033,31 @@ class LegacySmoke:
                 del out
                 torch.cuda.empty_cache()
         self.grid_loop()
+        self.edm_odd()
+
+    def edm_odd(self) -> None:
+        """``edm2d`` at ``LEGACY_EDM_ODD``: d not a multiple of 4 (single
+        floats staged, the rows padded with zeros) and rho not a multiple
+        of a thread's 4 x 4 cells, against its plain version for every
+        kind, one launch each."""
+        torch, L = self.torch, self.legacy
+        n, rho, d = LEGACY_EDM_ODD
+        p = torch.randn((n, d), generator=self.s.gen(34), device=self.s.dev)
+        for kind in LEGACY_KINDS:
+            out = self.call("edm2d", kind, L.edm2d, p, rho=rho)
+            want = torch.zeros_like(out)
+            L.EDM2D.plain_(want, p, L._schedule(2, n // rho, kind), rho)
+            err = (out - want).abs().max().item()
+            tol = 1e-5 + 1e-5 * want.abs().max().item()
+            vec = L.legacy_vector_access(d, 4, p.data_ptr())
+            _log(f"legacy check edm2d n={n} rho={rho} d={d} kind={kind} vector={vec}: "
+                 f"max_abs_err={err:.3e} tol={tol:.3e}")
+            self.err["edm2d"] = max(self.err["edm2d"], err)
+            if vec or not math.isfinite(err) or err > tol:
+                self.s.fail(f"legacy edm2d n={n} rho={rho} d={d} kind={kind}: "
+                            f"max_abs_err={err} > {tol} or vector={vec}")
+            del out, want
+        torch.cuda.empty_cache()
 
     def grid_loop(self) -> None:
         """``accum2d`` at n = 65536, rho = 1: the hmap grid is
@@ -1081,6 +1135,11 @@ class LegacySmoke:
                 row["bound_ms"], row["bound_by"] = self.s.bound(case)
                 if name == "edm2d":
                     row["bound_f32_ms"] = self.s.bound(case, F32_FLOPS)[0]
+                    # the direct-difference form edm2d computes: a subtract
+                    # and a multiply-add a coordinate and domain pair, each
+                    # a lane operation, at half the FLOP rate
+                    row["bound_direct_ms"] = (n * (n + 1) // 2 * 2 * EDM_D
+                                              / (F32_FLOPS / 2) * 1e3)
             row["library_ms"] = lib[name]
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -1165,6 +1224,49 @@ class LegacyMdSmoke:
                 del d
                 torch.cuda.empty_cache()
         self.access()
+        self.ca_access()
+
+    def ca_access(self) -> None:
+        """``ca3d`` off the main case: ``LEGACY_CA3D_CASES`` on 0/1 int32
+        states over the whole cube, then int8 states of any value."""
+        torch, dev = self.torch, self.s.dev
+        for n, rho, kind in LEGACY_CA3D_CASES:
+            st = (torch.rand((n,) * 3, generator=self.s.gen(63), device=dev)
+                  < CA_DENSITY[3]).to(torch.int32)
+            self.ca_case(st, rho, kind, f"m=3 n={n} rho={rho} kind={kind} int32")
+            del st
+            torch.cuda.empty_cache()
+        n = LEGACY_CA3D_INT8_N
+        st = torch.randint(-128, 128, (n,) * 3, generator=self.s.gen(64), device=dev)
+        small = torch.randint(0, 2, (n,) * 3, generator=self.s.gen(65), device=dev)
+        # half the cells 0/1, so that some counts wrap to 2 or 3
+        half = torch.rand((n,) * 3, generator=self.s.gen(66), device=dev) < 0.5
+        st = torch.where(half, small, st).to(torch.int8)
+        for rho in LEGACY_CA3D_INT8_RHOS:
+            self.ca_case(st, rho, "hmap", f"m=3 n={n} rho={rho} kind=hmap int8 any values")
+
+    def ca_case(self, st, rho, kind, what) -> None:
+        """One ``ca3d`` call: one launch, the access path by
+        ``CA3D.vector_access``, bit-equal to its plain version and to the
+        engine's ``simplex_ca3d``."""
+        torch, L = self.torch, self.legacy
+        k = L.CA3D
+        before = k.launches
+        out = L.ca3d(st, rho=rho, kind=kind)
+        torch.cuda.synchronize()
+        launches = k.launches - before
+        rule = k.vector_access(rho, st.element_size(), out.data_ptr(), st.data_ptr())
+        want = st.clone()
+        k.plain_(want, st, L._schedule(3, st.shape[0] // rho, kind), rho)
+        equal = torch.equal(out, want)
+        del want
+        engine = torch.equal(out, self.s.ops.simplex_ca3d(st, rho=rho, kind=kind))
+        _log(f"legacy_md check ca3d {what} vector={rule} launches={launches} "
+             f"equal={equal} engine={engine}")
+        if (rule is not ((rho * st.element_size()) % 16 == 0) or launches != 1 or not equal
+                or not engine):
+            self.s.fail(f"legacy ca3d {what}")
+        del out
 
     def access(self) -> None:
         """The ACCUM originals off their 16-byte pieces and in every element
@@ -3743,10 +3845,11 @@ def main(argv=None) -> int:
             stack = [f[f"{kernel}<{m}>"] for f in frames.values() if f"{kernel}<{m}>" in f]
             if stack != [0]:
                 smoke.fail(f"ptxas: {kernel}<{m}> keeps a stack frame {stack} (want [0])")
-    for kernel in LEGACY_MD_FRAMELESS:
+    for kernel in LEGACY_MD_FRAMELESS + LEGACY2D_FRAMELESS:
         recs = [r for r in records if kernel_name(r["name"]) == kernel]
         frame = [(r.get("stack"), r.get("spill_stores"), r.get("spill_loads")) for r in recs]
-        _log(f"legacy_md frame {kernel}: (stack, spill stores, spill loads) {frame}")
+        where = "legacy_md" if kernel in LEGACY_MD_FRAMELESS else "legacy2d"
+        _log(f"{where} frame {kernel}: (stack, spill stores, spill loads) {frame}")
         if frame != [(0, 0, 0)]:
             smoke.fail(f"ptxas: {kernel} keeps a stack frame or spills {frame} "
                        "(want [(0, 0, 0)])")

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Time every kernel on the device map from two source trees in turns on
-one card: MAP, ACCUM, CA, EDM and the m >= 3 originals.
+one card: MAP, ACCUM, CA, EDM, the m >= 3 originals and the 2-D EDM
+original.
 
 Two calls to the card may land on two cards with other power limits, so
 a change to ``kernels/csrc/simplex_maps.cuh`` or to one of its users is
 compared with its base inside one process: the users' sources
-(``map.cu``, ``accum.cu``, ``ca.cu``, ``edm.cu``, ``legacy_md.cu``) of
-each tree are compiled into a library of their own, and each case runs
-base, change, change, base, its time the median of ``RUNS`` CUDA-event
-timed runs after warm-up.  The Python side is this tree's, so the base
-must export the same C entry points (``kernels/_build.py``), except that
-a base whose ``legacy_accum3d_launch`` and ``legacy_accum_md_launch`` take
-no ``vec`` argument (before the ACCUM originals took 16-byte pieces) is
-called with its own argument list.  Every
+(``map.cu``, ``accum.cu``, ``ca.cu``, ``edm.cu``, ``legacy_md.cu``,
+``legacy2d.cu``) of each tree are compiled into a library of their own,
+and each case runs base, change, change, base, its time the median of
+``RUNS`` CUDA-event timed runs after warm-up.  The Python side is this
+tree's, so the base must export the same C entry points
+(``kernels/_build.py``), except that a base whose ``legacy_accum3d_launch``
+and ``legacy_accum_md_launch``, ``legacy_ca3d_launch`` or
+``legacy_edm2d_launch`` take no ``vec`` argument (before those originals
+took 16-byte pieces) is called with its own argument list.  Every
 case's outputs must agree between the trees (integers bit for bit, EDM
 within ``1e-5 + 1e-5 * max|p|``); the script exits 1 where they do not.
 
@@ -22,8 +24,9 @@ m=4 hmap nb=16; ACCUM, CA and EDM at m=2 hmap n=16384 rho=16 and m=3
 octant n=1024 rho=8, ACCUM and EDM also at m=4 hmap n=64 rho=4;
 ``accum3d`` and ``accum_md`` at m=3 n=1024 rho=8 for hmap, octant, table
 and bb and at n=960 for composite (fused and one launch per piece) and
-bb, ``accum_md`` also at m=4 hmap n=64 rho=4; ``ca3d`` at m=3 hmap
-n=1024 rho=8.  Each
+bb, ``accum_md`` also at m=4 hmap n=64 rho=4; ``ca3d`` at m=3 n=1024
+rho=8 for hmap, octant, table and bb and at n=960 for composite and bb;
+``edm2d`` at m=2 n=16384 rho=16, d=64, float32, for hmap, rb and bb.  Each
 prints ``compare <case> base=<ms>/<ms> change=<ms>/<ms>`` (both runs of
 each) and the change's time over the base's.
 
@@ -46,13 +49,25 @@ import sys
 import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-USERS = ("map.cu", "accum.cu", "ca.cu", "edm.cu", "legacy_md.cu")
+USERS = ("map.cu", "accum.cu", "ca.cu", "edm.cu", "legacy_md.cu", "legacy2d.cu")
 RUNS = 10
 # (m, n, rho, kind, split) of the ACCUM originals, int32.
 LEGACY_ACCUM_CASES = (
     (3, 1024, 8, "hmap", None), (3, 1024, 8, "octant", None), (3, 1024, 8, "table", None),
     (3, 1024, 8, "bb", None), (3, 960, 8, "composite", False), (3, 960, 8, "composite", True),
     (3, 960, 8, "bb", None), (4, 64, 4, "hmap", None))
+# (n, rho, kind) of the CA original, int32 0/1 states of density 0.35.
+LEGACY_CA3D_CASES = ((1024, 8, "hmap"), (1024, 8, "octant"), (1024, 8, "table"),
+                     (1024, 8, "bb"), (960, 8, "composite"), (960, 8, "bb"))
+# (n, rho, d, kind) of the 2-D EDM original, float32 points.
+LEGACY_EDM2D_CASES = tuple((16384, 16, 64, kind) for kind in ("hmap", "rb", "bb"))
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def takes_vec(csrc: pathlib.Path, source: str, entry: str) -> bool:
+    """Whether ``entry`` of ``csrc/source`` takes a ``vec`` argument."""
+    found = re.search(rf'extern "C" int {entry}\(([^)]*)\)', (csrc / source).read_text())
+    return found is not None and "vec" in found.group(1)
 
 
 def build(csrc: pathlib.Path, out: pathlib.Path, nvcc: str, flags) -> ctypes.CDLL:
@@ -97,15 +112,17 @@ def main(argv=None) -> int:
                 getattr(lib, name).argtypes = list(argtypes)
                 getattr(lib, name).restype = ctypes.c_int
         libs[tag] = lib
-    entry = re.search(r'extern "C" int legacy_accum3d_launch\(([^)]*)\)',
-                      (args.base / "src/repro_torch/kernels/csrc/legacy_md.cu").read_text())
-    base_takes_vec = entry is not None and "vec" in entry.group(1)
+    base_csrc = args.base / "src/repro_torch/kernels/csrc"
+    base_takes_vec = takes_vec(base_csrc, "legacy_md.cu", "legacy_accum3d_launch")
     if not base_takes_vec:
         for name in ("legacy_accum3d_launch", "legacy_accum_md_launch"):
-            getattr(libs["base"], name).argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                                    ctypes.c_void_p, ctypes.c_void_p,
-                                                    ctypes.c_int, ctypes.c_int,
-                                                    ctypes.c_void_p]
+            getattr(libs["base"], name).argtypes = [_P, _I, _P, _P, _I, _I, _P]
+    base_ca_vec = takes_vec(base_csrc, "legacy_md.cu", "legacy_ca3d_launch")
+    if not base_ca_vec:
+        libs["base"].legacy_ca3d_launch.argtypes = [_P, _P, _I, _P, _P, _I, _I, _P]
+    base_edm_vec = takes_vec(base_csrc, "legacy2d.cu", "legacy_edm2d_launch")
+    if not base_edm_vec:
+        libs["base"].legacy_edm2d_launch.argtypes = [_P, _I, _P, _I, _I, _I, _I, _I, _P]
 
     def legacy_accum(k, buf, sched, rho) -> None:
         """``k.kernel_``, or the base's entry with its own arguments."""
@@ -116,6 +133,28 @@ def main(argv=None) -> int:
             _build.check(code, k.name)
         else:
             k.kernel_(buf, sched, rho)
+
+    def legacy_ca3d(out, st, sched, rho) -> None:
+        """``CA3D.kernel_``, or the base's entry with its own arguments."""
+        if _build._LIB is libs["base"] and not base_ca_vec:
+            code = _build._LIB.legacy_ca3d_launch(
+                out.data_ptr(), st.data_ptr(), legacy.DTYPE_CODES[st.dtype],
+                *legacy._desc_args(sched, dev), st.shape[0], rho,
+                torch.cuda.current_stream().cuda_stream)
+            _build.check(code, "ca3d")
+        else:
+            legacy.CA3D.kernel_(out, st, sched, rho)
+
+    def legacy_edm2d(out, p, sched, rho) -> None:
+        """``EDM2D.kernel_``, or the base's entry with its own arguments."""
+        if _build._LIB is libs["base"] and not base_edm_vec:
+            code = _build._LIB.legacy_edm2d_launch(
+                out.data_ptr(), legacy.DTYPE_CODES[out.dtype], p.data_ptr(), p.shape[1],
+                legacy._KIND_CODES[sched.kind], sched.n, out.shape[0], rho,
+                torch.cuda.current_stream().cuda_stream)
+            _build.check(code, "edm2d")
+        else:
+            legacy.EDM2D.kernel_(out, p, sched, rho)
 
     def time_ms(fn) -> float:
         for _ in range(2):
@@ -202,12 +241,22 @@ def main(argv=None) -> int:
                     lambda: buf.clone(), lambda: buf.copy_(x))
         del x, buf
         torch.cuda.empty_cache()
-    n, rho = 1024, 8
-    sched = legacy._schedule(3, n // rho, "hmap")
-    st = (torch.rand((n,) * 3, generator=gen, device=dev) < 0.35).to(torch.int32)
-    out = st.clone()
-    compare(f"ca3d m=3 n={n} kind=hmap", lambda: legacy.CA3D.kernel_(out, st, sched, rho),
-            lambda: out.clone())
+    for n, rho, kind in LEGACY_CA3D_CASES:
+        sched = legacy._schedule(3, n // rho, kind)
+        st = (torch.rand((n,) * 3, generator=gen, device=dev) < 0.35).to(torch.int32)
+        out = st.clone()
+        compare(f"ca3d m=3 n={n} kind={kind}", lambda: legacy_ca3d(out, st, sched, rho),
+                lambda: out.clone())
+        del st, out
+        torch.cuda.empty_cache()
+    for n, rho, d, kind in LEGACY_EDM2D_CASES:
+        sched = legacy._schedule(2, n // rho, kind)
+        p = torch.randn((n, d), generator=gen, device=dev)
+        out = torch.zeros((n, n), device=dev)
+        compare(f"edm2d m=2 n={n} d={d} kind={kind}", lambda: legacy_edm2d(out, p, sched, rho),
+                lambda: out.clone())
+        del p, out
+        torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")

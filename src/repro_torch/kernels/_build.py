@@ -75,16 +75,17 @@ _SIGNATURES = {
     "legacy_map2d_launch": (_P, _I, _I, _I, _L, _P),
     # x, dtype, kind, nb, n, rho, stream
     "legacy_accum2d_launch": (_P, _I, _I, _I, _I, _I, _P),
-    # out, out dtype, float32 points, d, kind, nb, n, rho, stream
-    "legacy_edm2d_launch": (_P, _I, _P, _I, _I, _I, _I, _I, _P),
+    # out, out dtype, float32 points, d, kind, nb, n, rho, vec (16-byte
+    # pieces), stream
+    "legacy_edm2d_launch": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     # out, in, dtype, kind, nb, n, rho, stream
     "legacy_ca2d_launch": (_P, _P, _I, _I, _I, _I, _I, _P),
     # the frozen m >= 3 originals (legacy_md.cu)
     # x, dtype, header, data, n, rho, vec (16-byte pieces), stream
     "legacy_accum3d_launch": (_P, _I, _P, _P, _I, _I, _I, _P),
     "legacy_accum_md_launch": (_P, _I, _P, _P, _I, _I, _I, _P),
-    # out, in, dtype, header, data, n, rho, stream
-    "legacy_ca3d_launch": (_P, _P, _I, _P, _P, _I, _I, _P),
+    # out, in, dtype, header, data, n, rho, vec (16-byte pieces), stream
+    "legacy_ca3d_launch": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
     # the tensor-core H map (hmap_mxu.cu): out, wxy, t, rho, stream
     "hmap2_coords_mxu_launch": (_P, _P, _L, _I, _P),
 }

@@ -48,8 +48,8 @@ import torch
 from ..autotune.tuner import should_split_pieces
 from ..core.schedule import SimplexSchedule, resolve_kind
 from . import _build
-from .policy import (ACCUM_DTYPES, CA_DTYPES, DTYPE_CODES, EDM_DTYPES, card_operand,
-                     check_tile, on_card, resolve_device)
+from .policy import (ACCUM_DTYPES, CA_DTYPES, DTYPE_CODES, EDM_DTYPES, SMEM_LIMIT,
+                     card_operand, check_tile, on_card, resolve_device)
 
 __all__ = [
     "map2d",
@@ -341,12 +341,54 @@ class EDM2DKernel(_Legacy):
     in float32; the zeros seed elsewhere."""
 
     name = "edm2d"
+    # legacy2d.cu: a thread's rows and columns of a tile, a block's threads
+    # at most and grid points at most, the ints of a pass's table
+    ROWS, COLS, THREADS, MAX_TILES, TABLE = 4, 4, 128, 16, 96
 
-    @staticmethod
-    def smem_bytes(rho: int, d: int) -> int:
-        """Shared memory of one block: row and column point blocks, each
-        ``(rho, d+1)`` float32."""
-        return 4 * 2 * rho * (d + 1)
+    @classmethod
+    def _slot(cls, rho: int, d: int) -> tuple:
+        """``(tr, tc, ld, pts)``: threads down and across a tile, floats a
+        staged point (``ld / 4`` odd), points a slot; point ``q`` sits at
+        ``q * ld + 4 * (q // 4)`` floats of its slot."""
+        tr, tc, k4 = -(-rho // cls.ROWS), -(-rho // cls.COLS), -(-d // 4)
+        ld = 4 * (k4 if k4 % 2 else k4 + 1)
+        return tr, tc, ld, max(cls.ROWS * tr, cls.COLS * tc)
+
+    @classmethod
+    def layout(cls, rho: int, d: int, w: int) -> dict:
+        """``legacy2d.cu``'s block at tile side ``rho``, ``d`` coordinates
+        and grid width ``w`` (``legacy_edm2d_layout``).
+
+        Returns:
+            ``tr`` and ``tc`` threads down and across a tile (a thread's
+            ``ROWS x COLS`` cells), ``ld`` floats a staged point, ``pts``
+            points a slot, ``tiles`` grid points a block, ``slots`` point
+            blocks staged at once, ``threads`` and ``smem`` (bytes; 0
+            where one grid point does not fit).
+
+        Example:
+            >>> L = EDM2DKernel.layout(16, 64, 512)
+            >>> [L[k] for k in ("tr", "tc", "ld", "tiles", "slots", "threads", "smem")]
+            [4, 4, 68, 8, 10, 128, 44544]
+        """
+        tr, tc, ld, pts = cls._slot(rho, d)
+        g = min(max(cls.THREADS // (tr * tc), 1), cls.MAX_TILES, w)
+        while True:
+            slots = 2 if g == 1 else g + 2
+            smem = 4 * (pts * ld + pts) * slots + 4 * cls.TABLE
+            if smem <= SMEM_LIMIT or g == 1:
+                break
+            g -= 1
+        threads = -(-min(g * tr * tc, cls.THREADS) // 32) * 32
+        return dict(tr=tr, tc=tc, ld=ld, pts=pts, tiles=g, slots=slots, threads=threads,
+                    smem=smem if smem <= SMEM_LIMIT else 0)
+
+    @classmethod
+    def smem_bytes(cls, rho: int, d: int) -> int:
+        """The least shared memory a block needs: one grid point's row and
+        column point blocks as ``layout`` stages them, and the table."""
+        _, _, ld, pts = cls._slot(rho, d)
+        return 2 * 4 * (pts * ld + pts) + 4 * cls.TABLE
 
     def plain_(self, out: torch.Tensor, p: torch.Tensor, sched, rho: int) -> None:
         """Write the triangle of each visited tile of ``out``."""
@@ -361,7 +403,9 @@ class EDM2DKernel(_Legacy):
             tiles[yb, xb] = torch.where(_tri(xb, yb, rho), dist, 0.0).to(out.dtype)
 
     def kernel_(self, out: torch.Tensor, p: torch.Tensor, sched, rho: int) -> None:
-        """Write the triangle of each visited tile of ``out`` (``legacy2d.cu``)."""
+        """Write the triangle of each visited tile of ``out`` (``legacy2d.cu``:
+        points staged in 16-byte pieces where ``legacy_vector_access(d, 4,
+        ptr)`` says so, single floats elsewhere)."""
         if p.ndim != 2 or p.shape[0] != out.shape[0]:
             raise ValueError(f"{self.name}: expected ({out.shape[0]}, d) points, got "
                              f"{tuple(p.shape)}")
@@ -370,10 +414,11 @@ class EDM2DKernel(_Legacy):
         card_operand(p, self.name, EDM_DTYPES)
         if p.device != out.device:
             raise ValueError(f"{self.name}: points on {p.device}, output on {out.device}")
-        pf = p.to(torch.float32)
+        pf = p.to(torch.float32).contiguous()
+        vec = legacy_vector_access(p.shape[1], 4, pf.data_ptr())
         self._launch("legacy_edm2d_launch", out.device, out.data_ptr(),
                      DTYPE_CODES[out.dtype], pf.data_ptr(), p.shape[1], code, sched.n,
-                     out.shape[0], rho)
+                     out.shape[0], rho, int(vec))
 
 
 EDM2D = EDM2DKernel()
@@ -599,7 +644,8 @@ def legacy_vector_access(rho: int, itemsize: int, data_ptr: int) -> bool:
     of a tile row (else single elements): a fixed rule, true when a row of
     ``rho`` elements of ``itemsize`` bytes is a whole number of pieces and
     the array starts on a 16-byte boundary (then every tile row does,
-    since ``rho`` divides the side).
+    since ``rho`` divides the side).  ``CA3D.vector_access`` applies it to
+    both of its buffers; ``edm2d`` to a point's ``d`` float32 coordinates.
 
     Example:
         >>> legacy_vector_access(8, 4, 0), legacy_vector_access(3, 4, 0)
@@ -744,12 +790,80 @@ class CA3DKernel(_Legacy):
     """
 
     name = "ca3d"
+    # legacy_md.cu: warps a block at most, a shared halo's bytes at most,
+    # the warps' table in front of the halo
+    WARPS, BUDGET, TABLE = 8, 56 * 1024, 16 * 8
 
     @staticmethod
-    def smem_bytes(rho: int, itemsize: int = 4) -> int:
-        """Shared memory of one block: the ``(rho+2)^3`` halo of
-        ``itemsize``-byte cells."""
-        return itemsize * (rho + 2) ** 3
+    def _row(rho: int, tiles: int, pe: int, vec: bool) -> int:
+        """A halo row's stride: a lead piece, ``tiles * rho`` cells, a trail
+        piece; two pieces more where that is a multiple of four pieces."""
+        rs = tiles * rho + 2 * pe
+        return rs + 2 * pe if vec and (rs // pe) % 4 == 0 else rs
+
+    @classmethod
+    def layout(cls, rho: int, itemsize: int, vec: bool) -> dict:
+        """``legacy_md.cu``'s block (``legacy_ca3d_layout``).
+
+        Returns:
+            ``pe`` cells a staging piece (16 bytes on the vector path, else
+            1), ``xw`` cells a lane counts at once, ``warps`` a block (8,
+            fewer where the shared halo would pass ``BUDGET``), ``rs`` the
+            shared halo's row stride (the warps' tiles side by side), ``rs1``
+            a one-tile slice's, ``zs`` the planes a lane walks, ``slice``
+            a slice's elements (16-byte rounded), ``slots`` the slices the
+            block's memory holds and ``smem`` that memory in bytes (0 where
+            one slice does not fit a block).
+
+        Example:
+            >>> L = CA3DKernel.layout(8, 4, True)
+            >>> [L[k] for k in ("pe", "xw", "warps", "rs", "rs1", "zs", "slice", "slots", "smem")]
+            [4, 4, 8, 72, 24, 4, 2400, 3, 28928]
+            >>> CA3DKernel.layout(3, 4, False)["rs1"], CA3DKernel.layout(3, 4, False)["zs"]
+            (5, 1)
+        """
+        pe = 16 // itemsize if vec else 1
+        xw = (2 if itemsize == 8 else 4) if vec else 1
+        rows = (rho + 2) ** 2
+        rs1 = cls._row(rho, 1, pe, vec)
+        one = -(-rows * rs1 * itemsize // 16) * 16
+        for warps in range(cls.WARPS, 0, -1):
+            rs = cls._row(rho, warps, pe, vec)
+            halo = -(-rows * rs * itemsize // 16) * 16
+            if warps == 1 or halo <= cls.BUDGET:
+                break
+        vr = rho // xw
+        lr, chunks = min(vr, 32), -(-vr // 32)
+        zs = next((rho // s for s in range(1, rho + 1)
+                   if rho % s == 0 and rho * s * chunks >= 32 // lr), 1)
+        smem = cls.TABLE + halo if cls.TABLE + one <= SMEM_LIMIT else 0
+        return dict(pe=pe, xw=xw, warps=warps, rs=rs, rs1=rs1, zs=zs, slice=one // itemsize,
+                    slots=halo // one, smem=smem)
+
+    @classmethod
+    def smem_bytes(cls, rho: int, itemsize: int = 4, vec: bool = False) -> int:
+        """The least shared memory a block of the kernel needs: the warps'
+        table and one warp's ``(rho+2)^3`` halo of ``itemsize``-byte cells
+        as ``layout`` lays it out."""
+        rows = (rho + 2) ** 2
+        return cls.TABLE + -(-rows * cls._row(rho, 1, 16 // itemsize if vec else 1, vec)
+                             * itemsize // 16) * 16
+
+    @classmethod
+    def vector_access(cls, rho: int, itemsize: int, out_ptr: int, in_ptr: int) -> bool:
+        """Whether the kernel stages and stores 16-byte pieces: a fixed
+        rule, ``legacy_vector_access`` for both buffers and one warp's
+        slice of that layout fitting a block.
+
+        Example:
+            >>> CA3DKernel.vector_access(8, 4, 0, 64), CA3DKernel.vector_access(8, 4, 0, 4)
+            (True, False)
+            >>> CA3DKernel.vector_access(8, 1, 0, 0), CA3DKernel.vector_access(16, 1, 0, 0)
+            (False, True)
+        """
+        return (legacy_vector_access(rho, itemsize, out_ptr)
+                and legacy_vector_access(rho, itemsize, in_ptr)
+                and cls.smem_bytes(rho, itemsize, True) <= SMEM_LIMIT)
 
     def plain_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
         """Step the domain cells of each visited tile from ``inp`` into ``out``."""
@@ -778,7 +892,8 @@ class CA3DKernel(_Legacy):
 
     def kernel_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
         """Step the domain cells of each visited tile from ``inp`` into
-        ``out`` (``legacy_md.cu``); ``out`` must not alias ``inp``."""
+        ``out`` (``legacy_md.cu``: 16-byte pieces where ``vector_access``
+        says so, single cells elsewhere); ``out`` must not alias ``inp``."""
         if sched.m != 3:
             raise ValueError(f"{self.name}: serves m=3, got a schedule of m={sched.m}")
         _check_linear_launch(self.name, sched, rho, inp, CA_DTYPES,
@@ -790,9 +905,10 @@ class CA3DKernel(_Legacy):
         if out.device != inp.device or out.data_ptr() == inp.data_ptr():
             raise ValueError(f"{self.name}: the kernel reads one buffer and writes "
                              "another on the same device")
+        vec = self.vector_access(rho, inp.element_size(), out.data_ptr(), inp.data_ptr())
         self._launch("legacy_ca3d_launch", inp.device, out.data_ptr(), inp.data_ptr(),
                      DTYPE_CODES[inp.dtype], *_desc_args(sched, inp.device), inp.shape[0],
-                     rho)
+                     rho, int(vec))
 
 
 CA3D = CA3DKernel()
