@@ -27,9 +27,9 @@ coordinates into element origins.  This script
    ``simplex_maps.cuh``, which must be 0 bytes for the engine's MAP,
    ACCUM, CA and EDM kernels at m = 2 and 3 (``FRAMELESS``), and the
    ``legacy_md frame`` and ``legacy2d frame`` lines: the ACCUM originals'
-   kernels at m = 3 and 4, the CA original's and the 2-D EDM original's
-   must keep no stack frame and spill nothing (``LEGACY_MD_FRAMELESS``,
-   ``LEGACY2D_FRAMELESS``);
+   kernels at m = 2, 3 and 4, the CA originals' at m = 2 and 3 and the
+   2-D EDM original's must keep no stack frame and spill nothing
+   (``LEGACY_MD_FRAMELESS``, ``LEGACY2D_FRAMELESS``);
 3. sets every launch counter to 0, drives the public entry points of
    ``repro_torch.kernels.ops`` (MAP, ACCUM, EDM, CA at m=2 and m=3, plus
    ACCUM, EDM and MAP at m=4, and MAP at m = 5..8 on small sides, so that
@@ -56,7 +56,15 @@ coordinates into element origins.  This script
    blocks of ``gridDim.y``, and checks the triangle exactly; runs
    ``edm2d`` at ``LEGACY_EDM_ODD`` (d = 5, rho = 6: single floats staged
    and partial register blocks) against its plain version for every
-   kind; reads the counters, which must be > 0; times each kernel, its
+   kind; then ``accum2d`` and ``ca2d`` off the main case, each one launch,
+   its access path by the host's rule, bit-equal to its plain version and
+   to the engine twin (``legacy check`` lines): both on the scalar path
+   (``LEGACY2D_SCALAR``), ``ACCUM2D.kernel_`` in place on a view 4 bytes
+   past a 16-byte boundary, ``accum2d`` in every ACCUM dtype with values
+   at each type's edge, ``ca2d`` where the shared-memory budget cuts the
+   warps a block, at a small n whose wrapped halos reach the corners, on
+   int8 states of any value and on 0/1 states in every CA dtype; reads
+   the counters, which must be > 0; times each kernel, its
    plain version and the library call (the ``edm2d`` lines also give
    ``bound_direct_ms``, the direct-difference form's own float32 floor);
 6. legacy m >= 3: sets every counter to 0 and drives ``accum3d``,
@@ -405,7 +413,28 @@ LEGACY_CA3D_INT8_N, LEGACY_CA3D_INT8_RHOS = 64, (8, 16)
 LEGACY_MD_FRAMELESS = ("legacy_accum3d_kernel", "legacy_accum_md_kernel<3>",
                        "legacy_accum_md_kernel<4>", "legacy_ca3d_kernel<0>",
                        "legacy_ca3d_kernel<1>")
-LEGACY2D_FRAMELESS = ("legacy_edm2d_kernel",)
+LEGACY2D_FRAMELESS = ("legacy_edm2d_kernel", "legacy_accum2d_kernel", "legacy_ca2d_kernel<0>",
+                      "legacy_ca2d_kernel<1>")
+# The redesigned 2-D ACCUM and CA originals off the main case, each one
+# launch, its access path checked and bit-equal to its plain version and
+# to the engine twin of the same kind: (n, rho) in int32 on the scalar
+# path (rho 2: 8 bytes a row; rho 6: 24 bytes, and not a power of two),
+# for hmap, rb and bb; (n, rho) of ACCUM2D.kernel_ in place on a view 4
+# bytes past a 16-byte boundary; accum2d at n = LEGACY2D_DTYPE_N in every
+# ACCUM dtype with values at each type's edge (DTYPE_EDGES and
+# LEGACY_MD_EDGES), at rho 4 (pieces for the 4- and 8-byte types) and 16
+# (every type); ca2d where the shared-memory budget cuts the warps a block
+# ((n, rho, dtype): rho 32 in int64, six warps; rho 64 in int32, three;
+# rho 64 in int64, one warp and one slice a block),
+# at a small n where every tile's wrapped halo reaches the corners, on
+# int8 states of any value (single cells at rho 8, pieces at 16), and on
+# 0/1 states in every CA dtype (rho 16: pieces for every type).
+LEGACY2D_SCALAR = ((4096, 2), (3072, 6))
+LEGACY2D_MISALIGNED = (4096, 16)
+LEGACY2D_DTYPE_N, LEGACY2D_DTYPE_RHOS = 256, (4, 16)
+LEGACY_CA2D_BUDGET = ((4096, 32, "int64"), (4096, 64, "int32"), (4096, 64, "int64"))
+LEGACY_CA2D_CORNERS = (64, 16)
+LEGACY_CA2D_TYPES_N, LEGACY_CA2D_INT8_RHOS = 1024, (8, 16)
 # edm2d off its 16-byte staging and its 4 x 4 register blocks: (n, rho,
 # d) with d not a multiple of 4 and rho not a multiple of 4, held to its
 # plain version within the EDM gate for every kind.
@@ -1034,6 +1063,121 @@ class LegacySmoke:
                 torch.cuda.empty_cache()
         self.grid_loop()
         self.edm_odd()
+        self.access()
+
+    def access(self) -> None:
+        """``accum2d`` and ``ca2d`` off the main case (``LEGACY2D_SCALAR``,
+        ``LEGACY2D_MISALIGNED``, the dtype and CA cases above), each bit-equal
+        to its plain version; ``legacy check`` lines."""
+        torch, L, dev = self.torch, self.legacy, self.s.dev
+        for n, rho in LEGACY2D_SCALAR:
+            x = torch.randint(0, 100, (n, n), generator=self.s.gen(35), device=dev,
+                              dtype=torch.int32)
+            st = (torch.rand((n, n), generator=self.s.gen(36), device=dev)
+                  < CA_DENSITY[2]).to(torch.int32)
+            for kind in LEGACY_KINDS:
+                what = f"scalar path n={n} rho={rho} kind={kind} int32"
+                self.case2d("accum2d", x, rho, kind, what, vector=False)
+                self.case2d("ca2d", st, rho, kind, what, vector=False)
+            del x, st
+        n, rho = LEGACY2D_MISALIGNED
+        store = torch.randint(0, 100, (n * n + 8,), generator=self.s.gen(37), device=dev,
+                              dtype=torch.int32)
+        lead = (-store.data_ptr() % 16) // 4 + 1  # one element past a 16-byte boundary
+        x = store[lead:lead + n * n].view(n, n)
+        kept = store.clone()
+        want = x.clone()
+        sched = L._schedule(2, n // rho, "hmap")
+        L.ACCUM2D.plain_(want, sched, rho)
+        vector = L.legacy_vector_access(rho, 4, x.data_ptr())
+        before = L.ACCUM2D.launches
+        L.ACCUM2D.kernel_(x, sched, rho)
+        torch.cuda.synchronize()
+        equal = (torch.equal(x, want) and torch.equal(store[:lead], kept[:lead])
+                 and torch.equal(store[lead + n * n:], kept[lead + n * n:]))
+        _log(f"legacy check accum2d misaligned view n={n} rho={rho} int32 "
+             f"data_ptr%16={x.data_ptr() % 16} vector={vector} "
+             f"launches={L.ACCUM2D.launches - before} equal={equal}")
+        if vector or L.ACCUM2D.launches - before != 1 or not equal:
+            self.s.fail(f"legacy accum2d misaligned view n={n} rho={rho}")
+        del store, x, kept, want
+        n = LEGACY2D_DTYPE_N
+        for dt_name, edges in {**DTYPE_EDGES, **LEGACY_MD_EDGES}.items():
+            dt = getattr(torch, dt_name)
+            x = torch.randint(0, 100, (n, n), generator=self.s.gen(38), device=dev,
+                              dtype=torch.int64)
+            x = x.to(torch.float64) if dt.is_floating_point else x
+            flat = x.view(-1)
+            flat[::3] = torch.tensor(edges, dtype=x.dtype, device=dev)[
+                torch.arange(flat[::3].numel(), device=dev) % len(edges)]
+            x = x.to(dt)
+            for rho in LEGACY2D_DTYPE_RHOS:
+                for kind in LEGACY_KINDS:
+                    self.case2d("accum2d", x, rho, kind, f"dtype {dt_name} n={n} rho={rho} "
+                                f"kind={kind}", vector=(rho * x.element_size()) % 16 == 0)
+            del x, flat
+        for n, rho, dt_name in LEGACY_CA2D_BUDGET:
+            st = (torch.rand((n, n), generator=self.s.gen(39), device=dev)
+                  < CA_DENSITY[2]).to(getattr(torch, dt_name))
+            warps = L.CA2D.layout(rho, st.element_size(), True)["warps"]
+            for kind in LEGACY_KINDS:
+                self.case2d("ca2d", st, rho, kind, f"n={n} rho={rho} kind={kind} {dt_name} "
+                            f"warps={warps}", vector=True)
+            if warps == L.CA2D.WARPS:
+                self.s.fail(f"legacy ca2d rho={rho} {dt_name}: the budget cut no warps")
+            del st
+        n, rho = LEGACY_CA2D_CORNERS
+        for salt in (40, 41):
+            st = (torch.rand((n, n), generator=self.s.gen(salt), device=dev) < 0.5).to(torch.int32)
+            for kind in LEGACY_KINDS:
+                self.case2d("ca2d", st, rho, kind, f"corners n={n} rho={rho} kind={kind} "
+                            f"seed {salt}", vector=True)
+        n = LEGACY_CA2D_TYPES_N
+        st = torch.randint(-128, 128, (n, n), generator=self.s.gen(42), device=dev)
+        small = torch.randint(0, 2, (n, n), generator=self.s.gen(43), device=dev)
+        # half the cells 0/1, so that some counts wrap to 2 or 3
+        half = torch.rand((n, n), generator=self.s.gen(44), device=dev) < 0.5
+        st = torch.where(half, small, st).to(torch.int8)
+        for rho in LEGACY_CA2D_INT8_RHOS:
+            self.case2d("ca2d", st, rho, "hmap", f"n={n} rho={rho} kind=hmap int8 any values",
+                        vector=rho == 16)
+        for dt_name in ("int8", "uint8", "int16", "int32", "int64", "bfloat16", "float16",
+                        "float32"):
+            st = (torch.rand((n, n), generator=self.s.gen(45), device=dev)
+                  < CA_DENSITY[2]).to(getattr(torch, dt_name))
+            for kind in LEGACY_KINDS:
+                self.case2d("ca2d", st, 16, kind, f"n={n} rho=16 kind={kind} {dt_name} 0/1",
+                            vector=True)
+            del st
+        torch.cuda.empty_cache()
+
+    def case2d(self, name, arg, rho, kind, what, vector) -> None:
+        """One ``accum2d`` or ``ca2d`` entry-point call: one launch, the
+        access path ``vector`` by the host's rule, bit-equal to the plain
+        version and to the engine twin of the same kind."""
+        torch, L, ops = self.torch, self.legacy, self.s.ops
+        k = getattr(L, name.upper())
+        sched = L._schedule(2, arg.shape[0] // rho, kind)
+        before = k.launches
+        out = getattr(L, name)(arg, rho=rho, kind=kind)
+        torch.cuda.synchronize()
+        launches = k.launches - before
+        want = arg.clone()
+        if name == "accum2d":
+            rule = L.legacy_vector_access(rho, arg.element_size(), out.data_ptr())
+            k.plain_(want, sched, rho)
+            engine = ops.simplex_accum2d(arg, rho=rho, kind=kind)
+        else:
+            rule = k.vector_access(rho, arg.element_size(), out.data_ptr(), arg.data_ptr())
+            k.plain_(want, arg, sched, rho)
+            engine = ops.simplex_ca2d(arg, rho=rho, kind=kind)
+        equal = out.dtype == want.dtype and torch.equal(out, want)
+        engine = torch.equal(out, engine)
+        _log(f"legacy check {name} {what} vector={rule} launches={launches} "
+             f"equal={equal} engine={engine}")
+        if rule is not vector or launches != 1 or not equal or not engine:
+            self.s.fail(f"legacy {name} {what}")
+        del out, want
 
     def edm_odd(self) -> None:
         """``edm2d`` at ``LEGACY_EDM_ODD``: d not a multiple of 4 (single

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time every kernel on the device map from two source trees in turns on
-one card: MAP, ACCUM, CA, EDM, the m >= 3 originals and the 2-D EDM
-original.
+one card: MAP, ACCUM, CA, EDM, the m >= 3 originals and the 2-D ACCUM,
+EDM and CA originals.
 
 Two calls to the card may land on two cards with other power limits, so
 a change to ``kernels/csrc/simplex_maps.cuh`` or to one of its users is
@@ -12,8 +12,9 @@ and each case runs base, change, change, base, its time the median of
 ``RUNS`` CUDA-event timed runs after warm-up.  The Python side is this
 tree's, so the base must export the same C entry points
 (``kernels/_build.py``), except that a base whose ``legacy_accum3d_launch``
-and ``legacy_accum_md_launch``, ``legacy_ca3d_launch`` or
-``legacy_edm2d_launch`` take no ``vec`` argument (before those originals
+and ``legacy_accum_md_launch``, ``legacy_ca3d_launch``,
+``legacy_edm2d_launch``, ``legacy_accum2d_launch`` or
+``legacy_ca2d_launch`` take no ``vec`` argument (before those originals
 took 16-byte pieces) is called with its own argument list.  Every
 case's outputs must agree between the trees (integers bit for bit, EDM
 within ``1e-5 + 1e-5 * max|p|``); the script exits 1 where they do not.
@@ -26,7 +27,9 @@ octant n=1024 rho=8, ACCUM and EDM also at m=4 hmap n=64 rho=4;
 and bb and at n=960 for composite (fused and one launch per piece) and
 bb, ``accum_md`` also at m=4 hmap n=64 rho=4; ``ca3d`` at m=3 n=1024
 rho=8 for hmap, octant, table and bb and at n=960 for composite and bb;
-``edm2d`` at m=2 n=16384 rho=16, d=64, float32, for hmap, rb and bb.  Each
+``edm2d`` at m=2 n=16384 rho=16, d=64, float32, for hmap, rb and bb;
+``accum2d`` and ``ca2d`` (0/1 states of density 0.35) at m=2 n=16384
+rho=16, int32, for hmap, rb and bb.  Each
 prints ``compare <case> base=<ms>/<ms> change=<ms>/<ms>`` (both runs of
 each) and the change's time over the base's.
 
@@ -61,6 +64,8 @@ LEGACY_CA3D_CASES = ((1024, 8, "hmap"), (1024, 8, "octant"), (1024, 8, "table"),
                      (1024, 8, "bb"), (960, 8, "composite"), (960, 8, "bb"))
 # (n, rho, d, kind) of the 2-D EDM original, float32 points.
 LEGACY_EDM2D_CASES = tuple((16384, 16, 64, kind) for kind in ("hmap", "rb", "bb"))
+# (n, rho, kind) of the 2-D ACCUM and CA originals, int32.
+LEGACY_2D_CASES = tuple((16384, 16, kind) for kind in ("hmap", "rb", "bb"))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -123,6 +128,12 @@ def main(argv=None) -> int:
     base_edm_vec = takes_vec(base_csrc, "legacy2d.cu", "legacy_edm2d_launch")
     if not base_edm_vec:
         libs["base"].legacy_edm2d_launch.argtypes = [_P, _I, _P, _I, _I, _I, _I, _I, _P]
+    base_accum2d_vec = takes_vec(base_csrc, "legacy2d.cu", "legacy_accum2d_launch")
+    if not base_accum2d_vec:
+        libs["base"].legacy_accum2d_launch.argtypes = [_P, _I, _I, _I, _I, _I, _P]
+    base_ca2d_vec = takes_vec(base_csrc, "legacy2d.cu", "legacy_ca2d_launch")
+    if not base_ca2d_vec:
+        libs["base"].legacy_ca2d_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P]
 
     def legacy_accum(k, buf, sched, rho) -> None:
         """``k.kernel_``, or the base's entry with its own arguments."""
@@ -155,6 +166,27 @@ def main(argv=None) -> int:
             _build.check(code, "edm2d")
         else:
             legacy.EDM2D.kernel_(out, p, sched, rho)
+
+    def legacy_accum2d(buf, sched, rho) -> None:
+        """``ACCUM2D.kernel_``, or the base's entry with its own arguments."""
+        if _build._LIB is libs["base"] and not base_accum2d_vec:
+            code = _build._LIB.legacy_accum2d_launch(
+                buf.data_ptr(), legacy.DTYPE_CODES[buf.dtype], legacy._KIND_CODES[sched.kind],
+                sched.n, buf.shape[0], rho, torch.cuda.current_stream().cuda_stream)
+            _build.check(code, "accum2d")
+        else:
+            legacy.ACCUM2D.kernel_(buf, sched, rho)
+
+    def legacy_ca2d(out, st, sched, rho) -> None:
+        """``CA2D.kernel_``, or the base's entry with its own arguments."""
+        if _build._LIB is libs["base"] and not base_ca2d_vec:
+            code = _build._LIB.legacy_ca2d_launch(
+                out.data_ptr(), st.data_ptr(), legacy.DTYPE_CODES[st.dtype],
+                legacy._KIND_CODES[sched.kind], sched.n, st.shape[0], rho,
+                torch.cuda.current_stream().cuda_stream)
+            _build.check(code, "ca2d")
+        else:
+            legacy.CA2D.kernel_(out, st, sched, rho)
 
     def time_ms(fn) -> float:
         for _ in range(2):
@@ -256,6 +288,19 @@ def main(argv=None) -> int:
         compare(f"edm2d m=2 n={n} d={d} kind={kind}", lambda: legacy_edm2d(out, p, sched, rho),
                 lambda: out.clone())
         del p, out
+        torch.cuda.empty_cache()
+    for n, rho, kind in LEGACY_2D_CASES:
+        sched = legacy._schedule(2, n // rho, kind)
+        x = torch.randint(0, 100, (n, n), generator=gen, device=dev, dtype=torch.int32)
+        buf = x.clone()
+        compare(f"accum2d m=2 n={n} kind={kind}", lambda: legacy_accum2d(buf, sched, rho),
+                lambda: buf.clone(), lambda: buf.copy_(x))
+        del x, buf
+        st = (torch.rand((n, n), generator=gen, device=dev) < 0.35).to(torch.int32)
+        out = st.clone()
+        compare(f"ca2d m=2 n={n} kind={kind}", lambda: legacy_ca2d(out, st, sched, rho),
+                lambda: out.clone())
+        del st, out
         torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time variants of the redesigned originals ``ca3d`` and ``edm2d`` in
-turns on one card: what each part of their designs buys, and what bounds
-them.
+"""Time variants of the redesigned originals ``ca3d``, ``edm2d``,
+``accum2d`` and ``ca2d`` in turns on one card: what each part of their
+designs buys, and what bounds them.
 
 Each variant is this tree's ``legacy_md.cu`` or ``legacy2d.cu`` with a
 few lines replaced, compiled into a library of its own; the Python side
@@ -21,10 +21,21 @@ Variants of ``ca3d`` (m=3 n=1024 rho=8 int32, hmap, table and bb):
 alone).  Of ``edm2d`` (n=16384 rho=16 d=64 float32, hmap, rb and bb):
 ``rows8`` (8 x 4 cells a thread), ``blocks4`` (a cap of four blocks an SM
 instead of five: more registers) and ``cells`` (each cell stored alone).
+Of ``accum2d`` (n=16384 rho=16 int32, hmap, rb and bb): ``warp_tile``
+(every warp walks its own tile: what walking the block's rows together
+buys), ``blocks6`` (a cap of six blocks an SM instead of four: fewer
+registers), ``unroll4`` (four pieces a lane in flight) and ``l2plain``
+(loads without the 128-byte L2 fetch).  Of ``ca2d`` (n=16384 rho=16
+int32 0/1, hmap, rb and bb): ``warp_halo`` (every warp stages its own
+halo: the shared halo's gain), ``blocks5`` (a cap of five blocks an SM
+instead of four: fewer registers), ``no_count`` and ``no_stage``
+(diagnostic: staging alone, the count alone).
 
-Run from the repository root on a card::
+Run from the repository root on a card, with the kernels to time (all
+four where none is named)::
 
     python3 scripts/legacy_variants.py
+    python3 scripts/legacy_variants.py accum2d ca2d
 """
 
 from __future__ import annotations
@@ -56,6 +67,26 @@ VARIANTS = {
                     False),
         "cells": (L2D, [("          if ((rho & 3) == 0 && col0 + 3 < rho && C0 + 3 <= R) {",
                          "          if (false) {")], False),
+    },
+    "accum2d": {
+        "warp_tile": (L2D, [("    const bool together = b.mode != LEGACY2D_ALONE;",
+                             "    const bool together = false;")], False),
+        "blocks6": (L2D, [("#define LEGACY2D_ACCUM_BLOCKS 4 ", "#define LEGACY2D_ACCUM_BLOCKS 6 ")],
+                    False),
+        "unroll4": (L2D, [("#define LEGACY2D_UNROLL 2 ", "#define LEGACY2D_UNROLL 4 ")], False),
+        "l2plain": (L2D, [("            v[u] = legacy2d_load_piece(p[u]);",
+                           "            v[u] = *reinterpret_cast<const uint4*>(p[u]);")], False),
+    },
+    "ca2d": {
+        "warp_halo": (L2D, [("  const bool shared = b.mode != LEGACY2D_ALONE;",
+                             "  const bool shared = false;")], False),
+        "blocks5": (L2D, [("#define LEGACY2D_CA_BLOCKS 4 ", "#define LEGACY2D_CA_BLOCKS 5 ")],
+                    False),
+        "no_count": (L2D, [("    if (warp < b.cnt)\n      legacy_ca2d_count",
+                            "    if (false)\n      legacy_ca2d_count")], True),
+        "no_stage": (L2D, [("    legacy_ca2d_stage<T, PE>(halo, in, b.y0 * rho - 1,",
+                            "    if (false) legacy_ca2d_stage<T, PE>(halo, in, b.y0 * rho - 1,")],
+                     True),
     },
 }
 
@@ -89,7 +120,13 @@ def ptxas(log: str, kernel: str) -> str:
     return "; ".join(out)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    names = list(sys.argv[1:] if argv is None else argv) or list(VARIANTS)
+    unknown = [k for k in names if k not in VARIANTS]
+    if unknown:
+        print(f"legacy_variants.py: no variants of {unknown}; kernels: {list(VARIANTS)}",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
@@ -102,7 +139,8 @@ def main() -> int:
     tmp = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build"))
     nvcc = _build.nvcc_path()
     jobs = {}
-    for kernel, variants in VARIANTS.items():
+    for kernel in names:
+        variants = VARIANTS[kernel]
         source = MD if kernel == "ca3d" else L2D
         jobs[(kernel, "tree")] = build(_build.CSRC, source, [], tmp / f"{kernel}_tree", nvcc,
                                        _build.NVCC_FLAGS) + (False,)
@@ -173,21 +211,40 @@ def main() -> int:
                   f"{'diagnostic' if info[key][0] else 'agree=' + str(agree.get(key))} "
                   f"ptxas: {info[key][1]}", flush=True)
 
-    n, rho = 1024, 8
-    st = (torch.rand((n,) * 3, generator=gen, device=dev) < 0.35).to(torch.int32)
-    for kind in ("hmap", "table", "bb"):
-        sched = legacy._schedule(3, n // rho, kind)
-        cases("ca3d", f"ca3d m=3 n={n} rho={rho} kind={kind}", lambda: st.clone(),
-              lambda out: legacy.CA3D.kernel_(out, st, sched, rho))
-    del st
-    torch.cuda.empty_cache()
+    if "ca3d" in names:
+        n, rho = 1024, 8
+        st = (torch.rand((n,) * 3, generator=gen, device=dev) < 0.35).to(torch.int32)
+        for kind in ("hmap", "table", "bb"):
+            sched = legacy._schedule(3, n // rho, kind)
+            cases("ca3d", f"ca3d m=3 n={n} rho={rho} kind={kind}", lambda: st.clone(),
+                  lambda out: legacy.CA3D.kernel_(out, st, sched, rho))
+        del st
+        torch.cuda.empty_cache()
     n, rho, d = 16384, 16, 64
-    p = torch.randn((n, d), generator=gen, device=dev)
-    for kind in ("hmap", "rb", "bb"):
-        sched = legacy._schedule(2, n // rho, kind)
-        cases("edm2d", f"edm2d m=2 n={n} rho={rho} d={d} kind={kind}",
-              lambda: torch.zeros((n, n), device=dev),
-              lambda out: legacy.EDM2D.kernel_(out, p, sched, rho))
+    if "edm2d" in names:
+        p = torch.randn((n, d), generator=gen, device=dev)
+        for kind in ("hmap", "rb", "bb"):
+            sched = legacy._schedule(2, n // rho, kind)
+            cases("edm2d", f"edm2d m=2 n={n} rho={rho} d={d} kind={kind}",
+                  lambda: torch.zeros((n, n), device=dev),
+                  lambda out: legacy.EDM2D.kernel_(out, p, sched, rho))
+        del p
+        torch.cuda.empty_cache()
+    if "accum2d" in names:
+        x = torch.randint(0, 100, (n, n), generator=gen, device=dev, dtype=torch.int32)
+        for kind in ("hmap", "rb", "bb"):
+            sched = legacy._schedule(2, n // rho, kind)
+            cases("accum2d", f"accum2d m=2 n={n} rho={rho} kind={kind}", lambda: x.clone(),
+                  lambda out: legacy.ACCUM2D.kernel_(out, sched, rho))
+        del x
+        torch.cuda.empty_cache()
+    if "ca2d" in names:
+        st = (torch.rand((n, n), generator=gen, device=dev) < 0.35).to(torch.int32)
+        for kind in ("hmap", "rb", "bb"):
+            sched = legacy._schedule(2, n // rho, kind)
+            cases("ca2d", f"ca2d m=2 n={n} rho={rho} kind={kind}", lambda: st.clone(),
+                  lambda out: legacy.CA2D.kernel_(out, st, sched, rho))
+        del st
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")

@@ -73,13 +73,13 @@ _SIGNATURES = {
     # the frozen 2-D originals (legacy2d.cu); kind 0 hmap, 1 rb, 2 bb
     # out, kind, nb, chunk, rows, stream
     "legacy_map2d_launch": (_P, _I, _I, _I, _L, _P),
-    # x, dtype, kind, nb, n, rho, stream
-    "legacy_accum2d_launch": (_P, _I, _I, _I, _I, _I, _P),
+    # x, dtype, kind, nb, n, rho, vec (16-byte pieces), stream
+    "legacy_accum2d_launch": (_P, _I, _I, _I, _I, _I, _I, _P),
     # out, out dtype, float32 points, d, kind, nb, n, rho, vec (16-byte
     # pieces), stream
     "legacy_edm2d_launch": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
-    # out, in, dtype, kind, nb, n, rho, stream
-    "legacy_ca2d_launch": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # out, in, dtype, kind, nb, n, rho, vec (16-byte pieces), stream
+    "legacy_ca2d_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # the frozen m >= 3 originals (legacy_md.cu)
     # x, dtype, header, data, n, rho, vec (16-byte pieces), stream
     "legacy_accum3d_launch": (_P, _I, _P, _P, _I, _I, _I, _P),

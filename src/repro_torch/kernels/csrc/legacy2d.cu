@@ -8,10 +8,10 @@
 // of the schedule subsystem: no linear-index simplex_map, no stencil
 // table, no staging code.  Grid point (wx, wy) goes through the map H:
 // Z^2 -> Z^2 to its (column, row) tile, the paper's CUDA formulation: for
-// ACCUM and CA it is block (blockIdx.x, blockIdx.y), for EDM one of a
-// block's run of wx at wy = blockIdx.y.  gridDim.y is capped at 65535, so
-// a block loops over wy = blockIdx.y, blockIdx.y + gridDim.y, ... (the
-// hmap/rb grid is (nb/2, nb+1) and nb reaches 65536 at rho = 1).
+// MAP it is a thread, for ACCUM, EDM and CA one of a block's run of wx at
+// wy = blockIdx.y.  gridDim.y is capped at 65535, so a block loops over wy
+// = blockIdx.y, blockIdx.y + gridDim.y, ... (the hmap/rb grid is (nb/2,
+// nb+1) and nb reaches 65536 at rho = 1).
 //
 // On the TPU every grid step flushed its block back through input/output
 // aliasing; here an invalid bb step writes nothing.  ACCUM updates the
@@ -21,15 +21,89 @@
 // order.
 //
 // Bounds on the card: MAP writes 12 bytes per step, ACCUM and CA read and
-// write each domain cell once (memory); EDM writes each domain cell once
-// and does d subtracts and d multiply-adds a cell (operations: 2 d lane
-// operations a cell at 33.5 T a second, 0.51 ms at n = 16384, d = 64).
-// Design of MAP, ACCUM and CA: one block per grid point, rho*rho elements
-// per tile with the column fastest so neighbouring threads touch
-// neighbouring addresses, a loop when rho*rho exceeds the block's 1024
-// threads; CA stages the (rho+2)^2 periodic halo, each cell masked by its
-// own wrapped position.  Element offsets are int64 (n = 65536 is a 16 GiB
-// array).
+// write each domain cell once (memory: 0.3205 ms at n = 16384 in int32);
+// EDM writes each domain cell once and does d subtracts and d
+// multiply-adds a cell (operations: 2 d lane operations a cell at 33.5 T
+// a second, 0.51 ms at n = 16384, d = 64).  MAP: one thread per step.
+// Element offsets are int64 (n = 65536 is a 16 GiB array).
+//
+// The blocks of ACCUM and CA.  A block per grid point with a thread per
+// cell had every thread evaluate the map, divide by rho at every cell and
+// touch 64-byte tile rows 64 KiB apart (524,800 blocks of 256 threads at
+// n = 16384, rho = 16; bb launched one for each of its 523,776 grid points
+// above the diagonal too).  Design: a warp per grid point, LEGACY2D_WARPS
+// = 8 a block at one wy (wx = 8 bx + g).  Lanes g < 8 of every warp
+// evaluate the map of grid point g (a few shifts at m = 2), so every warp
+// learns by ballots and shuffles, with no table and no barrier, whether
+// the block's valid points are a prefix whose tiles lie side by side
+// along x (SIDE), a prefix stacked along y (STACK), or neither (ALONE); a
+// block with none goes on to its next row at once.  At n = 16384, rho =
+// 16 (nb 1024) the valid points' shares, SIDE / STACK / ALONE, are hmap
+// 99.12 / 0 / 0.88 % (qb is constant over 8 aligned wx once wy >= 8), rb
+// 74.63 / 24.68 / 0.68 % (the unfolded half wy > wx side by side, the
+// folded half stacked) and bb 100 / 0 / 0 % (a block's valid points are a
+// prefix), where 65,024 of bb's 131,072 blocks have none
+// (tests/test_torch_legacy2d_walk.py).
+//
+// ACCUM (accum2d).  Where the tiles line up the block's threads walk
+// their rectangle together, a thread two pieces in flight: 8 tiles side
+// by side are rows of 8 rho contiguous cells, 512 bytes at rho = 16 in
+// int32, one 16-byte piece a lane, so a warp reads and writes whole
+// 512-byte runs; otherwise each warp walks its own tile.  16-byte pieces
+// where kernels/legacy.py legacy_vector_access says so (rho elements are
+// whole pieces, x on a 16-byte boundary), else one element a lane.  Per
+// piece the diagonal run r + 1 - c is computed once: a piece with none is
+// not touched, and in a piece that straddles the diagonal the cells past
+// it are written back unchanged, which is safe because a tile belongs to
+// exactly one grid point.  The dtype and the access path are switched
+// once at the top into a body typed throughout, each with its own
+// grid-row loop: one loop around the switch kept every type's invariants
+// live and spilled (168 bytes of stack at 64 registers); typed loops keep
+// 62 registers, no frame.  On an H100 80GB HBM3 at 700 W, n = 16384, rho
+// = 16, int32: 0.498 ms at hmap in chip_smoke.py, 64 % of the bound (0.456
+// in scripts/legacy_variants.py), rb 0.560, bb 0.543.  Variants that lost
+// (legacy_variants.py, same card): a warp per tile everywhere
+// 1.01-1.05x; six blocks an SM (a 40-register cap) spill, 1.03-1.05x;
+// four pieces a lane spill, 1.46-1.52x; loads without the 128-byte L2
+// fetch 1.00-1.09x (rb's stacked tiles, 64-byte rows, lose most).
+//
+// CA (ca2d).  Where the tiles line up the block stages one halo, else
+// each warp with a tile stages its own (rho+2)^2 halo in a slice, `slots`
+// warps a round (every warp at once where the slices fit
+// LEGACY2D_CA_BUDGET).  SIDE: (rho+2) rows of a lead cell, 8 rho cells
+// and a trail cell; STACK: (8 rho + 2) rows of rho cells; fewer warps a
+// block where either would pass the budget (rho 32 in int64: 6, rho 64
+// in int32: 3).  A halo row's middle goes by cp.async in 16-byte pieces
+// where kernels/legacy.py CA2DKernel.vector_access says so (rho cells
+// are whole pieces, both buffers on a 16-byte boundary, a slice fits),
+// cell by cell elsewhere; every cell is masked by col <= row at its own
+// wrapped position, so a row's middle is one run, lim = R + 1 with R the
+// wrapped row, zero-filled past it, and the wrapped lead and trail cells
+// (column -1 -> n - 1, column n -> 0) go as scalars.  Then a lane takes
+// XW cells of a tile row (a 16-, 8- or 4-byte load: 4 cells of a type up
+// to 4 bytes, 2 of int64; 1 on the scalar path) and walks y over ys rows
+// (the host's rule, CA2DKernel.layout: as few segments as keep the
+// warp's lanes busy, ys = 2 at rho = 16 in int32) with the row sums R =
+// (h[x-1] + h[x]) + h[x+1] of the rows before, at and after its row in
+// registers; the x neighbours come from the lanes beside it by
+// __shfl_up/down_sync, or from shared memory for a row's first and last
+// lane.  The count is ((R[y-1] + R[y]) + R[y+1]) - centre, in an unsigned
+// integer of at least 32 bits for integer states (bit-equal to the plain
+// version at any values once cut back to the state's type) and in
+// float32 for floating states (bit-equal wherever every partial sum is
+// exact in float32 and in the state's type: always on 0/1 states; not on
+// floating states of other values, where the plain version rounds each
+// add in the state's type).  A lane's XW cells go out as one store where
+// they all lie on the triangle, else cell by cell.  Two instantiations,
+// as ca3d's in legacy_md.cu: WIDE = 0 (8-, 16- and 32-bit integers,
+// float32) at 64 registers, WIDE = 1 (int64, bfloat16, float16) at 74,
+// neither with a frame or a spill.  Same card and case: 0.690 ms at hmap
+// in chip_smoke.py, 46 % of the bound, rb 0.720, bb 0.705.  What bounds
+// it (legacy_variants.py): staging alone (no_count) takes 0.387 ms and
+// the count alone (no_stage) 0.338 against 0.693 for both, so the two
+// barely overlap, and registers hold the SM at four blocks of 8 warps:
+// five blocks ran 0.90-0.93x but spill at 48 registers.  Lost: a halo a
+// warp, 1.07-1.10x.
 //
 // EDM (edm2d).  One block per grid point with a thread per cell read two
 // floats of shared memory for each subtract and multiply-add: bound by
@@ -126,19 +200,6 @@ static bool legacy2d_grid(int kind, int nb, int* w, int* h) {
   return ok;
 }
 
-// Host: checks common to the tile kernels; sets the launch shape and the
-// grid height h the blocks loop over.
-static bool legacy2d_tile_launch(int kind, int nb, int n, int rho, dim3* grid, int* h,
-                                 int* threads) {
-  int w;
-  if (rho < 1 || (long long)nb * rho != n || !legacy2d_grid(kind, nb, &w, h) ||
-      (long long)rho * rho > INT_MAX)
-    return false;
-  *grid = dim3(w, *h < 65535 ? *h : 65535);
-  *threads = rho * rho < 1024 ? rho * rho : 1024;
-  return true;
-}
-
 // ---------------------------------------------------------------------------
 // MAP: (x, y, valid) per grid step, one thread per step, chunk per block.
 // ---------------------------------------------------------------------------
@@ -171,47 +232,186 @@ extern "C" int legacy_map2d_launch(void* out, int kind, int nb, int chunk, long 
 }
 
 // ---------------------------------------------------------------------------
+// The block's grid points, shared by ACCUM and CA: block (bx, wy) takes
+// the `warps` grid points wx = bx * warps + g at one wy, warp g grid
+// point g.
+// ---------------------------------------------------------------------------
+
+#define LEGACY2D_WARPS 8     // grid points (warps) a block, at most
+#define LEGACY2D_FULL 0xffffffffu
+enum Legacy2DMode { LEGACY2D_SIDE = 0, LEGACY2D_STACK = 1, LEGACY2D_ALONE = 2 };
+
+// The block's tiles as every warp sees them.  valid: bit g for grid
+// point g with a tile; mode: SIDE where the valid points are a prefix g <
+// cnt whose tiles lie side by side along x from (x0, y0), STACK where
+// they are a prefix stacked along y (at least two), else ALONE; (xb, yb):
+// this warp's own tile.
+struct Legacy2DBlock {
+  unsigned valid;
+  int mode, cnt, x0, y0, xb, yb;
+};
+
+// Lanes g < warps of every warp evaluate the map of grid point g, so each
+// warp learns the block's tiles by ballots and shuffles, with no table in
+// shared memory and no barrier; the map is a few shifts at m = 2.
+static __device__ __forceinline__ Legacy2DBlock legacy2d_block(int kind, int wx0, int wy, int w,
+                                                               int nb, int warps) {
+  const int lane = threadIdx.x & 31;
+  int x = 0, y = 0;
+  const bool v =
+      lane < warps && wx0 + lane < w && legacy2d_map(kind, wx0 + lane, wy, nb, &x, &y);
+  Legacy2DBlock b;
+  b.valid = __ballot_sync(LEGACY2D_FULL, v);
+  b.cnt = __popc(b.valid);
+  b.x0 = __shfl_sync(LEGACY2D_FULL, x, 0);
+  b.y0 = __shfl_sync(LEGACY2D_FULL, y, 0);
+  b.xb = __shfl_sync(LEGACY2D_FULL, x, threadIdx.x >> 5);
+  b.yb = __shfl_sync(LEGACY2D_FULL, y, threadIdx.x >> 5);
+  const bool prefix = b.valid == (1u << b.cnt) - 1;  // cnt <= 8
+  const bool side =
+      __all_sync(LEGACY2D_FULL, !v || (y == b.y0 && x == b.x0 + lane));
+  const bool stack =
+      __all_sync(LEGACY2D_FULL, !v || (x == b.x0 && y == b.y0 + lane));
+  b.mode = prefix && side ? LEGACY2D_SIDE
+                          : (prefix && stack && b.cnt > 1 ? LEGACY2D_STACK : LEGACY2D_ALONE);
+  return b;
+}
+
+// Host: checks common to ACCUM and CA; sets the grid's width w and height
+// h the blocks loop over.
+static bool legacy2d_tile_launch(int kind, int nb, int n, int rho, int* w, int* h) {
+  return rho >= 1 && (long long)nb * rho == n && legacy2d_grid(kind, nb, w, h) &&
+         (long long)rho * rho <= INT_MAX;
+}
+
+// ---------------------------------------------------------------------------
 // ACCUM: +1 on the inclusive lower triangle {col <= row}, in place.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-static __device__ __forceinline__ void legacy_accum2d_body(T* __restrict__ x, int kind, int nb,
-                                                           int h, int n, int rho) {
-  const int wx = blockIdx.x;
-  const int tile = rho * rho;
-  for (int wy = blockIdx.y; wy < h; wy += gridDim.y) {
-    int xb, yb;
-    if (!legacy2d_map(kind, wx, wy, nb, &xb, &yb)) continue;
-    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-      const int i = e / rho;
-      const int r = yb * rho + i;
-      const int c = xb * rho + (e - i * rho);
-      if (c <= r) {
-        const long long off = (long long)r * n + c;
-        x[off] = Dt<T>::add(x[off], Dt<T>::from_float(1.f));
+#define LEGACY2D_ACCUM_BLOCKS 4  // blocks an SM: at most 64 registers a thread
+#define LEGACY2D_UNROLL 2        // pieces a lane has in flight
+
+// A 16-byte piece read with the L2 fetching the 128 bytes around it.
+static __device__ __forceinline__ uint4 legacy2d_load_piece(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.L2::128B.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// +1 on the triangle's cells of a rectangle of `rows` rows of rp pieces
+// (EV elements each: 16 bytes, or one element) from element (r0, c0), by
+// thread t of nt, LEGACY2D_UNROLL pieces a thread in flight; consecutive
+// threads take consecutive pieces of a row (rshift: log2 rp, or -1 to
+// divide).  Per piece the run of cells on or below the diagonal, r + 1 -
+// c, is computed once: a piece with none is not touched, and in a piece
+// that straddles the diagonal the cells past it are written back
+// unchanged (a tile belongs to one grid point).
+template <typename T, int EV>
+static __device__ __forceinline__ void legacy_accum2d_rect(T* __restrict__ x, int n, int r0,
+                                                           int c0, int rows, int rp, int rshift,
+                                                           int t, int nt) {
+  const T one = Dt<T>::from_float(1.f);
+  const int pieces = rows * rp;
+  for (int base = t; base < pieces; base += nt * LEGACY2D_UNROLL) {
+    uint4 v[LEGACY2D_UNROLL];
+    T s[LEGACY2D_UNROLL];
+    T* p[LEGACY2D_UNROLL];
+    int run[LEGACY2D_UNROLL];
+#pragma unroll
+    for (int u = 0; u < LEGACY2D_UNROLL; ++u) {
+      const int e = base + u * nt;
+      run[u] = 0;
+      if (e < pieces) {
+        const int i = rshift >= 0 ? e >> rshift : e / rp;
+        const int r = r0 + i, c = c0 + (e - i * rp) * EV;
+        run[u] = r + 1 - c;  // the piece's cells with c <= r
+        p[u] = x + (long long)r * n + c;
+        if (run[u] > 0) {
+          if constexpr (EV > 1)
+            v[u] = legacy2d_load_piece(p[u]);
+          else
+            s[u] = *p[u];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < LEGACY2D_UNROLL; ++u) {
+      if (run[u] <= 0) continue;  // the piece lies above the diagonal (or past the rectangle)
+      if constexpr (EV > 1) {
+        T* el = reinterpret_cast<T*>(&v[u]);
+#pragma unroll
+        for (int i = 0; i < EV; ++i)
+          if (i < run[u]) el[i] = Dt<T>::add(el[i], one);
+        *reinterpret_cast<uint4*>(p[u]) = v[u];
+      } else {
+        *p[u] = Dt<T>::add(s[u], one);
       }
     }
   }
 }
 
-// dtype: a code of dtypes.cuh that ACCUM takes, switched once at the top
-// (the same code in every thread) into a body typed throughout.
-__global__ void legacy_accum2d_kernel(void* __restrict__ x, int dtype, int kind, int nb, int h,
-                                      int n, int rho) {
-#define LEGACY_ACCUM2D_BODY(T) legacy_accum2d_body<T>(static_cast<T*>(x), kind, nb, h, n, rho)
-  SIMPLEX_SWITCH_DTYPE(dtype, LEGACY_ACCUM2D_BODY)
-#undef LEGACY_ACCUM2D_BODY
+// The grid rows of one block in type T, EV elements a piece: every warp
+// maps the block's grid points (legacy2d_block) and a block with no tile
+// goes on to its next row.  Where its tiles line up (side by side or
+// stacked) the block's threads walk their rectangle together, so a warp
+// takes whole rows of the block (8 tiles side by side are 8 rho contiguous
+// cells); otherwise each warp walks its own tile.
+template <typename T, int EV>
+static __device__ __forceinline__ void legacy_accum2d_rows(T* __restrict__ x, int kind, int nb,
+                                                           int w, int h, int n, int rho) {
+  const int warps = blockDim.x >> 5;
+  const int vr = rho / EV;  // pieces a tile row
+  for (int wy = blockIdx.y; wy < h; wy += gridDim.y) {
+    const Legacy2DBlock b = legacy2d_block(kind, blockIdx.x * warps, wy, w, nb, warps);
+    if (!b.valid) continue;  // every grid point invalid: a bb block above the diagonal
+    const bool together = b.mode != LEGACY2D_ALONE;
+    if (together) {
+      const bool stack = b.mode == LEGACY2D_STACK;
+      const int rows = stack ? b.cnt * rho : rho, rp = stack ? vr : b.cnt * vr;
+      legacy_accum2d_rect<T, EV>(x, n, b.y0 * rho, b.x0 * rho, rows, rp,
+                                 (rp & (rp - 1)) ? -1 : __ffs(rp) - 1, threadIdx.x, blockDim.x);
+    } else if ((b.valid >> (threadIdx.x >> 5)) & 1) {
+      legacy_accum2d_rect<T, EV>(x, n, b.yb * rho, b.xb * rho, rho, vr,
+                                 (vr & (vr - 1)) ? -1 : __ffs(vr) - 1, threadIdx.x & 31, 32);
+    }
+  }
 }
 
-// dtype: a code of dtypes.cuh that ACCUM takes (kernels/policy.py DTYPE_CODES).
+// dtype: a code of dtypes.cuh that ACCUM takes and vec (16-byte pieces),
+// switched once at the top into a body typed throughout.  The switch comes
+// before the map, not after it as in legacy_md.cu: the m = 2 map is a few
+// shifts, so each typed body inlines it at no cost, and a grid-row loop
+// around the switch kept every type's loop invariants live and spilled.
+__global__ void __launch_bounds__(LEGACY2D_WARPS * 32, LEGACY2D_ACCUM_BLOCKS)
+legacy_accum2d_kernel(void* __restrict__ x, int dtype, int kind, int nb, int w, int h, int n,
+                      int rho, int vec) {
+#define LEGACY_ACCUM2D_ROWS(T)                                                              \
+  if (vec)                                                                                  \
+    legacy_accum2d_rows<T, 16 / sizeof(T)>(static_cast<T*>(x), kind, nb, w, h, n, rho);     \
+  else                                                                                      \
+    legacy_accum2d_rows<T, 1>(static_cast<T*>(x), kind, nb, w, h, n, rho)
+  SIMPLEX_SWITCH_DTYPE(dtype, LEGACY_ACCUM2D_ROWS)
+#undef LEGACY_ACCUM2D_ROWS
+}
+
+// dtype: a code of dtypes.cuh that ACCUM takes (kernels/policy.py
+// DTYPE_CODES); vec: 1 for 16-byte pieces (kernels/legacy.py
+// legacy_vector_access: rho elements are whole pieces and x starts on a
+// 16-byte boundary), 0 for single elements.  The grid is (ceil(w /
+// warps), min(h, 65535)), LEGACY2D_WARPS warps a block (one where eight
+// tiles would pass an int's pieces).
 extern "C" int legacy_accum2d_launch(void* x, int dtype, int kind, int nb, int n, int rho,
-                                     void* stream) {
-  dim3 grid;
-  int h, threads;
-  if (!dt_accum_ok(dtype) || !legacy2d_tile_launch(kind, nb, n, rho, &grid, &h, &threads))
+                                     int vec, void* stream) {
+  int w, h;
+  if (!dt_accum_ok(dtype) || !legacy2d_tile_launch(kind, nb, n, rho, &w, &h) ||
+      (vec && (((uintptr_t)x & 15) || (rho * dt_bytes(dtype)) % 16)))
     return (int)cudaErrorInvalidValue;
-  legacy_accum2d_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(x, dtype, kind, nb, h, n,
-                                                                    rho);
+  const int warps = (long long)LEGACY2D_WARPS * rho * rho <= INT_MAX ? LEGACY2D_WARPS : 1;
+  const dim3 grid((w + warps - 1) / warps, h < 65535 ? h : 65535);
+  legacy_accum2d_kernel<<<grid, warps * 32, 0, (cudaStream_t)stream>>>(x, dtype, kind, nb, w, h,
+                                                                       n, rho, vec);
   return (int)cudaGetLastError();
 }
 
@@ -484,74 +684,367 @@ extern "C" int legacy_edm2d_launch(void* out, int out_dtype, const void* p, int 
 // CA: one B3/S23 step on the triangle of a periodic square, in -> out.
 // ---------------------------------------------------------------------------
 
+#define LEGACY2D_CA_BLOCKS 4            // blocks an SM: at most 64 registers a thread
+#define LEGACY2D_CA_BLOCKS_WIDE 3       // for the wide counts: at most 85
+#define LEGACY2D_CA_BUDGET (56 * 1024)  // a shared halo's bytes, at most (four blocks an SM)
+#define LEGACY2D_BLOCK_SMEM 232448      // a block's shared memory, bytes
+
+// The neighbour count's type A for states of type T: integers add in an
+// unsigned type of at least 32 bits (a count cut back to T wraps as T's
+// own adds do), floating states in float32.
 template <typename T>
-static __device__ __forceinline__ void legacy_ca2d_body(T* __restrict__ out,
-                                                        const T* __restrict__ in, int kind,
-                                                        int nb, int h, int n, int rho,
-                                                        unsigned char* smem) {
-  T* s_halo = reinterpret_cast<T*>(smem);  // (rho+2)^2, origin one cell up and left
+struct Legacy2DCount;
+#define LEGACY2D_COUNT_INT(T, U, AA)                                                          \
+  template <>                                                                                 \
+  struct Legacy2DCount<T> {                                                                   \
+    using A = AA;                                                                             \
+    static __device__ __forceinline__ A widen(T v) { return (A)(U)v; }                        \
+    static __device__ __forceinline__ bool is(A a, int v) { return (U)a == (U)(T)v; }         \
+  };
+LEGACY2D_COUNT_INT(int8_t, uint8_t, uint32_t)
+LEGACY2D_COUNT_INT(uint8_t, uint8_t, uint32_t)
+LEGACY2D_COUNT_INT(int16_t, uint16_t, uint32_t)
+LEGACY2D_COUNT_INT(int32_t, uint32_t, uint32_t)
+LEGACY2D_COUNT_INT(long long, unsigned long long, unsigned long long)
+#undef LEGACY2D_COUNT_INT
+#define LEGACY2D_COUNT_FLOAT(T, WIDEN)                                                        \
+  template <>                                                                                 \
+  struct Legacy2DCount<T> {                                                                   \
+    using A = float;                                                                          \
+    static __device__ __forceinline__ A widen(T v) { return WIDEN(v); }                       \
+    static __device__ __forceinline__ bool is(A a, int v) { return a == (float)v; }           \
+  };
+LEGACY2D_COUNT_FLOAT(float, (float))
+LEGACY2D_COUNT_FLOAT(__nv_bfloat16, __bfloat162float)
+LEGACY2D_COUNT_FLOAT(__half, __half2float)
+#undef LEGACY2D_COUNT_FLOAT
+
+// The halo of a rectangle of tiles, by thread t of nt: `rows` halo rows
+// from array row r0 (r0 = -1 for a halo over the first tile row), each
+// holding, at hr * rs, the wrapped lead cell at PE - 1, the `cells` cells
+// from column c0 at PE .. PE + cells - 1 and the wrapped trail cell at PE +
+// cells.  Every cell is masked at its own wrapped position: it keeps its
+// value where col <= row, else 0, so a row's middle is one run, lim = R +
+// 1 in wrapped coordinates.  The middle goes in 16-byte pieces by cp.async
+// (PE > 1: `bytes` of it read, the rest zero-filled, no register held),
+// else cell by cell; the lead and trail cells as scalars.  A row's parts
+// (lead, cells / PE pieces, trail) go to consecutive threads, and a
+// thread's row and part advance by nt parts without a division.
+template <typename T, int PE>
+static __device__ __forceinline__ void legacy_ca2d_stage(T* halo, const T* __restrict__ in,
+                                                         int r0, int c0, int n, int rows,
+                                                         int cells, int rs, int t, int nt) {
   const T zero = Dt<T>::from_float(0.f);
-  const int hs = rho + 2;
-  const int wx = blockIdx.x;
-  const int tile = rho * rho;
-  for (int wy = blockIdx.y; wy < h; wy += gridDim.y) {
-    int xb, yb;
-    if (!legacy2d_map(kind, wx, wy, nb, &xb, &yb)) continue;  // uniform in the block
-    __syncthreads();  // the last tile's reads of the halo are done
-    for (int e = threadIdx.x; e < hs * hs; e += blockDim.x) {
-      const int hi = e / hs;
-      int R = yb * rho + hi - 1;
-      int C = xb * rho + (e - hi * hs) - 1;
-      R = R < 0 ? R + n : (R >= n ? R - n : R);
+  const int parts = cells / PE + 2;
+  const int dr = nt / parts, dp = nt - dr * parts;
+  int hr = t / parts, p = t - hr * parts;
+  while (hr < rows) {
+    int R = r0 + hr;
+    R = R < 0 ? R + n : (R >= n ? R - n : R);
+    const T* src = in + (long long)R * n;
+    T* dst = halo + hr * rs;
+    if (p == 0 || p == parts - 1) {  // a wrapped edge cell
+      int C = p == 0 ? c0 - 1 : c0 + cells;
       C = C < 0 ? C + n : (C >= n ? C - n : C);
-      s_halo[e] = C <= R ? in[(long long)R * n + C] : zero;  // off the triangle: dead
+      dst[p == 0 ? PE - 1 : PE + cells] = C <= R ? src[C] : zero;
+    } else {
+      const int xs = c0 + (p - 1) * PE;  // the part's first cell
+      int cnt = R + 1 - xs;              // its live cells
+      cnt = cnt < 0 ? 0 : (cnt > PE ? PE : cnt);
+      if constexpr (PE > 1) {
+        const unsigned s = (unsigned)__cvta_generic_to_shared(dst + p * PE);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                     "l"(cnt ? src + xs : in), "r"(cnt * (int)sizeof(T))
+                     : "memory");
+      } else {
+        dst[p] = cnt ? src[xs] : zero;
+      }
     }
+    p += dp;
+    hr += dr;
+    if (p >= parts) p -= parts, ++hr;
+  }
+}
+
+// XW cells of T read or written as one access.
+template <typename T, int XW>
+struct alignas(XW * sizeof(T)) Legacy2DCells {
+  T v[XW];
+};
+
+// One halo row's sums along x at a lane's XW cells p[0..XW-1]: R[i] =
+// (h[i-1] + h[i]) + h[i+1] in the count's type.  The cell left of the
+// first comes from the lane before (the last of its cells), or from
+// shared memory where `lsm` (the first lane of a row); the cell right of
+// the last likewise from the lane after, or from shared memory where
+// `rsm`.  Every lane of the warp calls it together.
+template <typename T, int XW>
+static __device__ __forceinline__ void legacy_ca2d_row(const T* p, bool lsm, bool rsm,
+                                                       typename Legacy2DCount<T>::A (&r)[XW],
+                                                       T (&cells)[XW]) {
+  using C = Legacy2DCount<T>;
+  using A = typename C::A;
+  const Legacy2DCells<T, XW> v = *reinterpret_cast<const Legacy2DCells<T, XW>*>(p);
+  A h[XW];
+#pragma unroll
+  for (int i = 0; i < XW; ++i) {
+    cells[i] = v.v[i];
+    h[i] = C::widen(v.v[i]);
+  }
+  const A up = __shfl_up_sync(LEGACY2D_FULL, h[XW - 1], 1);
+  const A down = __shfl_down_sync(LEGACY2D_FULL, h[0], 1);
+  const A left = lsm ? C::widen(p[-1]) : up;
+  const A right = rsm ? C::widen(p[XW]) : down;
+#pragma unroll
+  for (int i = 0; i < XW; ++i)
+    r[i] = ((i == 0 ? left : h[i - 1]) + h[i]) + (i == XW - 1 ? right : h[i + 1]);
+}
+
+// The count and the rule over one warp's tile at element (gy0, gx0), its
+// halo row 0 (tile row -1) at org with the tile's first cell at org[0],
+// rows rs apart.  Work item it = (segment seg, chunk c of the row's
+// pieces), the chunk fastest: a lane group of lr lanes takes the pieces xp
+// = c * lr + li of every tile row and walks y over seg * ys .. (seg + 1) *
+// ys - 1 with the row sums before, at and after its row in registers; the
+// count is ((R[y-1] + R[y]) + R[y+1]) - centre.  Items go to the lane
+// groups in turns; lanes without one still take part in the shuffles.
+template <typename T, int XW>
+static __device__ __forceinline__ void legacy_ca2d_count(T* __restrict__ out, const T* org,
+                                                         int gy0, int gx0, int n, int rho,
+                                                         int rs, int ys) {
+  using C = Legacy2DCount<T>;
+  using A = typename C::A;
+  const int lane = threadIdx.x & 31;
+  const int vr = rho / XW;  // pieces a tile row
+  const int lr = vr < 32 ? vr : 32, groups = 32 / lr;
+  const int gi = lane / lr, li = lane - gi * lr;
+  const int chunks = (vr + 31) / 32;
+  const int items = rho / ys * chunks;
+  const T zero = Dt<T>::from_float(0.f), one = Dt<T>::from_float(1.f);
+  for (int base = 0; base < items; base += groups) {
+    int r = base + gi;
+    bool act = gi < groups && r < items;
+    if (!act) r = 0;
+    const int seg = chunks == 1 ? r : r / chunks, c = r - seg * chunks;
+    int xp = c * lr + li;
+    act = act && xp < vr;
+    if (!act) xp = 0;
+    const bool lsm = li == 0, rsm = li == lr - 1 || xp == vr - 1;
+    const int yb = seg * ys;
+    const T* col = org + yb * rs + xp * XW;  // halo row yb holds tile row yb - 1
+    A below[XW], at[XW], above[XW];
+    T cen[XW], next[XW];
+    legacy_ca2d_row<T, XW>(col, lsm, rsm, below, next);
+    legacy_ca2d_row<T, XW>(col + rs, lsm, rsm, at, cen);
+    const int gx = gx0 + xp * XW;
+    for (int y = yb; y < yb + ys; ++y) {
+      legacy_ca2d_row<T, XW>(col + (y - yb + 2) * rs, lsm, rsm, above, next);
+      const int gy = gy0 + y;
+      const int run = gy + 1 - gx;  // cells on the triangle from gx on
+      if (act && run > 0) {
+        Legacy2DCells<T, XW> res;
+#pragma unroll
+        for (int i = 0; i < XW; ++i) {
+          const A neigh = ((below[i] + at[i]) + above[i]) - C::widen(cen[i]);
+          const bool three = C::is(neigh, 3);
+          const bool alive = (Dt<T>::eq(cen[i], 0) && three) ||
+                             (Dt<T>::eq(cen[i], 1) && (C::is(neigh, 2) || three));
+          res.v[i] = alive ? one : zero;
+        }
+        T* dst = out + (long long)gy * n + gx;
+        if (run >= XW) {
+          *reinterpret_cast<Legacy2DCells<T, XW>*>(dst) = res;
+        } else {
+#pragma unroll
+          for (int i = 0; i < XW; ++i)
+            if (i < run) dst[i] = res.v[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < XW; ++i) {
+        below[i] = at[i];
+        at[i] = above[i];
+        cen[i] = next[i];
+      }
+    }
+  }
+}
+
+// The block's tiles at one wy in the state's type, PE cells a staging
+// piece and XW a lane.  Where its tiles line up the block stages one halo:
+// side by side, (rho+2) rows of cnt * rho cells at stride rs; stacked,
+// (cnt * rho + 2) rows of rho cells at stride rs1; each warp counts its
+// tile from it.  Otherwise each warp with a tile stages its own (rho+2)^2
+// halo in one of `slots` slices (`slice` elements each), `slots` warps a
+// round.  `dirty`: the block's shared memory holds an earlier grid row's
+// halo, which its warps may still read.
+template <typename T, int PE, int XW>
+static __device__ __forceinline__ void legacy_ca2d_tiles(T* __restrict__ out,
+                                                         const T* __restrict__ in, T* halo,
+                                                         const Legacy2DBlock& b, bool dirty,
+                                                         int n, int rho, int rs, int rs1, int ys,
+                                                         int slice, int slots) {
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const bool shared = b.mode != LEGACY2D_ALONE;
+  if (shared) {
+    const bool stack = b.mode == LEGACY2D_STACK;
+    const int stride = stack ? rs1 : rs;
+    if (dirty) __syncthreads();
+    legacy_ca2d_stage<T, PE>(halo, in, b.y0 * rho - 1, b.x0 * rho, n,
+                             (stack ? b.cnt : 1) * rho + 2, (stack ? 1 : b.cnt) * rho, stride,
+                             threadIdx.x, blockDim.x);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
-    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-      const int i = e / rho;
-      const int j = e - i * rho;
-      const int r = yb * rho + i;
-      const int c = xb * rho + j;
-      if (c > r) continue;
-      const T* q = s_halo + (i + 1) * hs + (j + 1);
-      const T centre = q[0];
-      // the reference's order (rows, then columns), in the state's own type
-      T neigh = Dt<T>::add(Dt<T>::add(Dt<T>::add(q[-hs - 1], q[-hs]), q[-hs + 1]), q[-1]);
-      neigh = Dt<T>::add(Dt<T>::add(Dt<T>::add(Dt<T>::add(neigh, q[1]), q[hs - 1]), q[hs]),
-                         q[hs + 1]);
-      const bool three = Dt<T>::eq(neigh, 3);
-      const bool alive = (Dt<T>::eq(centre, 0) && three) ||
-                         (Dt<T>::eq(centre, 1) && (Dt<T>::eq(neigh, 2) || three));
-      out[(long long)r * n + c] = Dt<T>::from_float(alive ? 1.f : 0.f);
+    if (warp < b.cnt)
+      legacy_ca2d_count<T, XW>(out, halo + (stack ? warp * rho * stride : warp * rho) + PE,
+                               b.yb * rho, b.xb * rho, n, rho, stride, ys);
+    return;
+  }
+  const bool mine = (b.valid >> warp) & 1;
+  const int rounds = (warps + slots - 1) / slots;
+  for (int round = 0; round < rounds; ++round) {
+    const int at = warp - round * slots;  // the warp's slice in this round
+    if (dirty || round > 0) __syncthreads();  // the slices are free again
+    if (mine && at >= 0 && at < slots) {
+      T* mem = halo + at * slice;
+      legacy_ca2d_stage<T, PE>(mem, in, b.yb * rho - 1, b.xb * rho, n, rho + 2, rho, rs1,
+                               threadIdx.x & 31, 32);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncwarp();
+      legacy_ca2d_count<T, XW>(out, mem + PE, b.yb * rho, b.xb * rho, n, rho, rs1, ys);
     }
   }
 }
 
-// dtype: a code of dtypes.cuh that CA takes, switched once at the top into
-// a body typed throughout.
-__global__ void legacy_ca2d_kernel(void* __restrict__ out, const void* __restrict__ in,
-                                   int dtype, int kind, int nb, int h, int n, int rho) {
+// One grid row at a time: every warp maps the block's grid points
+// (legacy2d_block), a block with no tile goes on to its next row before
+// any barrier, and the dtype is switched once into the typed tiles.  WIDE
+// = 1 serves the states whose count takes more registers (int64's 64-bit
+// sums, bfloat16 and float16 widened to float32) under a cap of
+// LEGACY2D_CA_BLOCKS_WIDE blocks an SM; WIDE = 0 the others under
+// LEGACY2D_CA_BLOCKS.
+template <int WIDE>
+__global__ void __launch_bounds__(LEGACY2D_WARPS * 32,
+                                  WIDE ? LEGACY2D_CA_BLOCKS_WIDE : LEGACY2D_CA_BLOCKS)
+legacy_ca2d_kernel(void* __restrict__ out, const void* __restrict__ in, int dtype, int kind,
+                   int nb, int w, int h, int n, int rho, int vec, int rs, int rs1, int ys,
+                   int slice, int slots) {
   extern __shared__ __align__(16) unsigned char s_raw[];
-#define LEGACY_CA2D_BODY(T) \
-  legacy_ca2d_body<T>(static_cast<T*>(out), static_cast<const T*>(in), kind, nb, h, n, rho, s_raw)
-  SIMPLEX_SWITCH_CA_DTYPE(dtype, LEGACY_CA2D_BODY)
-#undef LEGACY_CA2D_BODY
+  const int warps = blockDim.x >> 5;
+  bool dirty = false;
+  for (int wy = blockIdx.y; wy < h; wy += gridDim.y) {
+    const Legacy2DBlock b = legacy2d_block(kind, blockIdx.x * warps, wy, w, nb, warps);
+    if (!b.valid) continue;  // uniform in the block
+#define LEGACY_CA2D_TILES(T)                                                               \
+  if (vec)                                                                                 \
+    legacy_ca2d_tiles<T, 16 / sizeof(T), sizeof(T) == 8 ? 2 : 4>(                          \
+        static_cast<T*>(out), static_cast<const T*>(in), reinterpret_cast<T*>(s_raw), b,   \
+        dirty, n, rho, rs, rs1, ys, slice, slots);                                         \
+  else                                                                                     \
+    legacy_ca2d_tiles<T, 1, 1>(static_cast<T*>(out), static_cast<const T*>(in),            \
+                               reinterpret_cast<T*>(s_raw), b, dirty, n, rho, rs, rs1, ys, \
+                               slice, slots)
+    if constexpr (WIDE) {
+      switch (dtype) {
+        case SIMPLEX_I64: LEGACY_CA2D_TILES(long long); break;
+        case SIMPLEX_BF16: LEGACY_CA2D_TILES(__nv_bfloat16); break;
+        default: LEGACY_CA2D_TILES(__half); break;
+      }
+    } else {
+      switch (dtype) {
+        case SIMPLEX_I32: LEGACY_CA2D_TILES(int32_t); break;
+        case SIMPLEX_F32: LEGACY_CA2D_TILES(float); break;
+        case SIMPLEX_I8: LEGACY_CA2D_TILES(int8_t); break;
+        case SIMPLEX_U8: LEGACY_CA2D_TILES(uint8_t); break;
+        default: LEGACY_CA2D_TILES(int16_t); break;
+      }
+    }
+#undef LEGACY_CA2D_TILES
+    dirty = true;
+  }
 }
 
-// dtype: a code of dtypes.cuh that CA takes (kernels/policy.py DTYPE_CODES).
-extern "C" int legacy_ca2d_launch(void* out, const void* in, int dtype, int kind, int nb,
-                                  int n, int rho, void* stream) {
-  dim3 grid;
-  int h, threads;
-  if (!dt_ca_ok(dtype) || !legacy2d_tile_launch(kind, nb, n, rho, &grid, &h, &threads))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)dt_bytes(dtype) * (size_t)(rho + 2) * (rho + 2);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        legacy_ca2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// Host: whether a CA dtype code takes the WIDE kernel.
+static inline bool legacy_ca2d_wide(int dtype) {
+  return dtype == SIMPLEX_I64 || dtype == SIMPLEX_BF16 || dtype == SIMPLEX_F16;
+}
+
+// Host: the row stride of a halo `tiles` tiles wide: a lead piece, the
+// cells and a trail piece, two pieces more where the row would be a
+// multiple of four pieces (so that rows read at once fall on distinct banks).
+static int legacy_ca2d_row_stride(int rho, int tiles, int pe, int vec) {
+  const int rs = tiles * rho + 2 * pe;
+  return vec && (rs / pe) % 4 == 0 ? rs + 2 * pe : rs;
+}
+
+static size_t legacy2d_round16(size_t bytes) { return (bytes + 15) & ~(size_t)15; }
+
+// Host: the block's layout, as kernels/legacy.py CA2DKernel.layout states
+// it: the warps a block (LEGACY2D_WARPS, fewer where the side-by-side or
+// stacked halo would pass LEGACY2D_CA_BUDGET), the side-by-side halo's
+// row stride rs and a one-tile-wide halo's rs1 (stacked tiles and the
+// slices; elements), ys (rows a lane walks), one slice's elements, the
+// slices the block's memory holds (every warp's where they fit the
+// budget) and that memory in bytes.  False where one slice does not fit.
+static bool legacy_ca2d_layout(int rho, int size, int vec, int* warps, int* rs, int* rs1,
+                               int* ys, int* slice, int* slots, size_t* smem) {
+  const int pe = vec ? 16 / size : 1, xw = vec ? (size == 8 ? 2 : 4) : 1;
+  *rs1 = legacy_ca2d_row_stride(rho, 1, pe, vec);
+  const size_t one = legacy2d_round16((size_t)(rho + 2) * *rs1 * size);
+  if (one > LEGACY2D_BLOCK_SMEM) return false;
+  *slice = (int)(one / size);
+  size_t halo = one;
+  for (*warps = LEGACY2D_WARPS; *warps >= 1; --*warps) {
+    *rs = legacy_ca2d_row_stride(rho, *warps, pe, vec);
+    const size_t side = legacy2d_round16((size_t)(rho + 2) * *rs * size);
+    const size_t stack = legacy2d_round16((size_t)(*warps * rho + 2) * *rs1 * size);
+    halo = side > stack ? side : stack;
+    if (*warps == 1 || halo <= LEGACY2D_CA_BUDGET) break;
   }
-  legacy_ca2d_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(out, in, dtype, kind, nb,
-                                                                    h, n, rho);
+  if (*warps * one <= LEGACY2D_CA_BUDGET && *warps * one > halo) halo = *warps * one;
+  *slots = (int)(halo / one) < *warps ? (int)(halo / one) : *warps;
+  *smem = halo;
+  const int vr = rho / xw, lr = vr < 32 ? vr : 32, chunks = (vr + 31) / 32;
+  *ys = 1;
+  for (int s = 1; s <= rho; ++s)
+    if (rho % s == 0 && s * chunks >= 32 / lr) {
+      *ys = rho / s;
+      break;
+    }
+  return true;
+}
+
+// dtype: a code of dtypes.cuh that CA takes (kernels/policy.py
+// DTYPE_CODES); vec: 1 for 16-byte pieces (kernels/legacy.py
+// CA2DKernel.vector_access), 0 for single cells.  The grid is (ceil(w /
+// warps), min(h, 65535)).
+extern "C" int legacy_ca2d_launch(void* out, const void* in, int dtype, int kind, int nb,
+                                  int n, int rho, int vec, void* stream) {
+  int w, h, warps, rs, rs1, ys, slice, slots;
+  size_t smem;
+  if (!dt_ca_ok(dtype) || !legacy2d_tile_launch(kind, nb, n, rho, &w, &h))
+    return (int)cudaErrorInvalidValue;
+  const int size = dt_bytes(dtype);
+  if (vec && ((((uintptr_t)out | (uintptr_t)in) & 15) || (rho * size) % 16))
+    return (int)cudaErrorInvalidValue;
+  if (!legacy_ca2d_layout(rho, size, vec, &warps, &rs, &rs1, &ys, &slice, &slots, &smem))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + warps - 1) / warps, h < 65535 ? h : 65535);
+  cudaStream_t s = (cudaStream_t)stream;
+#define LEGACY_CA2D(W)                                                                      \
+  do {                                                                                      \
+    if (smem > 48 * 1024) {                                                                 \
+      cudaError_t e = cudaFuncSetAttribute(                                                 \
+          legacy_ca2d_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);   \
+      if (e != cudaSuccess) return (int)e;                                                  \
+    }                                                                                       \
+    legacy_ca2d_kernel<W><<<grid, warps * 32, smem, s>>>(out, in, dtype, kind, nb, w, h, n, \
+                                                        rho, vec, rs, rs1, ys, slice, slots); \
+  } while (0)
+  if (legacy_ca2d_wide(dtype))
+    LEGACY_CA2D(1);
+  else
+    LEGACY_CA2D(0);
+#undef LEGACY_CA2D
   return (int)cudaGetLastError();
 }

@@ -294,10 +294,13 @@ class Accum2DKernel(_Legacy):
 
     def kernel_(self, buf: torch.Tensor, sched, rho: int) -> None:
         """+1 on the triangle of each visited tile of ``buf``, in place
-        (``legacy2d.cu``)."""
+        (``legacy2d.cu``: a warp per grid point, 8 a block; 16-byte pieces
+        where ``legacy_vector_access`` says so, single elements
+        elsewhere)."""
         code = _check_launch(self.name, sched, rho, buf, ACCUM_DTYPES)
+        vec = legacy_vector_access(rho, buf.element_size(), buf.data_ptr())
         self._launch("legacy_accum2d_launch", buf.device, buf.data_ptr(),
-                     DTYPE_CODES[buf.dtype], code, sched.n, buf.shape[0], rho)
+                     DTYPE_CODES[buf.dtype], code, sched.n, buf.shape[0], rho, int(vec))
 
 
 ACCUM2D = Accum2DKernel()
@@ -461,6 +464,15 @@ def edm2d(p, rho: int = 8, kind: str = "auto", device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _halo_row(rho: int, tiles: int, pe: int, vec: bool) -> int:
+    """A CA original's halo row stride (``legacy2d.cu``, ``legacy_md.cu``):
+    a lead piece, ``tiles * rho`` cells, a trail piece; two pieces more
+    where that is a multiple of four pieces (so that rows read at once fall
+    on distinct banks)."""
+    rs = tiles * rho + 2 * pe
+    return rs + 2 * pe if vec and (rs // pe) % 4 == 0 else rs
+
+
 class CA2DKernel(_Legacy):
     """CA: one B3/S23 step on the triangle of a periodic square.
 
@@ -470,12 +482,75 @@ class CA2DKernel(_Legacy):
     """
 
     name = "ca2d"
+    # legacy2d.cu: grid points (warps) a block at most, a shared halo's
+    # bytes at most
+    WARPS, BUDGET = 8, 56 * 1024
 
-    @staticmethod
-    def smem_bytes(rho: int, itemsize: int = 4) -> int:
-        """Shared memory of one block: the ``(rho+2)^2`` halo of
-        ``itemsize``-byte cells."""
-        return itemsize * (rho + 2) ** 2
+    @classmethod
+    def layout(cls, rho: int, itemsize: int, vec: bool) -> dict:
+        """``legacy2d.cu``'s block (``legacy_ca2d_layout``).
+
+        Returns:
+            ``pe`` cells a staging piece (16 bytes on the vector path, else
+            1), ``xw`` cells a lane counts at once, ``warps`` a block (8,
+            fewer where the side-by-side or stacked halo would pass
+            ``BUDGET``), ``rs`` the side-by-side halo's row stride, ``rs1``
+            a one-tile-wide halo's (stacked tiles and the slices), ``ys``
+            the rows a lane walks, ``slice`` a slice's elements (16-byte
+            rounded), ``slots`` the slices the block's memory holds and
+            ``smem`` that memory in bytes (0 where one slice does not fit a
+            block).
+
+        Example:
+            >>> L = CA2DKernel.layout(16, 4, True)
+            >>> [L[k] for k in ("pe", "xw", "warps", "rs", "rs1", "ys", "slice", "slots", "smem")]
+            [4, 4, 8, 136, 24, 2, 432, 8, 13824]
+            >>> CA2DKernel.layout(64, 4, True)["warps"], CA2DKernel.layout(3, 4, False)["ys"]
+            (3, 1)
+        """
+        pe = 16 // itemsize if vec else 1
+        xw = (2 if itemsize == 8 else 4) if vec else 1
+        rs1 = _halo_row(rho, 1, pe, vec)
+        one = -(-(rho + 2) * rs1 * itemsize // 16) * 16
+        for warps in range(cls.WARPS, 0, -1):
+            rs = _halo_row(rho, warps, pe, vec)
+            side = -(-(rho + 2) * rs * itemsize // 16) * 16
+            stack = -(-(warps * rho + 2) * rs1 * itemsize // 16) * 16
+            halo = max(side, stack)
+            if warps == 1 or halo <= cls.BUDGET:
+                break
+        if halo < warps * one <= cls.BUDGET:
+            halo = warps * one
+        vr = rho // xw
+        lr, chunks = min(vr, 32), -(-vr // 32)
+        ys = next((rho // s for s in range(1, rho + 1)
+                   if rho % s == 0 and s * chunks >= 32 // lr), 1)
+        return dict(pe=pe, xw=xw, warps=warps, rs=rs, rs1=rs1, ys=ys, slice=one // itemsize,
+                    slots=min(warps, halo // one), smem=halo if one <= SMEM_LIMIT else 0)
+
+    @classmethod
+    def smem_bytes(cls, rho: int, itemsize: int = 4, vec: bool = False) -> int:
+        """The least shared memory a block of the kernel needs: one tile's
+        ``(rho+2)^2`` halo of ``itemsize``-byte cells as ``layout`` lays it
+        out (on single cells, ``itemsize * (rho+2)^2`` rounded to 16 bytes)."""
+        rs1 = _halo_row(rho, 1, 16 // itemsize if vec else 1, vec)
+        return -(-(rho + 2) * rs1 * itemsize // 16) * 16
+
+    @classmethod
+    def vector_access(cls, rho: int, itemsize: int, out_ptr: int, in_ptr: int) -> bool:
+        """Whether the kernel stages, reads and stores 16-byte pieces: a
+        fixed rule, ``legacy_vector_access`` for both buffers and one
+        tile's halo of that layout fitting a block.
+
+        Example:
+            >>> CA2DKernel.vector_access(16, 4, 0, 64), CA2DKernel.vector_access(16, 4, 0, 4)
+            (True, False)
+            >>> CA2DKernel.vector_access(8, 1, 0, 0), CA2DKernel.vector_access(2, 8, 0, 0)
+            (False, True)
+        """
+        return (legacy_vector_access(rho, itemsize, out_ptr)
+                and legacy_vector_access(rho, itemsize, in_ptr)
+                and cls.smem_bytes(rho, itemsize, True) <= SMEM_LIMIT)
 
     def plain_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
         """Step the triangle of each visited tile from ``inp`` into ``out``."""
@@ -498,7 +573,8 @@ class CA2DKernel(_Legacy):
 
     def kernel_(self, out: torch.Tensor, inp: torch.Tensor, sched, rho: int) -> None:
         """Step the triangle of each visited tile from ``inp`` into ``out``
-        (``legacy2d.cu``); ``out`` must not alias ``inp``."""
+        (``legacy2d.cu``: 16-byte pieces where ``vector_access`` says so,
+        single cells elsewhere); ``out`` must not alias ``inp``."""
         code = _check_launch(self.name, sched, rho, inp, CA_DTYPES,
                              self.smem_bytes(rho, inp.element_size()))
         if out.shape != inp.shape or out.dtype != inp.dtype:
@@ -508,8 +584,9 @@ class CA2DKernel(_Legacy):
         if out.device != inp.device or out.data_ptr() == inp.data_ptr():
             raise ValueError(f"{self.name}: the kernel reads one buffer and writes "
                              "another on the same device")
+        vec = self.vector_access(rho, inp.element_size(), out.data_ptr(), inp.data_ptr())
         self._launch("legacy_ca2d_launch", inp.device, out.data_ptr(), inp.data_ptr(),
-                     DTYPE_CODES[inp.dtype], code, sched.n, inp.shape[0], rho)
+                     DTYPE_CODES[inp.dtype], code, sched.n, inp.shape[0], rho, int(vec))
 
 
 CA2D = CA2DKernel()
@@ -640,12 +717,14 @@ def _desc_args(sched, device) -> tuple:
 
 
 def legacy_vector_access(rho: int, itemsize: int, data_ptr: int) -> bool:
-    """Whether ``legacy_md.cu``'s ACCUM reads and writes 16-byte pieces
-    of a tile row (else single elements): a fixed rule, true when a row of
-    ``rho`` elements of ``itemsize`` bytes is a whole number of pieces and
-    the array starts on a 16-byte boundary (then every tile row does,
-    since ``rho`` divides the side).  ``CA3D.vector_access`` applies it to
-    both of its buffers; ``edm2d`` to a point's ``d`` float32 coordinates.
+    """Whether the ACCUM originals (``accum2d`` in ``legacy2d.cu``,
+    ``accum3d`` and ``accum_md`` in ``legacy_md.cu``) read and write
+    16-byte pieces of a tile row (else single elements): a fixed rule, true
+    when a row of ``rho`` elements of ``itemsize`` bytes is a whole number
+    of pieces and the array starts on a 16-byte boundary (then every tile
+    row does, since ``rho`` divides the side).  ``CA2D.vector_access`` and
+    ``CA3D.vector_access`` apply it to both of their buffers; ``edm2d`` to
+    a point's ``d`` float32 coordinates.
 
     Example:
         >>> legacy_vector_access(8, 4, 0), legacy_vector_access(3, 4, 0)
@@ -794,13 +873,6 @@ class CA3DKernel(_Legacy):
     # the warps' table in front of the halo
     WARPS, BUDGET, TABLE = 8, 56 * 1024, 16 * 8
 
-    @staticmethod
-    def _row(rho: int, tiles: int, pe: int, vec: bool) -> int:
-        """A halo row's stride: a lead piece, ``tiles * rho`` cells, a trail
-        piece; two pieces more where that is a multiple of four pieces."""
-        rs = tiles * rho + 2 * pe
-        return rs + 2 * pe if vec and (rs // pe) % 4 == 0 else rs
-
     @classmethod
     def layout(cls, rho: int, itemsize: int, vec: bool) -> dict:
         """``legacy_md.cu``'s block (``legacy_ca3d_layout``).
@@ -825,10 +897,10 @@ class CA3DKernel(_Legacy):
         pe = 16 // itemsize if vec else 1
         xw = (2 if itemsize == 8 else 4) if vec else 1
         rows = (rho + 2) ** 2
-        rs1 = cls._row(rho, 1, pe, vec)
+        rs1 = _halo_row(rho, 1, pe, vec)
         one = -(-rows * rs1 * itemsize // 16) * 16
         for warps in range(cls.WARPS, 0, -1):
-            rs = cls._row(rho, warps, pe, vec)
+            rs = _halo_row(rho, warps, pe, vec)
             halo = -(-rows * rs * itemsize // 16) * 16
             if warps == 1 or halo <= cls.BUDGET:
                 break
@@ -846,7 +918,7 @@ class CA3DKernel(_Legacy):
         table and one warp's ``(rho+2)^3`` halo of ``itemsize``-byte cells
         as ``layout`` lays it out."""
         rows = (rho + 2) ** 2
-        return cls.TABLE + -(-rows * cls._row(rho, 1, 16 // itemsize if vec else 1, vec)
+        return cls.TABLE + -(-rows * _halo_row(rho, 1, 16 // itemsize if vec else 1, vec)
                              * itemsize // 16) * 16
 
     @classmethod
