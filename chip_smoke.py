@@ -92,8 +92,14 @@ coordinates into element origins.  This script
    of nb = 16384 (134,209,536 blocks, rho = 16) through
    ``hmap_mxu.hmap2_coords_mxu``; holds it bit for bit against its plain
    version and against ``rho * hmap2(wx, wy)`` in int64, and a case with
-   outputs above 2^24 (where float32 rounds) against int64 arithmetic;
-   reads the counter and times the kernel and its plain version;
+   outputs above 2^24 (where float32 rounds) against int64 arithmetic,
+   then ``MXU_EDGES`` (a view 8 bytes off a 16-byte boundary, T = 128, a T
+   that leaves the last block of warps partial, negative ``wx`` and
+   ``wy <= 0``, a large ``rho``), each one launch, bit-equal to its plain
+   version and to int64 arithmetic (``mxu check`` lines); the kernel must
+   keep no stack frame and spill nothing (``mxu frame`` line); reads the
+   counter and times the kernel, its plain version and one ``copy_`` of
+   the same bytes, the practical ceiling (``mxu copy`` line);
 8. dtypes: sets every counter to 0 and drives ACCUM (int8, uint8, int16,
    bfloat16, float16, with values at each type's edge: integers wrap,
    16-bit floats round), CA (int8, uint8, int16, int64, bfloat16,
@@ -443,6 +449,18 @@ LEGACY_EDM_ODD = (1536, 6, 5)
 # The tensor-core H map: the whole hmap2 grid of nb tiles a side,
 # (wx, wy) for wx < nb/2 and 1 <= wy < nb, in elements of rho.
 MXU_NB, MXU_RHO = 16384, 16
+# The tensor-core map's edge cases, each one launch: (label, T, bytes the
+# input lies past a 16-byte boundary, wx range, wy range, rho).  T =
+# 128 * 10001 leaves the last block of 8 warps with one group of 128; a
+# large rho takes outputs past int32, wrapped.
+MXU_EDGES = (("view 8 bytes off", 128 * 4099, 8, (0, 1 << 20), (1, 1 << 20), 16),
+             ("T=128", 128, 0, (0, 1 << 12), (1, 1 << 12), 16),
+             ("partial last block", 128 * 10001, 0, (0, 1 << 20), (1, 1 << 20), 16),
+             ("negative wx, wy <= 0", 128 * 1031, 0, (-(1 << 30), 1 << 30), (-64, 1 << 20), 1),
+             ("negative wx, 8 bytes off", 128 * 1031, 8, (-(1 << 26), 1 << 26), (-64, 1 << 10),
+              16),
+             ("large rho, wrapped", 128 * 64, 0, (-(1 << 20), 1 << 20), (-8, 1 << 20),
+              (1 << 17) + 3))
 
 # Serving: full-width yi-6b, batch 4, prompt 2048 (16 query tiles of 128).
 SERVE_ARGV = ["--arch", "yi-6b", "--batch", "4", "--prompt-len", "2048", "--gen", "16",
@@ -1646,6 +1664,28 @@ class MxuSmoke:
              f"arithmetic={ok}")
         if not ok:
             self.s.fail("hmap_mxu above 2^24 against int64 arithmetic")
+        for i, (label, t, lead, wxs, wys, r) in enumerate(MXU_EDGES):
+            self.edge(91 + i, label, t, lead, wxs, wys, r)
+
+    def edge(self, salt, label, t, lead, wxs, wys, rho) -> None:
+        """One of ``MXU_EDGES``: ``T`` random blocks, the input ``lead``
+        bytes past a 16-byte boundary, every tenth ``wy`` at 0."""
+        torch, dev = self.torch, self.s.dev
+        g = self.s.gen(salt)
+        store = torch.empty(t + 2, 2, dtype=torch.int32, device=dev)
+        wxy = store[lead // 8:lead // 8 + t]
+        wxy[:, 0] = torch.randint(*wxs, (t,), generator=g, device=dev, dtype=torch.int32)
+        wxy[:, 1] = torch.randint(*wys, (t,), generator=g, device=dev, dtype=torch.int32)
+        wxy[::10, 1] = 0
+        out = self.call(label, wxy, rho)
+        plain = torch.equal(out, self.mxu.HMAP_MXU.plain(wxy, rho))
+        want = self.int64(wxy, rho)
+        exact = torch.equal(out, ((want + 2**31) % 2**32 - 2**31).to(torch.int32))  # wrapped
+        _log(f"mxu check {label}: T={t} input {wxy.data_ptr() % 16} bytes past 16, "
+             f"rho={rho}, min wx {int(wxy[:, 0].min())}, min wy {int(wxy[:, 1].min())}: "
+             f"equal to the plain version={plain}, to int64 arithmetic={exact}")
+        if not (plain and exact):
+            self.s.fail(f"hmap_mxu {label} against the plain version or int64 arithmetic")
 
     def timings(self) -> None:
         """Kernel and plain version on the full grid; the bound is 16 bytes
@@ -1654,6 +1694,11 @@ class MxuSmoke:
         wxy = self.grid()
         k = self.mxu.HMAP_MXU
         self.row["ms"] = self.s.time_ms(lambda: k.kernel(wxy, rho))
+        dst = torch.empty_like(wxy)
+        copy_ms = self.s.time_ms(lambda: dst.copy_(wxy))
+        del dst
+        _log(f"mxu copy nb={MXU_NB}: one copy_ of the same {2 * wxy.numel() * 4} bytes "
+             f"ms={copy_ms:.4f}, the kernel's ms over it {self.row['ms'] / copy_ms:.3f}")
         self.row["plain_ms"] = self.s.time_ms(lambda: k.plain(wxy, rho), runs=3, warm=1)
         self.row["bound_ms"] = len(wxy) * 16 / HBM_BYTES_PER_S * 1e3
         self.row["bound_by"] = "bytes"
@@ -3997,6 +4042,12 @@ def main(argv=None) -> int:
         if frame != [(0, 0, 0)]:
             smoke.fail(f"ptxas: {kernel} keeps a stack frame or spills {frame} "
                        "(want [(0, 0, 0)])")
+    mxu_frame = [(r.get("stack"), r.get("spill_stores"), r.get("spill_loads"))
+                 for r in records if kernel_name(r["name"]) == "hmap2_coords_mxu_kernel"]
+    _log(f"mxu frame hmap2_coords_mxu_kernel: (stack, spill stores, spill loads) {mxu_frame}")
+    if mxu_frame != [(0, 0, 0)]:
+        smoke.fail(f"ptxas: hmap2_coords_mxu_kernel keeps a stack frame or spills {mxu_frame} "
+                   "(want [(0, 0, 0)])")
     old = LegacySmoke(smoke, legacy)
     old_md = LegacyMdSmoke(smoke, legacy)
     mxu = MxuSmoke(smoke, hmap_mxu, hmap)

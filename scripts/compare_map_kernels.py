@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time every kernel on the device map from two source trees in turns on
 one card: MAP, ACCUM, CA, EDM, the m >= 3 originals and the 2-D ACCUM,
-EDM and CA originals.
+EDM and CA originals; and the tensor-core map.
 
 Two calls to the card may land on two cards with other power limits, so
 a change to ``kernels/csrc/simplex_maps.cuh`` or to one of its users is
 compared with its base inside one process: the users' sources
 (``map.cu``, ``accum.cu``, ``ca.cu``, ``edm.cu``, ``legacy_md.cu``,
-``legacy2d.cu``) of each tree are compiled into a library of their own,
+``legacy2d.cu``) and ``hmap_mxu.cu`` of each tree are compiled into a
+library of their own,
 and each case runs base, change, change, base, its time the median of
 ``RUNS`` CUDA-event timed runs after warm-up.  The Python side is this
 tree's, so the base must export the same C entry points
@@ -29,7 +30,8 @@ bb, ``accum_md`` also at m=4 hmap n=64 rho=4; ``ca3d`` at m=3 n=1024
 rho=8 for hmap, octant, table and bb and at n=960 for composite and bb;
 ``edm2d`` at m=2 n=16384 rho=16, d=64, float32, for hmap, rb and bb;
 ``accum2d`` and ``ca2d`` (0/1 states of density 0.35) at m=2 n=16384
-rho=16, int32, for hmap, rb and bb.  Each
+rho=16, int32, for hmap, rb and bb; the tensor-core map over the hmap2
+grid of nb=16384 at rho=16 (134,209,536 blocks).  Each
 prints ``compare <case> base=<ms>/<ms> change=<ms>/<ms>`` (both runs of
 each) and the change's time over the base's.
 
@@ -52,7 +54,7 @@ import sys
 import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-USERS = ("map.cu", "accum.cu", "ca.cu", "edm.cu", "legacy_md.cu", "legacy2d.cu")
+USERS = ("map.cu", "accum.cu", "ca.cu", "edm.cu", "legacy_md.cu", "legacy2d.cu", "hmap_mxu.cu")
 RUNS = 10
 # (m, n, rho, kind, split) of the ACCUM originals, int32.
 LEGACY_ACCUM_CASES = (
@@ -104,6 +106,7 @@ def main(argv=None) -> int:
         print("compare_map_kernels.py: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build, engine, legacy
+    from repro_torch.kernels import hmap_mxu as TM
 
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build"))
@@ -302,6 +305,16 @@ def main(argv=None) -> int:
                 lambda: out.clone())
         del st, out
         torch.cuda.empty_cache()
+    nb, rho = 16384, 16
+    wy, wx = torch.meshgrid(torch.arange(1, nb, device=dev), torch.arange(nb // 2, device=dev),
+                            indexing="ij")
+    wxy = torch.stack([wx.reshape(-1), wy.reshape(-1)], 1).to(torch.int32)
+    del wx, wy
+    box = {}
+    compare(f"hmap_mxu nb={nb} rho={rho}",
+            lambda: box.__setitem__("out", TM.HMAP_MXU.kernel(wxy, rho)), lambda: box.pop("out"))
+    del wxy, box
+    torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")

@@ -15,8 +15,10 @@ thread (0, 0) inside its block, is zero.
 Two versions of that function:
 
 * ``HMAP_MXU.kernel`` — the CUDA kernel of ``csrc/hmap_mxu.cu`` for CUDA
-  tensors: FP64 ``mma.sync.m8n8k4`` products, exact over int32 (TF32
-  would round coordinates above 2^11); it adds one to ``launches``;
+  tensors: FP64 ``mma.sync.m8n8k4`` products, a warp per 128 blocks with
+  the blocks as A's rows, so each block's ``(x, y)`` comes out whole in
+  one lane; exact over int32 (TF32 would round coordinates above 2^11);
+  it adds one to ``launches``;
 * ``HMAP_MXU.plain`` — the same product ``A @ B`` in float64 tensor ops,
   also exact.  CPU tensors take it; on the card it is the kernel's
   reference and nothing else.
