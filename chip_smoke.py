@@ -189,20 +189,39 @@ coordinates into element origins.  This script
    recurrence decode runs, outputs and final state within ``1e-4 *
    max|want| + 1e-6``, and one sLSTM layer's loop over 2048 tokens timed
    beside xlstm's prefill;
-15. train: ``launch/train.py`` in float32 at full width, yi-6b cut to 4
-   layers (AdamW, batch 4 x seq 2048), internlm2-20b cut to 2 layers
-   (Adafactor, batch 2 x seq 2048) and qwen2-moe-a2.7b cut to 2 layers
-   (AdamW, batch 4 x seq 2048: the balance loss and its gradient through
-   the dispatch, ``aux`` logged with ``ce``), 5 steps on one repeated
-   batch: the
-   first step's loss and global gradient norm with the kernel within
-   ``1e-4`` relative of the plain flash version's on the card; with every
-   counter at 0, ``flash_wgmma`` launched layers x steps times (the
+15. train: ``launch/train.py`` in float32 at full width (``TRAIN_RUNS``,
+   each row's config cut by ``train_config``), yi-6b cut to 4 layers
+   (AdamW, batch 4 x seq 2048), internlm2-20b cut to 2 layers (Adafactor,
+   batch 2 x seq 2048) and qwen2-moe-a2.7b cut to 2 layers (AdamW, batch
+   4 x seq 2048: the balance loss and its gradient through the dispatch,
+   ``aux`` logged with ``ce``), then the five families the card had not
+   trained: jamba-v0.1-52b (one period, 4 of 16 experts, the Mamba scan
+   under autograd, 1 x 1024), deepseek-v3-671b (1 MoE layer, 32 of 256
+   experts, sigmoid router, MLA through the chunked executor, and the MTP
+   head, its share of the loss logged, 1 x 1024), xlstm-350m (24 layers,
+   the sLSTM loop under autograd, 4 x 1024, 3 steps), qwen2-vl-72b (1
+   layer, 2 x 2048 text, then one step of 1024 patch embeddings and 1024
+   tokens through ``run``'s ``batch_at``) and seamless-m4t-large-v2 (24 +
+   24 layers, 1 x 1024 tokens with 1024 frame embeddings through
+   ``batch_at``), 5 steps each (but xlstm) on one repeated batch:
+   each row's peak reckoned on the meta device first
+   (``train_reckoning``: weights, gradients, optimizer state, the
+   activations autograd keeps, the backward's and the update's
+   transients) and logged beside the measured peak, both under 75 GiB;
+   where the row takes the flash kernel, the first step's loss and
+   global gradient norm with the kernel within ``1e-4`` relative of the
+   plain flash version's on the card; with every counter at 0,
+   ``flash_wgmma`` launched the row's flash layers x forward passes (1, 0,
+   0, 1 and 24 a pass for the five: jamba's one attention layer,
+   seamless's decoder self-attention; MLA and xLSTM take none; the
    backward, autograd through ``_reference_attention``, launches none);
    the loss falls; at one layer's attention shape (and at a quarter of
    the sequence with a per-head bias) ``FlashFunction``'s gradients
    within ``1e-6 * max|g|`` of autograd through ``_reference_attention``
-   (bit for bit expected); then yi-6b at 4 layers under remat "dots"
+   (bit for bit expected); one training step of the row's reduced
+   config, its weights made on the CPU, on the card against the CPU (batch
+   2, 256 positions): the loss and every gradient leaf's norm within
+   ``1e-4`` relative; then yi-6b at 4 layers under remat "dots"
    (AdamW, batch 4 x seq 2048): one step under "none", "full" and "dots"
    (each step's peak memory and flash launches logged), then 5 steps
    under "dots", the first within ``1e-4`` of "none"'s, the loss falling,
@@ -249,10 +268,13 @@ coordinates into element origins.  This script
     point's defaults (``kind='auto'``, ``split=None``) do not launch the
     pick;
 21. attn_tuner: at the serve shape in float32 and bfloat16 and at S 2080
-    in bfloat16, prints ``choose_attn_impl``'s decision, times
+    in bfloat16, prints ``choose_attn_impl``'s decision and the kernel,
+    ``block_q`` and grid each executor launches, times
     ``simplex_attention`` with ``impl`` flash-folded, flash-bb and
-    chunked, and fails when the pick is more than 1.10x the fastest or
-    the default dispatch does not launch it;
+    chunked (41 rounds of samples of at least 20 ms, the order turning
+    each round; each candidate's min, median and max logged), and fails
+    when the pick's median is more than 1.10x the fastest's or the default
+    dispatch does not launch it;
 22. xla: ``executor='xla'`` (the fused executors as torch ops) against
     ``executor='kernel'``, bit for bit, for ACCUM int32 at m=2 n=16384
     rho 16, m=3 n=1024 rho 8 and m=4 n=64 rho 4, and for MAP at nb=16384
@@ -337,6 +359,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
@@ -2363,17 +2386,176 @@ MLSTM_REL, MLSTM_ABS = 1e-4, 1e-6
 # internlm2-20b's head layout (B, Hq, Hkv, D): a GQA group of 6, which the
 # card had not run; each kernel at it against its plain version.
 GROUP6 = (4, 48, 8, 128)
-# Training at full width, float32 as the reference forces, 5 steps on one
-# repeated batch: (arch, layers, batch, seq, remat); the optimizer is the
-# config's.  The "dots" run's first step is held against remat "none"'s,
-# and the peak of one step under each policy is logged.
-TRAIN_RUNS = (("yi-6b", 4, 4, 2048, "none"), ("internlm2-20b", 2, 2, 2048, "none"),
-              ("qwen2-moe-a2.7b", 2, 4, 2048, "none"), ("yi-6b", 4, 4, 2048, "dots"))
 TRAIN_STEPS = 5
 TRAIN_LR = 1e-4
 # The first step's loss and gradient norm with the kernel against the
-# plain flash version on the card.
+# plain flash version on the card; the loss and every gradient leaf's
+# norm of one step of a reduced config on the card against the CPU.
 TRAIN_REL = 1e-4
+
+
+class TrainRow(typing.NamedTuple):
+    """One run of the train phase: ``launch/train.py`` at full width,
+    float32 as the reference forces, the config's optimizer, ``steps``
+    steps on one repeated batch of ``batch`` x ``seq`` tokens."""
+
+    arch: str
+    layers: int  # the depth kept (0: the config's)
+    batch: int
+    seq: int
+    flash: int  # the layers whose attention takes the flash kernel, a forward pass
+    remat: str = "none"
+    steps: int = TRAIN_STEPS
+    prefix: int = -1  # the dense prefix layers kept (-1: the config's)
+    experts: int = 0  # the routed experts kept (0: the config's)
+    # what ``run``'s batch_at adds to the tokens: "src_embeds" (frame
+    # embeddings, seq of them, every step) or "patches" (one more step of
+    # n_patches patch embeddings and seq - n_patches text tokens)
+    inputs: str = ""
+    why: str = ""  # the reason for the cut
+
+
+# The train rows.  yi-6b, internlm2-20b and qwen2-moe-a2.7b are cut in
+# depth to keep weights, gradients, state and the dense attention
+# backward's (B, H, S, S) scores well inside 80 GB; the "dots" run's
+# first step is held against remat "none"'s, and the peak of one step
+# under each policy is logged.  The other five families follow the
+# reckoning (``train_reckoning``): one card holds about 9 B parameters at
+# 8 bytes each, so jamba's and deepseek's full expert counts wait for the
+# four-card sharded trainer, and each cut below keeps the reckoned peak
+# under TRAIN_PEAK_GIB.
+TRAIN_RUNS = (
+    TrainRow("yi-6b", 4, 4, 2048, 4), TrainRow("internlm2-20b", 2, 2, 2048, 2),
+    TrainRow("qwen2-moe-a2.7b", 2, 4, 2048, 2), TrainRow("yi-6b", 4, 4, 2048, 4, remat="dots"),
+    TrainRow("jamba-v0.1-52b", 8, 1, 1024, 1, experts=4,
+             why="one period (8 of 32 layers) as served; experts 16 -> 4 (one period with 16 "
+                 "is 13.3 B parameters, 8 bytes each exceed the card); seq 2048 -> 1024: the "
+                 "Mamba scan under autograd keeps every token's (d_inner, d_state) state, "
+                 "35 GiB of activations at 2048, reckoned"),
+    TrainRow("deepseek-v3-671b", 1, 1, 1024, 0, prefix=0, experts=32,
+             why="1 MoE layer (1 of 61) and the MTP head, whose block is the dense prefix "
+                 "layers' (MLA and the 18432-wide FFN); experts 256 -> 32, top-8 kept: the "
+                 "update holds weights, gradients and their clipped copies, 12 bytes a "
+                 "parameter, and with 1 dense prefix layer (4.76 B) its peak is 74.0 GiB, "
+                 "reckoned"),
+    TrainRow("xlstm-350m", 0, 4, 1024, 0, steps=3,
+             why="all 24 layers; seq 2048 -> 1024: the mLSTM's chunk states and the sLSTM "
+                 "loop under autograd keep 65 GiB of activations at 4 x 2048, reckoned; 3 "
+                 "steps: the sLSTM loop's backward makes a step the longest of the phase"),
+    TrainRow("qwen2-vl-72b", 1, 2, 2048, 1, inputs="patches",
+             why="1 of 80 layers: the embedding and unembedding (vocab 152064) are 2.5 B of "
+                 "its 3.37 B parameters, and with 2 layers the update's peak is 75.3 GiB, "
+                 "reckoned"),
+    TrainRow("seamless-m4t-large-v2", 0, 1, 1024, 24, inputs="src_embeds",
+             why="not cut (24 encoder + 24 decoder layers); batch 1 x 1024 tokens and 1024 "
+                 "frame embeddings"),
+)
+# Each train row's peak device memory, measured and reckoned, must stay
+# under this, the serves' line.
+TRAIN_PEAK_GIB = 75.0
+# The reckoning of a train row's peak.  The update (optim/optimizer.py)
+# holds for one leaf at once LEAF_TEMPS float32 copies of the largest
+# leaf: four of its own (g * g, vhat, vhat + eps and its rsqrt; or the
+# decayed parameter, lr * u and the new parameter beside u) and the
+# previous leaf's update and decayed parameter, which the loop's locals
+# keep until they are rebound; STACKED_TEMPS for a leaf stacked over
+# periods (its gradients and parameters stacked too).  FlashFunction's
+# backward holds FLASH_BWD_COPIES (B, Hq, S, S) float32 tensors of one
+# layer (the scores recomputed through _reference_attention, the
+# probabilities and their gradients), the loss's backward
+# LOGIT_BWD_COPIES (B, S, vocab).
+LEAF_TEMPS, STACKED_TEMPS = 6, 8
+FLASH_BWD_COPIES, LOGIT_BWD_COPIES = 4, 2
+
+
+def train_config(configs, row: TrainRow):
+    """``row``'s config: its architecture's full config with the row's
+    depth, dense prefix and expert cuts (widths unchanged)."""
+    cfg = configs.config(row.arch)
+    over: dict = {}
+    if row.layers:
+        over["n_layers"] = row.layers
+    if row.prefix >= 0:
+        over.update(n_prefix=row.prefix, prefix_spec=cfg.prefix_spec[:row.prefix])
+    if row.experts:
+        over["moe"] = dataclasses.replace(cfg.moe, n_experts=row.experts)
+    return cfg.replace(**over)
+
+
+def saved_bytes(model, batch: dict) -> int:
+    """Bytes of the tensors autograd keeps for the backward of
+    ``model.loss(batch)`` (parameters not counted, each storage once), on
+    whatever device the model and batch are, ``meta`` included."""
+    import torch
+
+    params = {p.untyped_storage()._cdata for p in model.parameters()}
+    seen: dict = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st._cdata not in params:
+            seen[st._cdata] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        model.loss(batch)
+    return sum(seen.values())
+
+
+def train_reckoning(cfg, batch: int, seq: int, flash: int = 0) -> dict:
+    """Bytes of one training step of ``cfg`` on ``batch`` x ``seq`` tokens
+    at its peak, as ``launch/train.py`` runs it (float32, remat "none"),
+    reckoned on the ``meta`` device before the card runs it: weights 4
+    bytes a parameter (``cfg.param_count()``'s model), gradients 4,
+    optimizer state (AdamW 8; Adafactor its factored row and column
+    statistics), the activations autograd keeps
+    (``saved_bytes``; frame embeddings as many as tokens) and the
+    backward's transients (``flash`` > 0: one layer's attention scores)
+    during the backward; during the update the clipped gradients
+    (``clip_by_global_norm`` returns new tensors), the new state beside
+    the old and the largest leaf's temporaries.  A config with a
+    sequential mixer (the Mamba scan, the xLSTM loops) is counted at two
+    lengths of its scan chunk and extrapolated: its saved bytes grow
+    linearly with the tokens.  Sizes in GiB but ``params``."""
+    import torch
+
+    from repro_torch.models.convert import is_stacked, stacked_groups
+    from repro_torch.models.mamba import SCAN_CHUNK
+    from repro_torch.models.model import Model
+
+    cfg = cfg.replace(act_dtype="float32", param_dtype="float32", remat="none")
+    model = Model(cfg, device="meta").requires_grad_(True)
+    params = dict(model.named_parameters())
+    n = sum(p.numel() for p in params.values())
+    temps = factored = 0
+    for key, members in stacked_groups(params).items():
+        shape = ((len(members),) if is_stacked(key) else ()) + tuple(params[members[0]].shape)
+        numel = math.prod(shape)
+        temps = max(temps, (STACKED_TEMPS if is_stacked(key) else LEAF_TEMPS) * 4 * numel)
+        factored += (math.prod(shape[:-1]) + math.prod(shape[:-2] + shape[-1:])
+                     if len(shape) >= 2 else numel)
+    state = 8 * n if cfg.optimizer == "adamw" else 4 * factored
+
+    def act(s):
+        b = {"tokens": torch.zeros((batch, s + 1), dtype=torch.long, device="meta")}
+        if cfg.encoder_layers:
+            b["src_embeds"] = torch.empty((batch, s, cfg.d_model), device="meta")
+        return saved_bytes(model, b)
+
+    chunk = SCAN_CHUNK if cfg.mamba else cfg.xlstm.chunk if cfg.xlstm else 0
+    if chunk and seq > 2 * chunk:
+        one, two = act(chunk), act(2 * chunk)
+        activations = one + (two - one) * (seq - chunk) // chunk
+    else:
+        activations = act(seq)
+    transient = (LOGIT_BWD_COPIES * batch * seq * cfg.vocab * 4
+                 + (FLASH_BWD_COPIES * batch * cfg.n_heads * seq * seq * 4 if flash else 0))
+    backward = 8 * n + state + activations + transient
+    update = 12 * n + 2 * state + temps
+    gib = {k: v / 2**30 for k, v in dict(
+        weights=4 * n, state=state, activations=activations, transient=transient, temps=temps,
+        backward=backward, update=update, peak=max(backward, update)).items()}
+    return dict(params=n, **gib)
 
 
 class ModelSmoke:
@@ -2719,80 +2901,114 @@ class ModelSmoke:
 
     # -- training ---------------------------------------------------------
 
-    def train_run(self, arch: str, layers: int, batch: int, seq: int, remat: str) -> None:
-        """``launch/train.py`` at full width cut to ``layers``: the first
-        step's loss and gradient norm with the kernel against the plain
-        flash version, then ``TRAIN_STEPS`` steps on one repeated batch,
-        whose flash launches must be layers x steps (the backward launches
-        none) and whose loss must fall; then the attention gradients at one
-        layer's shape.  Under another ``remat`` than "none", ``remat_run``
-        instead."""
-        torch = self.torch
+    def train_run(self, row: TrainRow) -> None:
+        """``launch/train.py`` on ``row``'s config (``train_config``): its
+        peak reckoned first (``train_reckoning``); where the row takes the
+        flash kernel, the first step's loss and gradient norm with the
+        kernel against the plain flash version; then ``row.steps`` steps
+        on one repeated batch (frame embeddings with it, or one more step
+        with patch embeddings), whose flash launches must be the row's
+        flash layers x forward passes (the backward launches none), whose
+        loss must fall and whose peak must stay under ``TRAIN_PEAK_GIB``;
+        then the attention gradients at one layer's shape and one step of
+        the reduced config on the card against the CPU.  Under another
+        ``remat`` than "none", ``remat_run`` instead."""
+        torch, dev = self.torch, self.s.dev
+        arch, batch, seq = row.arch, row.batch, row.seq
         args = self.train.parse_args([
-            "--arch", arch, "--n-layers", str(layers), "--batch", str(batch), "--seq", str(seq),
-            "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--seed", str(self.s.seed),
+            "--arch", arch, "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(row.steps), "--lr", str(TRAIN_LR), "--seed", str(self.s.seed),
             "--log-every", "1"])
-        tag = f"train {arch}" + (f" remat {remat}" if remat != "none" else "")
+        tag = f"train {arch}" + (f" remat {row.remat}" if row.remat != "none" else "")
+        full = self.f.configs.config(arch)
+        cut = train_config(self.f.configs, row)
+        reck = train_reckoning(cut, batch, seq, row.flash)
         self.live(tag)
         torch.cuda.reset_peak_memory_stats()
-        t = self.train.build(args)
+        t = self.train.build(args, cfg=cut)
         cfg = t.model.cfg
         fixed = t.data.batch_at(0)
+        g = self.s.gen(99)
+        if row.inputs == "src_embeds":
+            fixed["src_embeds"] = torch.randn((batch, seq, cfg.d_model), generator=g, device=dev)
         n_params = sum(p.numel() for p in t.model.parameters())
-        _log(f"{tag}: {cfg.n_layers} of {self.f.configs.config(arch).n_layers} layers "
-             f"at full width (d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
-             f"d_ff {cfg.d_ff}, vocab {cfg.vocab}), {n_params} float32 parameters, "
-             f"{cfg.optimizer}, lr {TRAIN_LR}, batch {batch} x seq {seq}, {TRAIN_STEPS} steps "
-             "on one repeated batch")
-        if remat != "none":
-            self.remat_run(tag, args, t, fixed, remat)
+        _log(f"{tag}: {self.describe(cfg)}; {cfg.n_layers} of {full.n_layers} layers at full "
+             f"width, {n_params} float32 parameters, {cfg.optimizer}, lr {TRAIN_LR}, batch "
+             f"{batch} x seq {seq}" + "".join(f", {k} {tuple(v.shape)}" for k, v in fixed.items()
+                                             if k != "tokens")
+             + f", {row.steps} steps on one repeated batch; cut: {row.why or 'depth'}; "
+             "reckoned GiB " + " ".join(f"{k} {v:.2f}" for k, v in reck.items() if k != "params"))
+        if row.remat != "none":
+            self.remat_run(tag, args, t, fixed, row.remat)
+            self.stats[tag]["reckoned_gib"] = reck["peak"]
             return
         fa = self.fa
-        # the first step with the plain flash version in the kernel's place
-        real = fa.FLASH.kernel
-        fa.FLASH.kernel = lambda *a, warpgroups=None: fa.FLASH.plain(*a)
-        try:
-            loss_p, grads = self.train.loss_and_grads(t.model, fixed)
-            gn_p = float(self.optimizer.global_norm(grads))
-            loss_p = float(loss_p)
-        finally:
-            fa.FLASH.kernel = real
-        del grads
-        self._free()
+        if row.flash:
+            # the first step with the plain flash version in the kernel's place
+            real = fa.FLASH.kernel
+            fa.FLASH.kernel = lambda *a, warpgroups=None: fa.FLASH.plain(*a)
+            try:
+                loss_p, grads = self.train.loss_and_grads(t.model, fixed)
+                gn_p = float(self.optimizer.global_norm(grads))
+                loss_p = float(loss_p)
+            finally:
+                fa.FLASH.kernel = real
+            del grads
+            self._free()
         self.zero_counts()
         self.train.run(args, t, batch_at=lambda step: fixed)
+        passes = row.steps
+        if row.inputs == "patches":
+            # one more step: n_patches patch embeddings, then the text
+            text = seq - cfg.n_patches
+            patched = {"tokens": fixed["tokens"][:, :text + 1],
+                       "patches": torch.randn((batch, cfg.n_patches, cfg.d_model), generator=g,
+                                              device=dev)}
+            args.steps, t.step0 = row.steps + 1, row.steps
+            self.train.run(args, t, batch_at=lambda step: patched)
+            passes += 1
         launches = {k: v for k, v in self.counts().items() if k in fa.ROUTES}
         peak = torch.cuda.max_memory_allocated() / 2**30
-        step_s = statistics.median(t.step_s[1:])
+        step_s = statistics.median(t.step_s[1:row.steps])
+        mtp = [x - c - a for x, c, a in zip(t.losses, t.ce, t.aux)]
         st = dict(losses=t.losses, aux=t.aux, grad_norms=t.grad_norms, step_s=step_s,
                   first_step_s=t.step_s[0], tok_s=batch * seq / step_s, peak_gib=peak,
-                  launches=launches)
-        _log(f"train {arch} losses={[round(x, 5) for x in t.losses]} ce="
-             f"{[round(x, 5) for x in t.ce]} aux={[round(x, 7) for x in t.aux]} grad_norms="
-             f"{[round(x, 5) for x in t.grad_norms]} step_s={step_s:.4f} (first "
-             f"{t.step_s[0]:.4f}) tok_s={st['tok_s']:.1f} peak_gib={peak:.3f} "
-             f"launches={launches} card={self.card}")
+                  reckoned_gib=reck["peak"], launches=launches)
+        _log(f"{tag} cut: {row.why or 'depth'}; params={n_params} reckoned_gib="
+             f"{reck['peak']:.3f} peak_gib={peak:.3f} step_s={step_s:.4f} (first "
+             f"{t.step_s[0]:.4f}) tok_s={st['tok_s']:.1f} losses="
+             f"{[round(x, 5) for x in t.losses]} ce={[round(x, 5) for x in t.ce]} "
+             + (f"mtp_share={[round(x, 5) for x in mtp]} " if cfg.mtp else "")
+             + f"aux={[round(x, 7) for x in t.aux]} grad_norms="
+             f"{[round(x, 5) for x in t.grad_norms]} launches={launches} card={self.card}")
         want = dict.fromkeys(fa.ROUTES, 0)
-        want["flash_wgmma"] = cfg.n_layers * TRAIN_STEPS
+        want["flash_wgmma"] = row.flash * passes
         if launches != want:
-            self.s.fail(f"train {arch}: flash launches {launches}, not {want} (layers x "
-                        "forward passes; the backward launches none)")
-        rel_loss = abs(t.losses[0] - loss_p) / abs(loss_p)
-        rel_gn = abs(t.grad_norms[0] - gn_p) / abs(gn_p)
-        ok = rel_loss <= TRAIN_REL and rel_gn <= TRAIN_REL
-        _log(f"train {arch} first step kernel vs plain flash: loss {t.losses[0]:.6f} vs "
-             f"{loss_p:.6f} (rel {rel_loss:.3e}), grad norm {t.grad_norms[0]:.6f} vs {gn_p:.6f} "
-             f"(rel {rel_gn:.3e}) gate {TRAIN_REL}: ok={ok} card={self.card}")
-        if not ok:
-            self.s.fail(f"train {arch}: kernel and plain flash first steps differ "
-                        f"(loss rel {rel_loss}, grad norm rel {rel_gn})")
-        if not all(math.isfinite(x) for x in t.losses) or not t.losses[-1] < t.losses[0]:
-            self.s.fail(f"train {arch}: the loss did not fall over the repeated batch "
-                        f"{t.losses}")
-        self.stats[f"train {arch}"] = st
+            self.s.fail(f"{tag}: flash launches {launches}, not {want} (flash layers "
+                        f"{row.flash} x {passes} forward passes; the backward launches none)")
+        if peak > TRAIN_PEAK_GIB or reck["peak"] > TRAIN_PEAK_GIB:
+            self.s.fail(f"{tag}: peak {peak:.3f} GiB (reckoned {reck['peak']:.3f}) over "
+                        f"{TRAIN_PEAK_GIB} GiB")
+        if row.flash:
+            rel_loss = abs(t.losses[0] - loss_p) / abs(loss_p)
+            rel_gn = abs(t.grad_norms[0] - gn_p) / abs(gn_p)
+            ok = rel_loss <= TRAIN_REL and rel_gn <= TRAIN_REL
+            _log(f"{tag} first step kernel vs plain flash: loss {t.losses[0]:.6f} vs "
+                 f"{loss_p:.6f} (rel {rel_loss:.3e}), grad norm {t.grad_norms[0]:.6f} vs "
+                 f"{gn_p:.6f} (rel {rel_gn:.3e}) gate {TRAIN_REL}: ok={ok} card={self.card}")
+            if not ok:
+                self.s.fail(f"{tag}: kernel and plain flash first steps differ "
+                            f"(loss rel {rel_loss}, grad norm rel {rel_gn})")
+        text_losses = t.losses[:row.steps]
+        if (not all(math.isfinite(x) for x in t.losses)
+                or not text_losses[-1] < text_losses[0]):
+            self.s.fail(f"{tag}: the loss did not fall over the repeated batch {t.losses}")
+        self.stats[tag] = st
         del t, fixed
         self._free()
-        self.attention_grads(arch, batch, seq, cfg)
+        if row.flash:
+            self.attention_grads(arch, batch, seq, cfg)
+        self.train_card_vs_cpu(arch)
 
     def remat_run(self, tag: str, args, t, fixed, remat: str) -> None:
         """After an untimed step, one forward and backward on ``fixed`` under
@@ -2870,6 +3086,50 @@ class ModelSmoke:
         del t, fixed, params
         self._free()
 
+    def train_card_vs_cpu(self, arch: str) -> None:
+        """One training step's loss and gradients of ``arch``'s reduced
+        config (float32), its weights made on the CPU from ``--seed`` as
+        ``card_vs_cpu`` makes them, on ``FAMILY_CPU_HOLD``'s batch and
+        positions (patch and frame embeddings included) on the CPU and on
+        the card: the loss and every gradient leaf's norm within
+        ``TRAIN_REL`` relative."""
+        import copy
+
+        torch = self.torch
+        b, s = FAMILY_CPU_HOLD
+        cfg = self.f.configs.config(arch, smoke=True).replace(
+            act_dtype="float32", param_dtype="float32", remat="none")
+        g = torch.Generator().manual_seed(self.s.seed)
+        cpu = self.model_cls(cfg, device="cpu").init(g).requires_grad_(True)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, s - cfg.n_patches + 1), generator=g)}
+        if cfg.n_patches:
+            batch["patches"] = torch.randn((b, cfg.n_patches, cfg.d_model), generator=g)
+        if cfg.encoder_layers:
+            batch["src_embeds"] = torch.randn((b, s, cfg.d_model), generator=g)
+        card = copy.deepcopy(cpu).to(self.s.dev)
+        want_loss, want = self.train.loss_and_grads(cpu, batch)
+        self.zero_counts()
+        got_loss, got = self.train.loss_and_grads(
+            card, {k: v.to(self.s.dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in self.counts().items() if k in self.fa.ROUTES and v}
+        rel = {"loss": abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))}
+        for name, w in want.items():
+            wn, gn = float(w.norm()), float(got[name].norm())
+            rel[name] = abs(gn - wn) / wn if wn else float(gn != 0.0)
+        worst = max(rel, key=rel.get)
+        ok = all(r <= TRAIN_REL for r in rel.values())  # False on a NaN too
+        _log(f"train {arch} card vs cpu reduced {cfg.name} ({self.describe(cfg)}) batch {b} "
+             f"positions {s} ({', '.join(batch)}): loss {float(got_loss):.6f} vs "
+             f"{float(want_loss):.6f} rel {rel['loss']:.3e}; {len(want)} gradient leaves, "
+             f"the furthest {worst} rel {rel[worst]:.3e} gate {TRAIN_REL}: ok={ok} card flash "
+             f"launches={launches} card={self.card}")
+        if not ok:
+            self.s.fail(f"train {arch}: the card's reduced training step differs from the "
+                        f"CPU's: {worst} rel {rel[worst]}")
+        del cpu, card, want, got
+        self._free()
+
     def attention_grads(self, arch, b, s, cfg) -> None:
         """At one layer's attention shape: q, k, v (and, at a quarter of
         the sequence, a per-head bias) through ``FlashFunction`` and through
@@ -2935,6 +3195,56 @@ TUNER_ROUNDS_LAUNCH_BOUND = 101
 ATTN_TUNER_CASES = (((4, 32, 4, 2048, 128), "float32"), ((4, 32, 4, 2048, 128), "bfloat16"),
                     ((4, 32, 4, SMALL_TILE_S, 128), "bfloat16"))
 ATTN_TUNER_GATE = 1.10
+# The attention executors' calls take 0.7-20 ms, and a flash executor's
+# sample runs slower right after the chunked executor's than right after
+# the other flash executor's (scripts/attn_turns.py): with 9 rounds in a
+# fixed order, the pick, which followed chunked, once read 1.172x the
+# fastest, an executor of the same kernel (ROADMAP C.7; NVIDIA H100 80GB
+# HBM3, 700 W).  The attention candidates take ATTN_TUNER_ROUNDS rounds of
+# samples of at least ATTN_TUNER_SAMPLE_MS, in an order that turns each
+# round, so that no executor always follows the same one.
+ATTN_TUNER_ROUNDS = 41
+ATTN_TUNER_SAMPLE_MS = 20.0
+# The calls of one sample, at most.
+TUNER_MAX_CALLS = 200
+
+
+def tuner_rounds(one_ms: dict, attention: bool = False) -> tuple:
+    """The turn-taking timer's rule: for candidates whose single calls
+    take ``one_ms`` (ms, by key), ``(rounds, calls a sample by key)``.
+    Attention cases take ``ATTN_TUNER_ROUNDS`` rounds of samples of at
+    least ``ATTN_TUNER_SAMPLE_MS``; the simplex cases ``TUNER_ROUNDS`` of
+    at least ``TUNER_SAMPLE_MS``, ``TUNER_ROUNDS_LAUNCH_BOUND`` where the
+    fastest call takes under ``TUNER_LAUNCH_BOUND_MS``.
+
+    Example:
+        >>> tuner_rounds({"hmap": 0.5, "bb": 1.0})
+        (9, {'hmap': 10, 'bb': 5})
+        >>> tuner_rounds({"flash-folded": 0.8, "chunked": 12.0}, attention=True)
+        (41, {'flash-folded': 25, 'chunked': 2})
+    """
+    sample = ATTN_TUNER_SAMPLE_MS if attention else TUNER_SAMPLE_MS
+    calls = {key: max(1, min(TUNER_MAX_CALLS, math.ceil(sample / max(ms, 1e-3))))
+             for key, ms in one_ms.items()}
+    if attention:
+        return ATTN_TUNER_ROUNDS, calls
+    if min(one_ms.values()) < TUNER_LAUNCH_BOUND_MS:
+        return TUNER_ROUNDS_LAUNCH_BOUND, calls
+    return TUNER_ROUNDS, calls
+
+
+def flash_grid(route: str, kind: str, block_q: int, b: int, hq: int, hkv: int, s: int,
+               warpgroups) -> int:
+    """Blocks of a flash kernel's launch, as its launcher counts them
+    (``flash_args`` in ``csrc/flash_common.cuh``; ``flash16_stacked_launch``
+    stacks the heads of a GQA group): a row of folded tile pairs, or of
+    query tiles, for each (batch, head) or stacked head group."""
+    nq = s // block_q
+    rows = (nq + 1) // 2 if kind == "folded" else nq
+    if route == "flash16":
+        stack = warpgroups * (64 // block_q)
+        return b * hkv * -(-(hq // hkv) // stack) * rows
+    return b * hq * rows
 # executor='xla' against the kernels: ACCUM int32 (m, n, rho), MAP (m, nb).
 XLA_ACCUM_CASES = ((2, 16384, 16), (3, 1024, 8), (4, 64, 4))
 XLA_MAP_CASES = ((2, 16384), (3, 512))
@@ -2957,27 +3267,27 @@ class TunerSmoke:
         self.torch, self.engine, self.ops = smoke.torch, smoke.engine, smoke.ops
         self.tuner, self.analysis = tuner, analysis
         self.rounds = TUNER_ROUNDS  # of the last ``batch_ms``
+        self.calls: dict = {}  # calls a sample, of the last ``batch_ms``
+        self.spread: dict = {}  # (min, median, max) of the last ``batch_ms``
 
-    def batch_ms(self, fns: dict) -> dict:
-        """Per function of ``fns``, the median time of one call over
-        ``TUNER_ROUNDS`` samples of back-to-back calls that last at least
-        ``TUNER_SAMPLE_MS`` each, the functions taking turns;
-        ``TUNER_ROUNDS_LAUNCH_BOUND`` samples where the fastest call takes
-        under ``TUNER_LAUNCH_BOUND_MS``."""
-        reps, ones = {}, {}
-        for key, fn in fns.items():
-            ones[key] = self.s.time_ms(fn, runs=3, warm=1)
-            reps[key] = max(1, min(200, math.ceil(TUNER_SAMPLE_MS / max(ones[key], 1e-3))))
-        rounds = (TUNER_ROUNDS_LAUNCH_BOUND if min(ones.values()) < TUNER_LAUNCH_BOUND_MS
-                  else TUNER_ROUNDS)
+    def batch_ms(self, fns: dict, attention: bool = False) -> dict:
+        """Per function of ``fns``, the median time of one call over the
+        rounds ``tuner_rounds`` gives, each a sample of back-to-back calls,
+        the functions taking turns (for ``attention``, starting each round
+        one function further on)."""
+        ones = {key: self.s.time_ms(fn, runs=3, warm=1) for key, fn in fns.items()}
+        rounds, self.calls = tuner_rounds(ones, attention)
         self.rounds = rounds
+        keys = list(fns)
         samples = {key: [] for key in fns}
-        for _ in range(rounds):
-            for key, fn in fns.items():
-                n = reps[key]
+        for r in range(rounds):
+            turn = r % len(keys) if attention else 0
+            for key in keys[turn:] + keys[:turn]:
+                fn, n = fns[key], self.calls[key]
                 samples[key].append(
                     self.s.time_ms(lambda: [fn() for _ in range(n)], runs=1, warm=0) / n)
-        return {key: statistics.median(v) for key, v in samples.items()}
+        self.spread = {key: (min(v), statistics.median(v), max(v)) for key, v in samples.items()}
+        return {key: med for key, (_, med, _) in self.spread.items()}
 
     def constants(self) -> None:
         """Measure each constant of the cost model and print it beside the
@@ -3128,15 +3438,38 @@ class TunerSmoke:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.models.attention import simplex_attention
 
+        impls = ("flash-folded", "flash-bb", "chunked")
         for (b, hq, hkv, s, d), name in ATTN_TUNER_CASES:
             dt = getattr(torch, name)
             g = self.s.gen(230 + s % 97)
             q, k, v = (torch.randn((b, h, s, d), generator=g, device=self.s.dev).to(dt)
                        for h in (hq, hkv, hkv))
             dec = tuner.choose_attn_impl(s, hq, d, self.s.dev, dt)
+            # what each executor launches: the kernel, block_q and grid
+            real, seen = fa.FLASH.kernel, []
+
+            def record(kind, block_q, *a, warpgroups=None, **kw):
+                route = fa.flash_route(block_q, dt)
+                wgs = (warpgroups or fa.flash16_warpgroups(block_q, hq // hkv)
+                       if route == "flash16" else None)
+                seen.append(f"{route} block_q={block_q} grid="
+                            f"{flash_grid(route, kind, block_q, b, hq, hkv, s, wgs)}"
+                            + (f" warpgroups={wgs}" if wgs else ""))
+                return real(kind, block_q, *a, warpgroups=warpgroups, **kw)
+
+            launched_by = {}
+            fa.FLASH.kernel = record
+            try:
+                for impl in impls:
+                    seen.clear()
+                    simplex_attention(q, k, v, impl=impl)
+                    launched_by[impl] = "; ".join(seen) or "no kernel"
+            finally:
+                fa.FLASH.kernel = real
+            torch.cuda.synchronize()
             times = self.batch_ms({
                 impl: (lambda impl=impl: simplex_attention(q, k, v, impl=impl))
-                for impl in ("flash-folded", "flash-bb", "chunked")})
+                for impl in impls}, attention=True)
             pick = "chunked" if dec.impl == "chunked" else f"flash-{dec.kind}"
             before = sum(fa.launch_counts().values())
             simplex_attention(q, k, v)
@@ -3151,7 +3484,13 @@ class TunerSmoke:
                  f"scores_us={json.dumps(scores)} "
                  + " ".join(f"{kk}_ms={vv:.4f}" for kk, vv in times.items())
                  + f" pick={pick} fastest={best} ratio={ratio:.3f} "
-                 f"gate={ATTN_TUNER_GATE:.2f} default_launches={launched} ok={ok}")
+                 f"gate={ATTN_TUNER_GATE:.2f} default_launches={launched} ok={ok} "
+                 f"rounds={self.rounds} calls_a_sample={json.dumps(self.calls)} "
+                 "min/median/max_ms " + " ".join(
+                     f"{kk}={lo:.4f}/{med:.4f}/{hi:.4f}"
+                     for kk, (lo, med, hi) in self.spread.items())
+                 + " launches " + " | ".join(f"{kk}: {vv}" for kk, vv in launched_by.items())
+                 + f" card={self.card}")
             if not ok:
                 self.s.fail(f"attn_tuner S={s} {name}: pick {pick} at {ratio:.3f}x the "
                             f"fastest {best}, {launched} flash launches")
@@ -4208,19 +4547,18 @@ def main(argv=None) -> int:
     lm.slstm_loop()
     _log(f"phase family xlstm holds: {time.perf_counter() - t1:.1f} s; families in all "
          f"{time.perf_counter() - t0:.1f} s")
-    # row 5's launches: yi-6b's serve, the families' prefills and the MoE
-    # and remat "dots" training runs below
+    # row 5's launches: yi-6b's serve, the families' prefills and the
+    # training runs below
     launches["flash_wgmma"] += sum(lm.stats[f"family {arch}"]["flash_launches"]
                                    for arch, *_ in FAMILY_SERVES)
 
     t0 = time.perf_counter()
-    for arch, layers, b, seq, remat in TRAIN_RUNS:
+    for row in TRAIN_RUNS:
         t1 = time.perf_counter()
-        lm.train_run(arch, layers, b, seq, remat)
-        tag = f"train {arch}" + (f" remat {remat}" if remat != "none" else "")
+        lm.train_run(row)
+        tag = f"train {row.arch}" + (f" remat {row.remat}" if row.remat != "none" else "")
         _log(f"phase {tag}: {time.perf_counter() - t1:.1f} s")
-        if arch == "qwen2-moe-a2.7b" or remat != "none":
-            launches["flash_wgmma"] += lm.stats[tag]["launches"]["flash_wgmma"]
+        launches["flash_wgmma"] += lm.stats[tag]["launches"]["flash_wgmma"]
     _log(f"phase train: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4381,7 +4719,8 @@ def main(argv=None) -> int:
              f"router_flips={d['flips']} of {d['choices']} card={card}"
              if "prefill_s" in d else
              f"{key} summary: step_s={d['step_s']:.4f} tok_s={d['tok_s']:.1f} "
-             f"peak_gib={d['peak_gib']:.3f} loss {d['losses'][0]:.5f} -> "
+             f"peak_gib={d['peak_gib']:.3f} reckoned_gib={d['reckoned_gib']:.3f} "
+             f"loss {d['losses'][0]:.5f} -> "
              f"{d['losses'][-1]:.5f} aux {d['aux'][0]:.7f} -> {d['aux'][-1]:.7f} card={card}")
     d = mesh.stats
     _log(f"mesh summary: serve prefill_s={d['mesh serve']['prefill_s']:.4f} "

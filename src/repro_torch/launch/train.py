@@ -129,10 +129,13 @@ def _flat(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return {prefix[:-1]: tree}
 
 
-def build(args: argparse.Namespace) -> Trainer:
+def build(args: argparse.Namespace, cfg=None) -> Trainer:
     """The model (from ``--seed``), optimizer, data and, with ``--resume``,
-    the latest checkpoint of ``--ckpt-dir``."""
-    cfg = config(args.arch, smoke=args.smoke)
+    the latest checkpoint of ``--ckpt-dir``.  ``cfg``, where given, is
+    trained in place of ``--arch``'s config (a caller's cut of it, such as
+    fewer experts to fit one card); the float32 and remat overrides and
+    ``--d-model``/``--n-layers`` apply to it as to that config."""
+    cfg = cfg or config(args.arch, smoke=args.smoke)
     over = {"act_dtype": "float32", "param_dtype": "float32", "remat": "none"}
     if args.d_model:
         over["d_model"] = args.d_model
