@@ -196,23 +196,25 @@ coordinates into element origins.  This script
    4 x seq 2048: the balance loss and its gradient through the dispatch,
    ``aux`` logged with ``ce``), then the five families the card had not
    trained: jamba-v0.1-52b (one period, 4 of 16 experts, the Mamba scan
-   under autograd, 1 x 1024), deepseek-v3-671b (1 MoE layer, 32 of 256
-   experts, sigmoid router, MLA through the chunked executor, and the MTP
-   head, its share of the loss logged, 1 x 1024), xlstm-350m (24 layers,
-   the sLSTM loop under autograd, 4 x 1024, 3 steps), qwen2-vl-72b (1
-   layer, 2 x 2048 text, then one step of 1024 patch embeddings and 1024
+   under autograd, 1 x 1024), deepseek-v3-671b (1 dense prefix layer and
+   1 MoE layer, 32 of 256 experts, sigmoid router, MLA through the
+   chunked executor, and the MTP head, its share of the loss logged, 1 x
+   1024), xlstm-350m (24 layers, the sLSTM loop under autograd, 4 x 1024,
+   3 steps), qwen2-vl-72b (2 layers, 2 x 2048 text, then one step of 1024 patch embeddings and 1024
    tokens through ``run``'s ``batch_at``) and seamless-m4t-large-v2 (24 +
    24 layers, 1 x 1024 tokens with 1024 frame embeddings through
    ``batch_at``), 5 steps each (but xlstm) on one repeated batch:
    each row's peak reckoned on the meta device first
    (``train_reckoning``: weights, gradients, optimizer state, the
    activations autograd keeps, the backward's and the update's
-   transients) and logged beside the measured peak, both under 75 GiB;
+   transients) and logged beside the measured peak, both under 75 GiB,
+   and the update's own peak read apart, within 0.5 GiB of its reckoning
+   where it sets the row's peak;
    where the row takes the flash kernel, the first step's loss and
    global gradient norm with the kernel within ``1e-4`` relative of the
    plain flash version's on the card; with every counter at 0,
    ``flash_wgmma`` launched the row's flash layers x forward passes (1, 0,
-   0, 1 and 24 a pass for the five: jamba's one attention layer,
+   0, 2 and 24 a pass for the five: jamba's one attention layer,
    seamless's decoder self-attention; MLA and xLSTM take none; the
    backward, autograd through ``_reference_attention``, launches none);
    the loss falls; at one layer's attention shape (and at a quarter of
@@ -312,10 +314,13 @@ coordinates into element origins.  This script
     2e-4, every argmax equal), the prefill's cache leaves handed back by
     ``serve_step`` as the same ``DTensor``s, decode tok/s beside the
     mesh-less serve's (``mesh serve`` lines); trains yi-6b cut to
-    4 layers (AdamW, batch 4 x 2048) 3 steps, the first step's loss
-    within 1e-5 relative of ``launch/train.train_step``'s on the same
-    weights and every parameter within ``1e-6 * max|leaf|``, then the
-    step's gradients through ``compress_bf16`` and ``compress_int8`` on
+    4 layers (AdamW, batch 4 x 2048) 3 steps and internlm2-20b cut to 2
+    layers (Adafactor, batch 2 x 2048) 2 steps, each rank's shards updated
+    in place, the first step's loss within 1e-5 relative of
+    ``launch/train.train_step``'s on the same weights and every parameter
+    within ``1e-6 * max|leaf|``, the peak over the steps at most 1 GiB
+    above the train phase's row of the same cut; then yi-6b's step's
+    gradients through ``compress_bf16`` and ``compress_int8`` on
     the card bit-equal to the CPU's, and one step with
     ``gather_dtype="bfloat16"`` (``mesh train``, ``mesh compression``
     lines); prefills qwen2-moe-a2.7b cut to 4 layers through the MoE's
@@ -2420,10 +2425,13 @@ class TrainRow(typing.NamedTuple):
 # backward's (B, H, S, S) scores well inside 80 GB; the "dots" run's
 # first step is held against remat "none"'s, and the peak of one step
 # under each policy is logged.  The other five families follow the
-# reckoning (``train_reckoning``): one card holds about 9 B parameters at
-# 8 bytes each, so jamba's and deepseek's full expert counts wait for the
-# four-card sharded trainer, and each cut below keeps the reckoned peak
-# under TRAIN_PEAK_GIB.
+# reckoning (``train_reckoning``): a step holds 8 bytes a parameter
+# (weights and gradients) beside the optimizer's state and the
+# activations, so one card holds about 9 B parameters under Adafactor,
+# whose state is small, and about 5 B under AdamW's 8 bytes more;
+# jamba's and deepseek's full expert counts wait for the four-card
+# sharded trainer, and each cut below keeps the reckoned peak under
+# TRAIN_PEAK_GIB.
 TRAIN_RUNS = (
     TrainRow("yi-6b", 4, 4, 2048, 4), TrainRow("internlm2-20b", 2, 2, 2048, 2),
     TrainRow("qwen2-moe-a2.7b", 2, 4, 2048, 2), TrainRow("yi-6b", 4, 4, 2048, 4, remat="dots"),
@@ -2432,39 +2440,39 @@ TRAIN_RUNS = (
                  "is 13.3 B parameters, 8 bytes each exceed the card); seq 2048 -> 1024: the "
                  "Mamba scan under autograd keeps every token's (d_inner, d_state) state, "
                  "35 GiB of activations at 2048, reckoned"),
-    TrainRow("deepseek-v3-671b", 1, 1, 1024, 0, prefix=0, experts=32,
-             why="1 MoE layer (1 of 61) and the MTP head, whose block is the dense prefix "
-                 "layers' (MLA and the 18432-wide FFN); experts 256 -> 32, top-8 kept: the "
-                 "update holds weights, gradients and their clipped copies, 12 bytes a "
-                 "parameter, and with 1 dense prefix layer (4.76 B) its peak is 74.0 GiB, "
-                 "reckoned"),
+    TrainRow("deepseek-v3-671b", 2, 1, 1024, 0, prefix=1, experts=32,
+             why="1 dense prefix layer and 1 MoE layer (2 of 61) and the MTP head; experts "
+                 "256 -> 32, top-8 kept (4.76 B parameters, 44.1 GiB reckoned; all 256 in one "
+                 "layer make the cut 14.6 B, 8 bytes each exceed the card)"),
     TrainRow("xlstm-350m", 0, 4, 1024, 0, steps=3,
              why="all 24 layers; seq 2048 -> 1024: the mLSTM's chunk states and the sLSTM "
                  "loop under autograd keep 65 GiB of activations at 4 x 2048, reckoned; 3 "
                  "steps: the sLSTM loop's backward makes a step the longest of the phase"),
-    TrainRow("qwen2-vl-72b", 1, 2, 2048, 1, inputs="patches",
-             why="1 of 80 layers: the embedding and unembedding (vocab 152064) are 2.5 B of "
-                 "its 3.37 B parameters, and with 2 layers the update's peak is 75.3 GiB, "
-                 "reckoned"),
+    TrainRow("qwen2-vl-72b", 2, 2, 2048, 2, inputs="patches",
+             why="2 of 80 layers: the embedding and unembedding (vocab 152064) are 2.5 B of "
+                 "its 4.25 B parameters; 52.7 GiB reckoned"),
     TrainRow("seamless-m4t-large-v2", 0, 1, 1024, 24, inputs="src_embeds",
              why="not cut (24 encoder + 24 decoder layers); batch 1 x 1024 tokens and 1024 "
                  "frame embeddings"),
 )
 # Each train row's peak device memory, measured and reckoned, must stay
-# under this, the serves' line.
+# under this, the serves' line; where the update sets a row's peak, its
+# reckoning must be within TRAIN_RECKON_GIB of it (above the memory
+# allocated before the row).
 TRAIN_PEAK_GIB = 75.0
+TRAIN_RECKON_GIB = 0.5
 # The reckoning of a train row's peak.  The update (optim/optimizer.py)
-# holds for one leaf at once LEAF_TEMPS float32 copies of the largest
-# leaf: four of its own (g * g, vhat, vhat + eps and its rsqrt; or the
-# decayed parameter, lr * u and the new parameter beside u) and the
-# previous leaf's update and decayed parameter, which the loop's locals
-# keep until they are rebound; STACKED_TEMPS for a leaf stacked over
-# periods (its gradients and parameters stacked too).  FlashFunction's
-# backward holds FLASH_BWD_COPIES (B, Hq, S, S) float32 tensors of one
-# layer (the scores recomputed through _reference_attention, the
-# probabilities and their gradients), the loss's backward
+# writes the parameters and the state in place and frees each gradient as
+# it goes, a period's tensor at a time: beyond weights, gradients and state
+# it holds LEAF_TEMPS float32 copies of the largest unit (a per-period
+# tensor, or a stack of vectors) at once: the norm's squares, the clipped
+# gradient beside the one it replaces, then one temporary at a time beside
+# the clipped gradient, whose own gradient is freed by then.
+# FlashFunction's backward holds FLASH_BWD_COPIES (B, Hq, S, S) float32
+# tensors of one layer (the scores recomputed through _reference_attention,
+# the probabilities and their gradients), the loss's backward
 # LOGIT_BWD_COPIES (B, S, vocab).
-LEAF_TEMPS, STACKED_TEMPS = 6, 8
+LEAF_TEMPS = 1
 FLASH_BWD_COPIES, LOGIT_BWD_COPIES = 4, 2
 
 
@@ -2511,10 +2519,9 @@ def train_reckoning(cfg, batch: int, seq: int, flash: int = 0) -> dict:
     statistics), the activations autograd keeps
     (``saved_bytes``; frame embeddings as many as tokens) and the
     backward's transients (``flash`` > 0: one layer's attention scores)
-    during the backward; during the update the clipped gradients
-    (``clip_by_global_norm`` returns new tensors), the new state beside
-    the old and the largest leaf's temporaries.  A config with a
-    sequential mixer (the Mamba scan, the xLSTM loops) is counted at two
+    during the backward; during the update the largest unit's temporaries
+    (``LEAF_TEMPS``).  A config with a sequential mixer (the Mamba scan,
+    the xLSTM loops) is counted at two
     lengths of its scan chunk and extrapolated: its saved bytes grow
     linearly with the tokens.  Sizes in GiB but ``params``."""
     import torch
@@ -2531,7 +2538,8 @@ def train_reckoning(cfg, batch: int, seq: int, flash: int = 0) -> dict:
     for key, members in stacked_groups(params).items():
         shape = ((len(members),) if is_stacked(key) else ()) + tuple(params[members[0]].shape)
         numel = math.prod(shape)
-        temps = max(temps, (STACKED_TEMPS if is_stacked(key) else LEAF_TEMPS) * 4 * numel)
+        unit = numel if len(shape) == 2 and is_stacked(key) else numel // len(members)
+        temps = max(temps, LEAF_TEMPS * 4 * unit)
         factored += (math.prod(shape[:-1]) + math.prod(shape[:-2] + shape[-1:])
                      if len(shape) >= 2 else numel)
     state = 8 * n if cfg.optimizer == "adamw" else 4 * factored
@@ -2551,7 +2559,7 @@ def train_reckoning(cfg, batch: int, seq: int, flash: int = 0) -> dict:
     transient = (LOGIT_BWD_COPIES * batch * seq * cfg.vocab * 4
                  + (FLASH_BWD_COPIES * batch * cfg.n_heads * seq * seq * 4 if flash else 0))
     backward = 8 * n + state + activations + transient
-    update = 12 * n + 2 * state + temps
+    update = 8 * n + state + temps
     gib = {k: v / 2**30 for k, v in dict(
         weights=4 * n, state=state, activations=activations, transient=transient, temps=temps,
         backward=backward, update=update, peak=max(backward, update)).items()}
@@ -2581,12 +2589,14 @@ class ModelSmoke:
         gc.collect()
         self.torch.cuda.empty_cache()
 
-    def live(self, what: str) -> None:
-        """Log the device memory still allocated after a collection: the
-        earlier phases must have freed their models before a peak is read."""
+    def live(self, what: str) -> float:
+        """Log and return the device memory (GiB) still allocated after a
+        collection: the earlier phases must have freed their models before
+        a peak is read, and a peak is compared above it."""
         self._free()
-        _log(f"memory before {what}: allocated_gib="
-             f"{self.torch.cuda.memory_allocated() / 2**30:.3f}")
+        gib = self.torch.cuda.memory_allocated() / 2**30
+        _log(f"memory before {what}: allocated_gib={gib:.3f}")
+        return gib
 
     # -- serving ----------------------------------------------------------
 
@@ -2901,6 +2911,25 @@ class ModelSmoke:
 
     # -- training ---------------------------------------------------------
 
+    def update_peaks(self, t):
+        """Wrap ``t``'s optimizer so that each update's peak device memory
+        is read apart: returns ``(held, in_update)``, the peaks (bytes) of
+        the stretches between updates and of each update; the caller adds
+        the last stretch's to ``held``."""
+        torch = self.torch
+        held, in_update, real = [], [], t.opt
+
+        def update(*args, **kw):
+            held.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            out = real.update(*args, **kw)
+            in_update.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        t.opt = self.optimizer.Optimizer(real.init, update)
+        return held, in_update
+
     def train_run(self, row: TrainRow) -> None:
         """``launch/train.py`` on ``row``'s config (``train_config``): its
         peak reckoned first (``train_reckoning``); where the row takes the
@@ -2923,7 +2952,7 @@ class ModelSmoke:
         full = self.f.configs.config(arch)
         cut = train_config(self.f.configs, row)
         reck = train_reckoning(cut, batch, seq, row.flash)
-        self.live(tag)
+        base = self.live(tag)
         torch.cuda.reset_peak_memory_stats()
         t = self.train.build(args, cfg=cut)
         cfg = t.model.cfg
@@ -2955,6 +2984,8 @@ class ModelSmoke:
                 fa.FLASH.kernel = real
             del grads
             self._free()
+        # the update's own peak, apart from the rest of each step's
+        held, in_update = self.update_peaks(t)
         self.zero_counts()
         self.train.run(args, t, batch_at=lambda step: fixed)
         passes = row.steps
@@ -2968,14 +2999,21 @@ class ModelSmoke:
             self.train.run(args, t, batch_at=lambda step: patched)
             passes += 1
         launches = {k: v for k, v in self.counts().items() if k in fa.ROUTES}
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        held.append(torch.cuda.max_memory_allocated())
+        update_peak, rest_peak = max(in_update) / 2**30, max(held) / 2**30
+        peak = max(update_peak, rest_peak)
         step_s = statistics.median(t.step_s[1:row.steps])
         mtp = [x - c - a for x, c, a in zip(t.losses, t.ce, t.aux)]
         st = dict(losses=t.losses, aux=t.aux, grad_norms=t.grad_norms, step_s=step_s,
                   first_step_s=t.step_s[0], tok_s=batch * seq / step_s, peak_gib=peak,
+                  base_gib=base, update_peak_gib=update_peak, rest_peak_gib=rest_peak,
                   reckoned_gib=reck["peak"], launches=launches)
+        bound = "update" if update_peak >= rest_peak else "backward"
         _log(f"{tag} cut: {row.why or 'depth'}; params={n_params} reckoned_gib="
-             f"{reck['peak']:.3f} peak_gib={peak:.3f} step_s={step_s:.4f} (first "
+             f"{reck['peak']:.3f} peak_gib={peak:.3f} ({bound}-bound; the update's "
+             f"{update_peak:.3f}, reckoned {reck['update']:.3f}; the rest of the step's "
+             f"{rest_peak:.3f}, reckoned {reck['backward']:.3f}; {base:.3f} allocated "
+             f"before) step_s={step_s:.4f} (first "
              f"{t.step_s[0]:.4f}) tok_s={st['tok_s']:.1f} losses="
              f"{[round(x, 5) for x in t.losses]} ce={[round(x, 5) for x in t.ce]} "
              + (f"mtp_share={[round(x, 5) for x in mtp]} " if cfg.mtp else "")
@@ -2989,6 +3027,10 @@ class ModelSmoke:
         if peak > TRAIN_PEAK_GIB or reck["peak"] > TRAIN_PEAK_GIB:
             self.s.fail(f"{tag}: peak {peak:.3f} GiB (reckoned {reck['peak']:.3f}) over "
                         f"{TRAIN_PEAK_GIB} GiB")
+        if bound == "update" and abs(update_peak - base - reck["update"]) > TRAIN_RECKON_GIB:
+            self.s.fail(f"{tag}: the update's peak {update_peak:.3f} GiB ({base:.3f} before) "
+                        f"is not within {TRAIN_RECKON_GIB} GiB of its reckoning "
+                        f"{reck['update']:.3f}")
         if row.flash:
             rel_loss = abs(t.losses[0] - loss_p) / abs(loss_p)
             rel_gn = abs(t.grad_norms[0] - gn_p) / abs(gn_p)
@@ -3020,6 +3062,7 @@ class ModelSmoke:
         recomputes the attention)."""
         torch, fa = self.torch, self.fa
         cfg = t.model.cfg
+        names = [n for n, _ in t.model.named_parameters()]
         params = [p for p in t.model.parameters()]
         # an untimed step first, under a checkpoint: the card's first
         # backward sets up cuBLAS and the allocator, and the first
@@ -3038,7 +3081,7 @@ class ModelSmoke:
             loss, _ = t.model.loss(fixed)
             fwd = self.counts()["flash_wgmma"]
             grads = torch.autograd.grad(loss, params)
-            gn = float(self.optimizer.global_norm(dict(enumerate(grads))))
+            gn = float(self.optimizer.global_norm(dict(zip(names, grads))))
             torch.cuda.synchronize()
             step[policy] = dict(loss=loss.item(), gnorm=gn, step_s=time.perf_counter() - t0,
                                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -3804,13 +3847,17 @@ class ShardSmoke:
 # Serve: (arch, batch, prompt, greedy tokens) at full width and depth,
 # float32, held against the mesh-less serve on the same weights.
 MESH_SERVE = ("yi-6b", 4, 2048, 16)
-# Train: (arch, layers, batch, seq, steps), AdamW, float32; the first
-# step held against launch/train.train_step's on the same weights: the
-# loss within MESH_TRAIN_REL and every parameter within MESH_PARAM_REL *
-# max|leaf|.
-MESH_TRAIN = ("yi-6b", 4, 4, 2048, 3)
+# Train: (arch, layers, batch, seq, steps) at full width, float32, the
+# config's optimizer (yi-6b AdamW, internlm2-20b Adafactor), each at the
+# train phase's cut of the same arch; the first step held against
+# launch/train.train_step's on the same weights: the loss within
+# MESH_TRAIN_REL and every parameter within MESH_PARAM_REL * max|leaf|.
+# The bundle's peak over its steps may exceed the train phase's row's by
+# MESH_PEAK_GIB.
+MESH_TRAIN = (("yi-6b", 4, 4, 2048, 3), ("internlm2-20b", 2, 2, 2048, 2))
 MESH_TRAIN_REL = 1e-5
 MESH_PARAM_REL = 1e-6
+MESH_PEAK_GIB = 1.0
 # A gather_dtype="bfloat16" step's loss against the float32 gather's on
 # the same weights (bfloat16 weights in the forward).
 MESH_GATHER16_REL = 1e-2
@@ -3860,7 +3907,8 @@ class MeshSmoke:
             except ValueError as e:
                 _log(f"mesh refusal {what}: {e}")
         self.serve(mesh)
-        self.train(mesh)
+        for row in MESH_TRAIN:
+            self.train(mesh, *row)
         self.moe(mesh)
 
     def _cfg(self, arch: str, **kw):
@@ -3991,19 +4039,20 @@ class MeshSmoke:
                    for p, t in leaves)
         return resident, rule
 
-    def train(self, mesh) -> None:
-        """Train steps through the bundle; the first against
-        ``launch/train.train_step`` on a copy of the same weights; the
-        step's gradients compressed on the card and on the CPU; one step
-        with the bfloat16 gather."""
+    def train(self, mesh, arch: str, layers: int, b: int, seq: int, steps: int) -> None:
+        """Train steps through the bundle, which updates the shards in
+        place; the first step against ``launch/train.train_step`` on a copy
+        of the same weights (its new parameters kept on the host); the
+        bundle's peak over its steps beside the train phase's row of the
+        same cut.  For yi-6b then the step's gradients compressed on the
+        card and on the CPU, and one step with the bfloat16 gather."""
         import copy
 
         torch, fa = self.torch, self.fa
-        arch, layers, b, seq, steps = MESH_TRAIN
+        tag = f"mesh train {arch}"
         cfg = self._cfg(arch, n_layers=layers, remat="none")
-        self.lm.live("mesh train")
-        torch.cuda.reset_peak_memory_stats()
-        g = self.s.gen(9100)
+        base = self.lm.live(tag)
+        g = self.s.gen(9100 + 10 * [r[0] for r in MESH_TRAIN].index(arch))
         model = self.lm.model_cls(cfg, device=self.s.dev).init(g)
         batch = {"tokens": torch.randint(0, cfg.vocab, (b, seq + 1), generator=g,
                                          device=self.s.dev)}
@@ -4014,8 +4063,10 @@ class MeshSmoke:
             None, None)
         trainer.opt_state = trainer.opt.init(dict(ref.named_parameters()))
         loss_ref = float(self.lm.train.train_step(trainer, 0, batch))
-        del trainer
+        want = {n: p.detach().cpu() for n, p in ref.named_parameters()}
+        del trainer, ref
         self.lm._free()
+        torch.cuda.reset_peak_memory_stats()
         bundle = self.steps.build(cfg, mesh, self.steps.ShapeCfg("train", seq, b, "train"))
         params, state = bundle.shard_params(model), bundle.init_opt_state()
         self.lm.zero_counts()
@@ -4026,54 +4077,65 @@ class MeshSmoke:
             losses.append(float(metrics["loss"]))
             times.append(self._sync() - t0)
             if step == 0:
-                want = dict(ref.named_parameters())
-                worst = max(((params[n].to_local() - p).abs().max()
+                worst = max(((params[n].to_local().cpu() - p).abs().max()
                              / p.abs().max().clamp(min=1e-30)).item() for n, p in want.items())
-                del want, ref
-                self.lm._free()
+                del want
+        # each peak above the memory allocated before its row
+        peak = torch.cuda.max_memory_allocated() / 2**30 - base
+        row = self.lm.stats[f"train {arch}"]
+        plain = row["peak_gib"] - row["base_gib"]
         launches = self._count()
         rel = abs(losses[0] - loss_ref) / abs(loss_ref)
         want_launches = dict.fromkeys(fa.ROUTES, 0)
         want_launches["flash_wgmma"] = layers * steps
         ok = (rel <= MESH_TRAIN_REL and worst <= MESH_PARAM_REL and launches == want_launches
-              and all(math.isfinite(x) for x in losses))
-        _log(f"mesh train {arch}: {layers} layers at full width, float32, {cfg.optimizer}, "
-             f"batch {b} x seq {seq}, {steps} steps through StepBundle on a (1, 1) mesh")
-        _log(f"mesh train {arch} losses={[round(x, 6) for x in losses]} "
-             f"step_s={[round(x, 4) for x in times]} launches={launches} card={self.card}")
-        _log(f"mesh train {arch} first step vs launch/train.train_step: loss {losses[0]:.7f} vs "
+              and all(math.isfinite(x) for x in losses) and peak <= plain + MESH_PEAK_GIB)
+        self.stats[tag] = dict(losses=losses, step_s=times, peak_gib=peak, plain_peak_gib=plain)
+        _log(f"{tag}: {layers} layers at full width, float32, {cfg.optimizer}, "
+             f"batch {b} x seq {seq}, {steps} steps through StepBundle on a (1, 1) mesh, "
+             "the shards updated in place")
+        _log(f"{tag} losses={[round(x, 6) for x in losses]} "
+             f"step_s={[round(x, 4) for x in times]} launches={launches} peak_gib={peak:.3f} "
+             f"above the {base:.3f} allocated before, beside the train phase's row {plain:.3f} "
+             f"above its {row['base_gib']:.3f} (gate +{MESH_PEAK_GIB}) card={self.card}")
+        _log(f"{tag} first step vs launch/train.train_step: loss {losses[0]:.7f} vs "
              f"{loss_ref:.7f} (rel {rel:.3e}, gate {MESH_TRAIN_REL}), parameters max "
              f"|diff|/max|leaf| {worst:.3e} (gate {MESH_PARAM_REL}): ok={ok} card={self.card}")
         if not ok:
-            self.s.fail(f"mesh train {arch}: loss rel {rel}, parameters {worst}, "
-                        f"launches {launches}")
-        # the step's gradients, compressed on the card and on the CPU
-        t0 = self._sync()
+            self.s.fail(f"{tag}: loss rel {rel}, parameters {worst}, launches {launches}, "
+                        f"peak {peak} GiB beside {plain}")
+        if arch == MESH_TRAIN[0][0]:
+            self.gather16(mesh, cfg, bundle, params, state, batch, steps)
+        del model, params, state, bundle, batch
+        self.lm._free()
+
+    def gather16(self, mesh, cfg, bundle, params, state, batch, step: int) -> None:
+        """The step's gradients compressed on the card and on the CPU; then
+        one step with the parameters gathered in bfloat16, its loss against
+        the float32 gather's on the same weights."""
+        torch = self.torch
         loss32, grads = bundle.loss_and_grads(params, batch)
         self._count()
         self.compression(grads)
         del grads
         self.lm._free()
-        # one step with the parameters gathered in bfloat16
-        b16 = self.steps.build(cfg.replace(gather_dtype="bfloat16"), mesh,
-                               self.steps.ShapeCfg("train", seq, b, "train"))
+        torch.cuda.reset_peak_memory_stats()
+        b16 = self.steps.build(cfg.replace(gather_dtype="bfloat16"), mesh, bundle.shape)
         t0 = self._sync()
-        params, state, _, metrics = b16.train_step(params, state, steps, batch)
+        params, state, _, metrics = b16.train_step(params, state, step, batch)
         step16 = self._sync() - t0
         self._count()
         loss16 = float(metrics["loss"])
         rel16 = abs(loss16 - float(loss32)) / abs(float(loss32))
         ok16 = rel16 <= MESH_GATHER16_REL
         peak = torch.cuda.max_memory_allocated() / 2**30
-        self.stats["mesh train"] = dict(losses=losses, step_s=times, step16_s=step16,
-                                        peak_gib=peak)
-        _log(f"mesh train {arch} gather_dtype=bfloat16 step_s={step16:.4f} loss {loss16:.6f} vs "
-             f"float32 gather {float(loss32):.6f} on the same weights (rel {rel16:.3e}, gate "
+        tag = f"mesh train {cfg.name}"
+        self.stats[tag].update(step16_s=step16, peak16_gib=peak)
+        _log(f"{tag} gather_dtype=bfloat16 step_s={step16:.4f} loss {loss16:.6f} vs float32 "
+             f"gather {float(loss32):.6f} on the same weights (rel {rel16:.3e}, gate "
              f"{MESH_GATHER16_REL}): ok={ok16} peak_gib={peak:.3f} card={self.card}")
         if not ok16:
-            self.s.fail(f"mesh train {arch}: bfloat16 gather loss rel {rel16}")
-        del model, params, state, bundle, b16, batch
-        self.lm._free()
+            self.s.fail(f"{tag}: bfloat16 gather loss rel {rel16}")
 
     def compression(self, grads: dict) -> None:
         """``compress_bf16`` and ``compress_int8`` of ``grads`` on the card,
@@ -4727,9 +4789,11 @@ def main(argv=None) -> int:
          f"warm_prefill_s={d['mesh serve']['warm_prefill_s']:.4f} "
          f"decode_tok_s={d['mesh serve']['decode_tok_s']:.2f} (mesh-less "
          f"{d['mesh serve']['plain_decode_tok_s']:.2f}) "
-         f"peak_gib={d['mesh serve']['peak_gib']:.3f} train step_s="
-         f"{[round(x, 4) for x in d['mesh train']['step_s']]} "
-         f"bf16_gather_step_s={d['mesh train']['step16_s']:.4f} "
+         f"peak_gib={d['mesh serve']['peak_gib']:.3f} "
+         + "".join(f"train {a} step_s={[round(x, 4) for x in d[f'mesh train {a}']['step_s']]} "
+                   f"peak_gib={d[f'mesh train {a}']['peak_gib']:.3f} (mesh-less "
+                   f"{d[f'mesh train {a}']['plain_peak_gib']:.3f}) " for a, *_ in MESH_TRAIN)
+         + f"bf16_gather_step_s={d[f'mesh train {MESH_TRAIN[0][0]}']['step16_s']:.4f} "
          f"moe tp prefill_s={d['mesh moe tp']['prefill_s']:.4f} "
          f"ep prefill_s={d['mesh moe ep']['prefill_s']:.4f} card={card}")
     _log(f"phase total: {time.perf_counter() - t_all:.1f} s")

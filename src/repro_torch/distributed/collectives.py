@@ -21,7 +21,8 @@ Every collective runs on the groups of single mesh axes
 (``DeviceMesh.get_group``).  One over a tuple of axes such as
 ``('pod', 'data')`` runs once per axis: a sum over each axis in turn is
 the sum over their product, and a gather over the inner axis and then the
-outer one concatenates the blocks pod-major, as JAX orders them.
+outer one concatenates the blocks pod-major, as JAX orders them (a
+reduce-scatter cuts them in the same order, the outer axis first).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from typing import Dict, Mapping, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["axis_sizes", "axis_coords", "group_size", "gather_dim", "all_reduce", "broadcast_from",
+__all__ = ["axis_sizes", "axis_coords", "group_size", "gather_dim", "all_reduce", "reduce_scatter",
+           "broadcast_from",
            "enter_tp", "exit_gather", "exit_reduce", "all_to_all", "mean_value"]
 
 Axes = Union[str, Sequence[str]]
@@ -82,6 +84,24 @@ def all_reduce(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     axis); returns ``x``."""
     for a in _tuple(axes):
         dist.all_reduce(x, group=mesh.get_group(a))
+    return x
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes: Axes, dim: int) -> torch.Tensor:
+    """Sum ``x`` over every rank of ``axes`` and keep this rank's block of
+    dim ``dim``, pod-major (the block ``sharding.local_block`` cuts): one
+    reduce-scatter per axis, the outermost first.  Returns a new tensor
+    (``x`` itself over axes of one rank in all); off dim 0 a view of it,
+    not contiguous."""
+    for a in _tuple(axes):
+        group = mesh.get_group(a)
+        n = dist.get_world_size(group)
+        if n == 1:
+            continue
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+        x = out.movedim(0, dim)
     return x
 
 

@@ -9,7 +9,8 @@ on the ``meta`` device.  For each cell it records
 
 * the bytes one rank stores of the parameters, the optimizer state (to
   train) and the caches (to decode): the ``StepBundle``'s ``Spec`` trees
-  through ``local_shape``, each leaf in its own dtype;
+  through ``local_shape``, each leaf in its own dtype; to train, also the
+  bytes one rank holds for the sharded update (``update_bytes``);
 * FLOPs and bytes of one step from ``roofline.trace_cost.flop_count``
   over the step's math on ``meta`` tensors: the mesh-less model over the
   global batch (the loss and its gradients, microbatch by microbatch, to
@@ -58,7 +59,8 @@ from ..roofline.analysis import roofline_terms
 from ..roofline.trace_cost import flop_count
 from .steps import StepBundle, input_shapes
 
-__all__ = ["MESHES", "cell_skip_reason", "rank_bytes", "step_flops", "run_cell", "main"]
+__all__ = ["MESHES", "cell_skip_reason", "rank_bytes", "update_bytes", "step_flops",
+           "run_cell", "main"]
 
 MESHES = {"pod16x16": {"data": 16, "model": 16},
           "pod2x16x16": {"pod": 2, "data": 16, "model": 16}}
@@ -115,6 +117,28 @@ def rank_bytes(bundle: StepBundle) -> Dict[str, int]:
             (len(leaves),) + tuple(leaves[0].shape), dtype=leaves[0].dtype, device="meta"))
         out["caches"] = _stored(stacked, bundle.cspecs, sizes)
     return out
+
+
+def update_bytes(bundle: StepBundle) -> Dict[str, int]:
+    """What one rank holds for a train step's sharded update, by term
+    (``StepBundle.train_step``), activations not counted: ``gathered``,
+    the forward's copy of the parameters, gathered whole in
+    ``cfg.gather_dtype`` (leaves of two or more dims, stacked; the others
+    in their own dtype); ``full_grads``, the float32 gradients of every
+    leaf whole, before their reduce-scatter; and this rank's shards of the
+    ``masters``, the float32 ``grads`` and the optimizer ``state``."""
+    sizes = dict(bundle.mesh)
+    meta = dict(bundle.model.named_parameters())
+    gdt = getattr(torch, bundle.cfg.gather_dtype)
+    size = {n: (torch.empty((), dtype=gdt).element_size()
+                if t.ndim + bundle._stacked[n] >= 2 else t.element_size())
+            for n, t in meta.items()}
+    f32 = {n: t.to(torch.float32) for n, t in meta.items()}
+    return {"gathered": sum(t.numel() * size[n] for n, t in meta.items()),
+            "full_grads": sum(4 * t.numel() for t in meta.values()),
+            "masters": _stored(meta, bundle.pspecs, sizes),
+            "grads": _stored(f32, bundle.pspecs, sizes),
+            "state": _stored(bundle.opt.init(meta), bundle.ospecs, sizes)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,6 +208,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, outdir: Optional[str],
         sizes = MESHES[mesh_name]
         bundle = StepBundle(cfg, sizes, shape)
         stored = rank_bytes(bundle)
+        if shape.mode == "train":
+            rec["update_bytes"] = update_bytes(bundle)
         flops, moved = step_flops(cfg, bundle.shape)
         params = sum(p.numel() for p in bundle.model.parameters())
         rec.update(
@@ -204,7 +230,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, outdir: Optional[str],
         )
         rec["roofline"] = roofline_terms(rec)
         print(f"[OK] {arch} x {shape_name} ({mesh_name}): {rec['seconds']:.1f}s  "
-              f"flops {rec['flops']:.3g}  bytes/rank {stored}")
+              f"flops {rec['flops']:.3g}  bytes/rank {stored}"
+              + (f"  update {rec['update_bytes']}" if "update_bytes" in rec else ""))
     except Exception as e:  # noqa: BLE001 - the sweep records a failed cell and goes on
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])

@@ -7,19 +7,21 @@ own rows.  The bundle keeps one representation of the sharding, its
 rank's local blocks, and parameters, optimizer state and caches cross the
 API as ``DTensor``s with the specs' placements.
 
-* ``train_step``: the parameters are all-gathered in ``param_dtype`` and
-  cast to ``cfg.gather_dtype`` on each rank; the loss and its gradients
+* ``train_step``: ZeRO-3, as the reference's ``jit_train`` places its
+  step.  Each rank casts its shard of the masters to ``cfg.gather_dtype``
+  (leaves of two or more dims, stacked) and all-gathers the cast shards,
+  so the gather moves ``gather_dtype`` bytes; the loss and its gradients
   run on this rank's rows, over ``shape.microbatches`` equal slices of
-  them (``launch/train.py``'s loop, float32 accumulation); the gradients
-  are reduced (summed over ``'model'`` where the experts' work was split
-  there, then averaged over the data axes when the batch is split over
-  them); the optimizer updates the gathered masters and every rank keeps
-  its shard of the new parameters and state.  The optimizer runs on the
-  full tensors on every rank: the simple, exact form.  While it needs the
-  gathered masters, a gather in ``gather_dtype`` would move the
-  parameters a second time, and casting the gathered masters gives the
-  same bits; the cast before the gather comes back with the sharded
-  update (ROADMAP A.9c).
+  them (``launch/train.py``'s loop, float32 accumulation); the experts'
+  partial gradients are summed over ``'model'``.  Then each leaf's
+  gradient is cut to this rank's shard: where the batch is split over the
+  data axes it is summed over them (a reduce-scatter along each dim they
+  shard, an all-reduce over the others) and divided by their size; a cut
+  over ``'model'`` is a local slice.  The optimizer updates the shards of
+  the masters and the state in place (``optim/optimizer.py``), with its
+  global norm and Adafactor's means and RMS summed over the axes that
+  shard each leaf (``_sums``).  No rank holds a full sharded leaf of the
+  masters or the state.
 * ``prefill_step`` and ``serve_step``: the weights (resident, sharded over
   ``'model'`` only, with ``cfg.weights_resident_serve``) are gathered, and
   the model runs on this rank's rows.  The caches are stored in the
@@ -46,16 +48,18 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any, Dict, Iterator
 
 import torch
 
 from ..configs.base import ArchConfig, ShapeCfg
 from ..distributed.collectives import (all_reduce, axis_coords, axis_sizes, broadcast_from,
-                                      gather_dim, group_size)
-from ..distributed.sharding import (Spec, _axes, batch_specs, cache_specs, dp_axes, drop_fsdp,
-                                    gather_tensor, leaf_at, local_block, local_shape, map_specs,
-                                    opt_state_specs, param_specs, shard_tensor, stacked_cache)
+                                      gather_dim, group_size, reduce_scatter)
+from ..distributed.sharding import (Spec, _axes, _stacked_specs, batch_specs, cache_specs,
+                                    dp_axes, drop_fsdp, gather_tensor, leaf_at, local_block,
+                                    local_shape, map_specs, opt_state_specs, param_specs,
+                                    shard_tensor, stacked_cache)
 from ..models.convert import is_stacked, stacked_groups
 from ..models.model import Model
 from ..models.moe import experts_split
@@ -115,6 +119,8 @@ class StepBundle:
         pspecs: ``{parameter name: Spec}`` (serve specs drop ``pod`` and
             ``data`` with ``weights_resident_serve``).
         ospecs: The optimizer state's spec tree (train).
+        leaf_specs: ``{reference leaf key: Spec}`` of the stacked leaves
+            the optimizer updates (train).
         bspecs: ``{input: Spec}``.
         cache_shapes: The decode cache's global shapes in the stacked
             layout (decode).
@@ -148,10 +154,14 @@ class StepBundle:
             self.opt = make_optimizer(cfg.optimizer, warmup_cosine(3e-4, 2000, 100_000))
             self.opt_shapes = map_specs(lambda _, t: tuple(t.shape), self.opt.init(meta))
             self.ospecs = opt_state_specs(self.opt_shapes, raw, meta, mesh)
+            shapes = {n: tuple(t.shape) for n, t in meta.items()}
+            self.leaf_specs = {".".join(k): spec for k, (_, spec)
+                               in _stacked_specs(raw, shapes).items()}
         self.batch_shapes = input_shapes(cfg, shape)
         self.bspecs = batch_specs(self.batch_shapes, mesh, self.tp)
         self.rows_split = self.bspecs["tokens"][0] is not None
         self.ndp = group_size(mesh, self.dp)
+        self._reduce = self.rows_split and self.ndp > 1  # gradients summed over dp
         if shape.mode == "decode":
             cache = self.model.init_cache(shape.global_batch, shape.seq_len, torch.bfloat16)
             self.cache_shapes = stacked_cache(map_specs(lambda _, t: tuple(t.shape), cache))
@@ -202,57 +212,117 @@ class StepBundle:
         return {n: gather_tensor(t, self.mesh, self.pspecs[n]) for n, t in params.items()}
 
     def loss_and_grads(self, params, batch):
-        """``(loss, grads)`` of this step's rows, as ``train_step`` computes
-        them: the loss averaged over the microbatches and the data shards,
-        the gradients float32 and reduced (every rank gets the same full
-        gradients)."""
-        return self._loss_and_grads(self.gather_params(params), batch)
+        """``(loss, grads)`` of this step's rows, as ``train_step``
+        computes them: the loss averaged over the microbatches and the data
+        shards, the gradients float32 and reduced over the data axes whole
+        (every rank gets the same full gradients)."""
+        loss, grads = self._grads(params, batch)
+        if self._reduce:
+            for g in grads.values():
+                all_reduce(g, self.mesh, self.dp).div_(self.ndp)
+        return loss, grads
 
-    def _loss_and_grads(self, masters, batch):
+    def _grads(self, params, batch):
+        """The loss and the full float32 gradients of this rank's rows, on
+        the parameters gathered in ``gather_dtype`` (each shard cast before
+        its gather): the loss averaged over the data shards, the experts'
+        partial gradients summed over ``'model'``, the gradients not yet
+        reduced over the data axes."""
         gdt = getattr(torch, self.cfg.gather_dtype)
-        leaves = {n: (t.to(gdt) if t.ndim + self._stacked[n] >= 2 else t)
-                  .detach().requires_grad_(True) for n, t in masters.items()}
+        leaves = {}
+        for n, t in params.items():
+            local = t.to_local() if hasattr(t, "to_local") else t
+            if local.ndim + self._stacked[n] >= 2:
+                local = local.to(gdt)
+            leaves[n] = gather_tensor(local, self.mesh,
+                                      self.pspecs[n]).detach().requires_grad_(True)
         with self._bound(leaves):
             total, grads, _ = _loss_grads_metrics(self.model, self._rows(batch),
                                                   self.shape.microbatches, self.mesh)
+        del leaves
         if group_size(self.mesh, "model") > 1:
             for n in self.split:  # each rank computed its slice of the experts
                 all_reduce(grads[n], self.mesh, "model")
-        ndp = self.ndp
-        if self.rows_split and ndp > 1:
-            names = list(grads)
-            flat = torch.cat([total.reshape(1)] + [grads[n].reshape(-1) for n in names])
-            all_reduce(flat, self.mesh, self.dp).div_(ndp)
-            total, off = flat[0], 1
-            for n in names:
-                k = grads[n].numel()
-                grads[n] = flat[off:off + k].view_as(grads[n])
-                off += k
+        if self._reduce:
+            total = all_reduce(total.reshape(1).clone(), self.mesh, self.dp)[0] / self.ndp
         return total, grads
 
     def train_step(self, params, opt_state, step, batch):
-        """One optimizer step.
+        """One optimizer step on this rank's shards.
 
         Args:
-            params: ``{name: DTensor}`` (``shard_params``).
-            opt_state: The state tree of ``DTensor``s (``init_opt_state``).
+            params: ``{name: DTensor}`` (``shard_params``), the float32
+                masters; updated in place.
+            opt_state: The state tree of ``DTensor``s (``init_opt_state``);
+                updated in place.
             step: The step number (an int or a scalar tensor).
             batch: ``{input: DTensor}`` (``shard_batch``), or the global
                 batch (the same on every rank), whose rows this rank takes.
 
         Returns:
-            ``(params, opt_state, step + 1, {"loss": loss})``, the new
-            parameters and state stored with the same placements and the
-            loss the mean over every row of the batch.
+            ``(params, opt_state, step + 1, {"loss": loss})``: the same
+            ``DTensor``s with the new shards written into them (the
+            reference donates them), and the loss the mean over every row
+            of the batch.  ``opt_state["gnorm"]`` is the global gradient
+            norm, the same on every rank.
         """
-        masters = self.gather_params(params)
-        loss, grads = self._loss_and_grads(masters, batch)
-        state = _with_specs(lambda dt, spec: gather_tensor(dt, self.mesh, spec), opt_state,
-                            self.ospecs)
-        _, state = self.opt.update(grads, state, masters, step)
-        new_params = {n: self._keep(masters[n], self.pspecs[n]) for n in masters}
-        new_state = _with_specs(self._keep, state, self.ospecs)
-        return new_params, new_state, step + 1, {"loss": loss}
+        loss, grads = self._grads(params, batch)
+        mine = {n: self._grad_shard(grads.pop(n), self.pspecs[n]) for n in list(grads)}
+        state = _with_specs(lambda dt, _: dt.to_local(), opt_state, self.ospecs)
+        self.opt.update(mine, state, {n: t.to_local() for n, t in params.items()}, step,
+                        sums=self._sums)
+        return params, opt_state, step + 1, {"loss": loss}
+
+    def _grad_shard(self, g: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """This rank's shard under ``spec`` of a full gradient (consumed):
+        where the rows are split over the data axes, summed over them (a
+        reduce-scatter along each dim they shard, in ``local_block``'s
+        order, the outer axis first; an all-reduce over the others) and
+        divided by their size; a cut over another axis is a local slice,
+        copied out so that the full gradient can be freed."""
+        sizes, coords = axis_sizes(self.mesh), axis_coords(self.mesh)
+        summed, cut = set(), False
+        for d, entry in enumerate(spec):
+            for a in _axes(entry):
+                if sizes[a] == 1:
+                    continue
+                if self._reduce and a in self.dp:
+                    g = reduce_scatter(g, self.mesh, a, d)
+                    summed.add(a)
+                else:
+                    n = g.shape[d] // sizes[a]
+                    g, cut = g.narrow(d, coords[a] * n, n), True
+        if cut:
+            g = g.clone(memory_format=torch.contiguous_format)
+        if self._reduce:
+            rest = [a for a in self.dp if a not in summed and sizes[a] > 1]
+            if rest:
+                g = all_reduce(g.contiguous(), self.mesh, rest)
+            g.div_(self.ndp)
+        return g
+
+    def _sums(self, parts):
+        """The optimizer's ``sums`` hook (``optim.optimizer.Sums``): each
+        leaf's partial result summed over the mesh axes of more than one
+        rank that shard the dims it reduced (``leaf_specs``), and only
+        those, so no replicated copy counts twice; one all-reduce for each
+        set of axes."""
+        sizes = axis_sizes(self.mesh)
+        groups: Dict[tuple, list] = {}
+        for i, (key, _, dims) in enumerate(parts):
+            spec = self.leaf_specs[key]
+            cut = {a for d in dims for a in _axes(spec[d]) if sizes[a] > 1}
+            groups.setdefault(tuple(a for a in sizes if a in cut), []).append(i)
+        out = [None] * len(parts)
+        for axes, idx in groups.items():
+            xs = [parts[i][1] for i in idx]
+            if axes:
+                flat = all_reduce(torch.cat([x.reshape(-1) for x in xs]), self.mesh, axes)
+                xs = [y.view_as(x) for y, x in zip(flat.split([x.numel() for x in xs]), xs)]
+            ranks = math.prod(sizes[a] for a in axes)
+            for i, x in zip(idx, xs):
+                out[i] = (x, ranks)
+        return out
 
     # ----------------------------------------------------------- serving
 

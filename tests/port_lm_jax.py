@@ -7,11 +7,12 @@ the inputs of ``<dir>/setup.npz``, saved to ``<dir>/jax_<part>.npz``.
 
 The two parts run at once in two processes.  Part ``forms`` runs
 ``moe_apply`` in its TP and EP forms, ``sharded_causal_attention``
-in its three mesh cases, one ``build(...).jit_train()`` step of the
-reduced yi-6b in float32; part ``serve`` each serve case's ``prefill_step_fn()``
-then ``serve_step_fn()`` ``DECODE_STEPS`` times against the prefill's
-caches (placed by the bundle's ``cspecs``), each step fed the argmax of
-the step before.
+in its three mesh cases, one ``build(...).jit_train()`` step of each
+``JIT_TRAIN`` case (the reduced yi-6b in float32, AdamW and Adafactor);
+part ``serve`` each serve case's ``prefill_step_fn()`` then
+``serve_step_fn()`` ``DECODE_STEPS`` times against the prefill's caches
+(placed by the bundle's ``cspecs``), each step fed the argmax of the step
+before.
 """
 
 import os
@@ -104,19 +105,20 @@ def _forms(setup, mesh) -> dict:
         q, k, v = (setup[f"attn.{name}.{t}"] for t in "qkv")
         o = jax.jit(lambda q, k, v, cfg=cfg: sharded_causal_attention(q, k, v, cfg, mesh))(q, k, v)
         out[f"attn.{name}"] = np.asarray(o)
-    arch, fields, b, s = P.TRAIN_CASES["yi"]
-    cfg = REDUCED[arch]().replace(**P.F32, **fields)
-    bundle = build(cfg, mesh, ShapeCfg("t", s, b, "train"))
-    key = P.weights_key(arch, fields) + "."
-    params = _tree({k[len(key):]: v for k, v in setup.items() if k.startswith(key)},
-                   jax.eval_shape(lambda: Model(cfg).init(jax.random.PRNGKey(0))))
-    opt_state = bundle.opt.init(params)
-    batch = {"tokens": jnp.asarray(setup["train.yi.tokens"])}
-    new_p, new_o, _, metrics = bundle.jit_train()(params, opt_state, jnp.zeros((), jnp.int32),
-                                                  batch)
-    out["train.yi.loss"] = np.asarray(metrics["loss"])
-    out.update(_flat(new_p, "train.yi.p."))
-    out.update(_flat(new_o, "train.yi.o."))
+    for name in P.JIT_TRAIN:
+        arch, fields, b, s = P.TRAIN_CASES[name]
+        cfg = REDUCED[arch]().replace(**P.F32, **fields)
+        bundle = build(cfg, mesh, ShapeCfg("t", s, b, "train"))
+        key = P.weights_key(arch, fields) + "."
+        params = _tree({k[len(key):]: v for k, v in setup.items() if k.startswith(key)},
+                       jax.eval_shape(lambda cfg=cfg: Model(cfg).init(jax.random.PRNGKey(0))))
+        opt_state = bundle.opt.init(params)
+        batch = {"tokens": jnp.asarray(setup[f"train.{name}.tokens"])}
+        new_p, new_o, _, metrics = bundle.jit_train()(params, opt_state,
+                                                      jnp.zeros((), jnp.int32), batch)
+        out[f"train.{name}.loss"] = np.asarray(metrics["loss"])
+        out.update(_flat(new_p, f"train.{name}.p."))
+        out.update(_flat(new_o, f"train.{name}.o."))
     return out
 
 

@@ -30,11 +30,12 @@ ATTN_CASES = {
     "tp1": {"tp_size": 1},  # rows over every axis
 }
 
-# Train steps: (arch, fields, global batch, seq).  "yi" is held against
-# the reference's ``jit_train`` on the (2, 2) mesh, the others against its
-# single-device loss and optimizer run per data shard.
+# Train steps: (arch, fields, global batch, seq).  The JIT_TRAIN cases are
+# held against the reference's ``jit_train`` on the (2, 2) mesh, the others
+# against its single-device loss and optimizer run per data shard.
 TRAIN_CASES = {
     "yi": ("yi-6b", {}, 4, 32),
+    "yi_af": ("yi-6b", {"optimizer": "adafactor"}, 4, 32),
     "yi_tp1": ("yi-6b", {"tp_size": 1}, 8, 32),
     "yi_mb2": ("yi-6b", {"microbatches_override": 2}, 8, 32),
     "yi_bf16": ("yi-6b", {"gather_dtype": "bfloat16"}, 4, 32),
@@ -42,6 +43,12 @@ TRAIN_CASES = {
     "moe_tp": ("qwen2-moe-a2.7b", {}, 4, 32),
     "moe_ep": ("qwen2-moe-a2.7b", {"moe_impl": "ep"}, 4, 32),
 }
+JIT_TRAIN = ("yi", "yi_af")
+# The cases whose sharded update is also held against the gathered one (a
+# plain version in the rank program: gather, the mesh-less update, keep the
+# shards), with the bundle's clip and with a clip no norm reaches.
+PLAIN_UPDATE = ("yi", "yi_af")
+NO_CLIP = 1e9
 
 # Serving: (arch, fields, batch, prompt) prefilled and decoded DECODE_STEPS
 # tokens through the bundle.
@@ -179,11 +186,19 @@ def _train(setup, mesh, out):
     for name, (arch, fields, b, s) in TRAIN_CASES.items():
         model, _ = _model(setup, arch, fields)
         bundle = build(model.cfg, mesh, ShapeCfg("t", s, b, "train"))
+        tokens = torch.from_numpy(setup[f"train.{name}.tokens"])
+        if name in PLAIN_UPDATE:
+            _plain_update(setup, mesh, name, out)
         params = bundle.shard_params(model)
         opt_state = bundle.init_opt_state(params)
-        batch = bundle.shard_batch({"tokens": torch.from_numpy(setup[f"train.{name}.tokens"])})
-        new_p, new_o, step, metrics = bundle.train_step(params, opt_state, 0, batch)
+        batch = bundle.shard_batch({"tokens": tokens})
+        with _GatherDtypes() as gathered, _tracked_update(bundle) as allocs:
+            new_p, new_o, step, metrics = bundle.train_step(params, opt_state, 0, batch)
         assert step == 1
+        out[f"train.{name}.same_dtensors"] = np.array(
+            all(new_p[n] is params[n] for n in params) and new_o is opt_state)
+        out[f"train.{name}.gather_dtypes"] = np.array(sorted(set(gathered)))
+        out[f"train.{name}.allocs"] = _alloc_facts(bundle, allocs)
         out[f"train.{name}.loss"] = metrics["loss"].numpy()
         full = _gathered(bundle, new_p, bundle.pspecs)
         for key, members in stacked_groups(full).items():
@@ -191,6 +206,172 @@ def _train(setup, mesh, out):
             out[f"train.{name}.p.{key}"] = np.stack(arr) if key.startswith("stack.") else arr[0]
         for k, v in _flat(_gathered(bundle, new_o, bundle.ospecs)).items():
             out[f"train.{name}.o.{k}"] = v
+
+
+def _plain_update(setup, mesh, name, out):
+    """The gathered update against the sharded one on the same weights and
+    batch: the masters, the state and the reduced gradients gathered whole
+    (``loss_and_grads``), the mesh-less update, this rank's shards kept.
+    Once with the bundle's clip and once with ``NO_CLIP``, where the clip's
+    scale is exactly 1: ``plain.<clip>.bits`` whether every shard is the
+    same bits, ``plain.<clip>.rel`` the largest ``|diff| / max|leaf|`` of a
+    parameter or state leaf, ``plain.<clip>.gnorm`` both norms.  The plain
+    update allocates the full leaves (``plain.control``), which the tracker
+    sees."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.distributed.sharding import gather_tensor, local_block
+    from repro_torch.launch.steps import _with_specs, build
+    from repro_torch.optim.optimizer import make_optimizer, warmup_cosine
+
+    arch, fields, b, s = TRAIN_CASES[name]
+    tokens = torch.from_numpy(setup[f"train.{name}.tokens"])
+    for clip in ("bundle", "none"):
+        model, _ = _model(setup, arch, fields)
+        bundle = build(model.cfg, mesh, ShapeCfg("t", s, b, "train"))
+        if clip == "none":
+            bundle.opt = make_optimizer(model.cfg.optimizer, warmup_cosine(3e-4, 2000, 100_000),
+                                        grad_clip=NO_CLIP)
+        params = bundle.shard_params(model)
+        batch = bundle.shard_batch({"tokens": tokens})
+        masters = {n: t.clone() for n, t in bundle.gather_params(params).items()}
+        state = bundle.init_opt_state()
+        whole = _with_specs(lambda dt, spec: gather_tensor(dt, mesh, spec).clone(), state,
+                            bundle.ospecs)
+        _, grads = bundle.loss_and_grads(params, batch)
+        with _tracked_update(bundle) as allocs:
+            bundle.opt.update(grads, whole, masters, 0)
+        if clip == "bundle":
+            out[f"train.{name}.plain.control"] = _alloc_facts(bundle, allocs)
+        params, state, _, _ = bundle.train_step(params, state, 0, batch)
+        pairs = [(params[n].to_local(), masters[n], bundle.pspecs[n]) for n in masters]
+        pairs += _with_pairs(state, whole, bundle.ospecs)
+        bits, rel = True, 0.0
+        for mine, want, spec in pairs:
+            block = local_block(want, mesh, spec)
+            bits &= torch.equal(mine, block)
+            scale = float(want.abs().max()) or 1.0
+            rel = max(rel, float((mine - block).abs().max()) / scale)
+        out[f"train.{name}.plain.{clip}.bits"] = np.array(bits)
+        out[f"train.{name}.plain.{clip}.rel"] = np.array(rel)
+        out[f"train.{name}.plain.{clip}.gnorm"] = np.array(
+            [float(state["gnorm"].to_local()), float(whole["gnorm"])])
+
+
+def _with_pairs(tree, whole, specs):
+    """``(this rank's block, the whole leaf, spec)`` of every state leaf."""
+    if not isinstance(specs, dict):  # a Spec
+        return [(tree.to_local(), whole, specs)]
+    return [p for k in specs for p in _with_pairs(tree[k], whole[k], specs[k])]
+
+
+class _GatherDtypes:
+    """The dtype of every tensor the bundle's parameter gathers hand to
+    ``torch.distributed.all_gather`` inside the block."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from repro_torch.launch import steps
+
+        self.seen, self.inside = [], False
+        self.real = (steps.gather_tensor, dist.all_gather)
+
+        def gather_tensor(*a, **kw):
+            self.inside = True
+            try:
+                return self.real[0](*a, **kw)
+            finally:
+                self.inside = False
+
+        def all_gather(parts, x, *a, **kw):
+            if self.inside:
+                self.seen.append(str(x.dtype).replace("torch.", ""))
+            return self.real[1](parts, x, *a, **kw)
+
+        steps.gather_tensor, dist.all_gather = gather_tensor, all_gather
+        return self.seen
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        from repro_torch.launch import steps
+
+        steps.gather_tensor, dist.all_gather = self.real
+        return False
+
+
+class _tracked_update:
+    """The shape and bytes of every tensor ``bundle.opt.update`` allocates
+    inside the block (an op's output whose storage none of its inputs
+    holds), recorded by a dispatch mode around the update alone."""
+
+    def __init__(self, bundle):
+        self.bundle, self.allocs = bundle, []
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_flatten
+
+        from repro_torch.optim.optimizer import Optimizer
+
+        allocs = self.allocs
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                result = func(*args, **(kwargs or {}))
+                held = {t.untyped_storage().data_ptr()
+                        for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)}
+                for t in tree_flatten(result)[0]:
+                    if (isinstance(t, torch.Tensor)
+                            and t.untyped_storage().data_ptr() not in held):
+                        allocs.append((tuple(t.shape), t.untyped_storage().nbytes()))
+                return result
+
+        opt = self.real = self.bundle.opt
+
+        def update(*a, **kw):
+            with Mode():
+                return opt.update(*a, **kw)
+
+        self.bundle.opt = Optimizer(opt.init, update)
+        return allocs
+
+    def __exit__(self, *exc):
+        self.bundle.opt = self.real
+        return False
+
+
+def _alloc_facts(bundle, allocs):
+    """``[full, biggest, local]``: how many allocations are shaped as a
+    whole sharded leaf (a per-period tensor or a stacked leaf, parameter or
+    state; a shape that is also a leaf's block on this rank, such as a
+    replicated stack of norm weights beside a factored statistic, is not
+    counted), the largest allocation's bytes, and the largest stacked
+    parameter leaf's float32 bytes on this rank."""
+    from repro_torch.distributed.collectives import axis_sizes
+    from repro_torch.distributed.sharding import _axes, _stacked_specs, local_shape
+    from repro_torch.launch.steps import _with_specs
+
+    sizes = axis_sizes(bundle.mesh)
+    whole, blocks = set(), set()
+
+    def leaf(shape, spec):
+        block = local_shape(shape, spec, sizes)
+        blocks.add(block)
+        if any(sizes[a] > 1 for e in spec for a in _axes(e)):
+            whole.add(tuple(shape))
+        return 4 * int(np.prod(block))
+
+    shapes = {n: tuple(t.shape) for n, t in bundle.model.named_parameters()}
+    for n, shape in shapes.items():
+        leaf(shape, bundle.pspecs[n])
+    local = [leaf(shape, spec) for shape, spec in _stacked_specs(bundle.pspecs, shapes).values()]
+    _with_specs(leaf, bundle.opt_shapes, bundle.ospecs)
+    full = sum(shape in whole - blocks for shape, _ in allocs)
+    return np.array([full, max((n for _, n in allocs), default=0), max(local)])
 
 
 def _serve(setup, mesh, out):

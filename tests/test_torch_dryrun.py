@@ -13,7 +13,10 @@
   the four devices are within ``FLOP_REL`` of the port's.
 * ``policy.on_card`` sends ``meta`` tensors to the plain versions, CPU
   ones too, CUDA ones to the kernel, and refuses any other device.
-* The command line records skips and failures and exits 1 on a failure.
+* The sharded update, reckoned on ``meta`` tensors: ``update_bytes``'
+  shard terms fall with the mesh, and one update's all-reduces, by axes.
+* The command line records skips and failures and exits 1 on a failure,
+  and a train cell's record holds ``update_bytes``.
 """
 
 import functools
@@ -165,6 +168,71 @@ def test_reduced_cell_against_the_reference_compile(reference_cell, mode):
     assert abs(sum(flops.values()) - ref) <= FLOP_REL * ref, (flops, ref)
 
 
+@pytest.mark.parametrize("gather", ["float32", "bfloat16"])
+def test_update_bytes_shard_terms_fall_with_the_mesh(gather):
+    """yi-6b in full to train: the sharded update's whole terms (the
+    gathered forward copy, the full gradients) are the same on (1, 1) and
+    (2, 2); each shard term (masters, gradients, state) falls as 1/k, k
+    the ranks each leaf's spec cuts it into, so near a quarter, the
+    embedding and unembedding (cut over ``'model'`` only) a half."""
+    cfg = config("yi-6b").replace(gather_dtype=gather)
+    one, four = (StepBundle(cfg, sizes, SHAPES["train_4k"])
+                 for sizes in ({"data": 1, "model": 1}, {"data": 2, "model": 2}))
+    u1, u4 = D.update_bytes(one), D.update_bytes(four)
+    stored = D.rank_bytes(four)
+    assert (u4["masters"], u4["state"]) == (stored["params"], stored["opt_state"])
+    n = sum(p.numel() for p in one.model.parameters())
+    assert u1["full_grads"] == u4["full_grads"] == u1["masters"] == u1["grads"] == 4 * n
+    assert u1["gathered"] == u4["gathered"]
+    if gather == "bfloat16":  # every leaf but the final norm moves 2 bytes
+        assert 2 * n < u4["gathered"] < 2 * n + 4 * cfg.d_model
+    else:
+        assert u4["gathered"] == 4 * n
+    # every axis of the (2, 2) mesh has two ranks
+    k = {name: 2 ** sum(len((e,) if isinstance(e, str) else e or ()) for e in spec)
+         for name, spec in four.pspecs.items()}
+    meta = dict(four.model.named_parameters())
+    assert u4["masters"] == u4["grads"] == sum(4 * t.numel() // k[m] for m, t in meta.items())
+    for term in ("masters", "grads", "state"):
+        assert u1[term] / 4 <= u4[term] <= 0.28 * u1[term], term
+    assert u4["state"] == 2 * u4["masters"] + 4  # AdamW's m and v, and the norm
+
+
+# The all-reduces one sharded update issues on the (16, 16) mesh, by the
+# axes each sums over: AdamW's global norm, one for each set of axes that
+# cuts a leaf; Adafactor's also a period of each matrix leaf (its row and
+# column means, then the rows' mean of those) and the RMS of each leaf.
+UPDATE_ALL_REDUCES = {
+    "yi-6b": {("model",): 1, ("data", "model"): 1},
+    "internlm2-20b": {("data",): 576, ("model",): 438, ("data", "model"): 8},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(UPDATE_ALL_REDUCES))
+def test_sharded_update_all_reduces(arch, monkeypatch):
+    """One update on a rank's ``meta`` shards of the model in full, the
+    partial sums through ``StepBundle._sums``: the all-reduces it issues,
+    and none on a mesh of one rank, where every leaf is whole."""
+    import collections
+
+    from repro_torch.distributed.sharding import local_shape
+    from repro_torch.launch import steps
+
+    calls = []
+    monkeypatch.setattr(steps, "all_reduce", lambda x, mesh, axes: calls.append(tuple(axes)) or x)
+    counts = []
+    for sizes in ({"data": 16, "model": 16}, {"data": 1, "model": 1}):
+        bundle = StepBundle(config(arch), sizes, SHAPES["train_4k"])
+        params = {n: torch.empty(local_shape(tuple(t.shape), bundle.pspecs[n], sizes),
+                                 device="meta")
+                  for n, t in bundle.model.named_parameters()}
+        grads = {n: torch.empty_like(t) for n, t in params.items()}
+        calls.clear()
+        bundle.opt.update(grads, bundle.opt.init(params), params, 0, sums=bundle._sums)
+        counts.append(dict(collections.Counter(calls)))
+    assert counts == [UPDATE_ALL_REDUCES[arch], {}]
+
+
 def test_on_card_routes_meta_to_the_plain_version():
     assert on_card(torch.empty(2, device="meta"), "t") is False
     assert on_card(torch.empty(2), "t") is False
@@ -188,3 +256,16 @@ def test_command_line_records_skips_and_failures(tmp_path):
                    "--outdir", out]) == 1
     rec = json.loads((tmp_path / "pod16x16" / "yi-6b__decode_32k__n_heads=7.json").read_text())
     assert rec["status"] == "error" and rec["error"]
+
+
+def test_command_line_records_the_update_bytes(tmp_path):
+    """A train cell's record breaks the sharded update's bytes down by
+    term, its shards those that ``bytes_per_rank`` stores."""
+    assert D.main(["--arch", "yi-6b", "--shape", "train_4k", "--set", "n_layers=2",
+                   "--outdir", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "pod16x16" / "yi-6b__train_4k__n_layers=2.json").read_text())
+    assert rec["status"] == "ok" and rec["n_chips"] == 256
+    assert set(rec["update_bytes"]) == {"gathered", "full_grads", "masters", "grads", "state"}
+    assert set(rec["bytes_per_rank"]) == {"params", "opt_state"}
+    assert rec["update_bytes"]["masters"] == rec["bytes_per_rank"]["params"]
+    assert rec["update_bytes"]["state"] == rec["bytes_per_rank"]["opt_state"]

@@ -7,7 +7,10 @@ then runs these at once: a 4-rank gloo group of the port (rank program
 subprocesses with four host devices each running the reference's own
 mesh paths on a (2, 2) mesh (``tests/port_lm_jax.py``: its mesh forms
 and train step, and its serve steps), and, in this process, the
-reference's single-device loss and optimizer run per data shard.
+reference's single-device loss and optimizer run per data shard.  The
+bundle's train step updates each rank's shards (ZeRO-3): it is also held
+against the gathered update of the same step (the rank program's plain
+version), and a dispatch mode records what the update allocates.
 
 Tolerances: the mesh forms of attention and the MoE within ``1e-5``
 (the attention tolerance; the port attends through ``simplex_attention``,
@@ -15,14 +18,18 @@ the reference through the chunked executor, which agree to ~5e-7); the
 reduced yi-6b train step's loss within ``rtol 2e-4`` of ``jit_train``'s
 (the reference test's own gate) and every updated parameter within
 ``1e-6 * max|leaf|``; the optimizer's first moment (0.1 x the clipped
-gradient) within ``1e-5 * max|m|`` and the gradient norm within ``1e-5``
+gradient) or Adafactor's statistics within ``1e-5 * max|leaf|`` and the gradient norm within ``1e-5``
 relative, which neither a gradient multiplied by ``|model|`` nor one left
 partial meets; with ``gather_dtype="bfloat16"`` the gradients are
 bfloat16 on both sides, so ``m`` within ``4e-3 * max|m|`` (a bfloat16
 rounding) and the norm within ``1e-4``; the MoE balance loss ``aux``
 equal; serving (the reference's prefill and decode steps on the same
 mesh, and the port's mesh-less path) within ``rtol 2e-3, atol 2e-4``
-with every argmax equal (the dense family's gate).
+with every argmax equal (the dense family's gate).  The sharded update
+against the gathered one: AdamW bit for bit where the clip's scale is
+exactly 1; otherwise every parameter and state shard within
+``1e-6 * max|leaf|`` and the gradient norm within ``rtol 1e-6`` (the
+partial sums' order).
 """
 
 import json
@@ -57,6 +64,7 @@ PARAM_REL = 1e-6
 M_REL, NORM_REL = 1e-5, 1e-5
 M_REL16, NORM_REL16 = 4e-3, 1e-4
 SERVE_TOL = dict(rtol=2e-3, atol=2e-4)
+PLAIN_REL, PLAIN_NORM_RTOL = 1e-6, 1e-6
 DEADLINE_S = 300  # the ranks' and the JAX side's wall, well past their ~20 s
 
 
@@ -99,12 +107,12 @@ def _flat(tree, prefix=""):
 
 def _per_shard(setup) -> dict:
     """The reference's single-device loss and optimizer, run per data
-    shard, for every train case but "yi": the loss and gradients averaged
+    shard, for every train case but ``JIT_TRAIN``'s: the loss and gradients averaged
     over the shard's microbatches, then over the shards (float32), then
     one optimizer update.  One compile per (architecture, gather dtype)."""
     out, fns, trees = {}, {}, {}
     for name, (arch, fields, b, _) in P.TRAIN_CASES.items():
-        if name == "yi":
+        if name in P.JIT_TRAIN:
             continue
         # remat changes no value, and the chunked executor is the flash
         # path's to ~5e-7: both compile faster
@@ -251,6 +259,51 @@ def test_train_step(sides, name):
         for k, v in ref.items():
             if k.startswith(("m.", "f.")):
                 assert np.abs(mine[k] - v).max() <= m_rel * np.abs(v).max() + 1e-12, k
+
+
+@pytest.mark.parametrize("name", P.PLAIN_UPDATE)
+@pytest.mark.parametrize("clip", ["bundle", "none"])
+def test_sharded_update_equals_the_gathered_one(sides, name, clip):
+    """Each rank's new shards of the masters and the state against the
+    gathered update's (gather, the mesh-less update, keep the shards) on
+    the same weights and batch."""
+    _, got, _, _ = sides
+    adamw = P.TRAIN_CASES[name][1].get("optimizer", "adamw") == "adamw"
+    for out, _ in got:
+        mine, whole = out[f"train.{name}.plain.{clip}.gnorm"]
+        np.testing.assert_allclose(mine, whole, rtol=PLAIN_NORM_RTOL)
+        if clip == "none":
+            assert whole < P.NO_CLIP  # the clip's scale is exactly 1
+        else:
+            assert whole > 1.0  # the bundle's clip, 1.0, scales the gradients
+        if clip == "none" and adamw:
+            assert bool(out[f"train.{name}.plain.{clip}.bits"])
+        assert float(out[f"train.{name}.plain.{clip}.rel"]) <= PLAIN_REL
+
+
+@pytest.mark.parametrize("name", list(P.TRAIN_CASES))
+def test_update_allocates_no_whole_sharded_leaf(sides, name):
+    """No tensor the update allocates on a rank has the shape of a whole
+    sharded leaf, and none is larger than the rank's largest stacked leaf;
+    the gathered update, on the whole leaves, does allocate them (the
+    tracker sees them)."""
+    _, got, _, _ = sides
+    for out, _ in got:
+        full, biggest, local = out[f"train.{name}.allocs"]
+        assert full == 0 and 0 < biggest <= local, (full, biggest, local)
+        if name in P.PLAIN_UPDATE:
+            assert out[f"train.{name}.plain.control"][0] > 0
+
+
+@pytest.mark.parametrize("name", list(P.TRAIN_CASES))
+def test_train_step_gathers_in_gather_dtype(sides, name):
+    """The shards are cast before the parameters' all-gather, so it moves
+    ``gather_dtype`` bytes; the step hands back the DTensors it took."""
+    _, got, _, _ = sides
+    want = P.TRAIN_CASES[name][1].get("gather_dtype", "float32")
+    for out, _ in got:
+        assert list(out[f"train.{name}.gather_dtypes"]) == [want]
+        assert bool(out[f"train.{name}.same_dtensors"])
 
 
 @pytest.mark.parametrize("name", list(P.SERVE_CASES))

@@ -160,13 +160,16 @@ def test_new_train_rows_and_their_cuts():
         else:
             assert row.experts == 0 and cfg.moe is None
     deepseek = CS.train_config(configs, rows["deepseek-v3-671b"])
-    assert (deepseek.n_prefix, deepseek.prefix_spec, deepseek.n_periods) == (0, (), 1)
+    full = config("deepseek-v3-671b")
+    assert (deepseek.n_prefix, deepseek.prefix_spec, deepseek.n_periods) == (
+        1, full.prefix_spec[:1], 1)
     assert deepseek.mtp and deepseek.moe.router == "sigmoid"
     jamba = CS.train_config(configs, rows["jamba-v0.1-52b"])
     assert jamba.n_periods == 1 and sum(s.mixer == "attn" for s in jamba.period) == 1
     # the flash layers a forward pass: attention layers of a kernel head dim,
     # decoder self-attention only (MLA and xLSTM take none)
-    assert [rows[a].flash for a in FAMILIES] == [1, 0, 0, 1, 24]
+    assert [rows[a].flash for a in FAMILIES] == [1, 0, 0, 2, 24]
+    assert CS.train_config(configs, rows["qwen2-vl-72b"]).n_layers == 2
     assert rows["seamless-m4t-large-v2"].inputs == "src_embeds"
     assert rows["qwen2-vl-72b"].inputs == "patches"
 
