@@ -322,8 +322,11 @@ coordinates into element origins.  This script
     above the train phase's row of the same cut; then yi-6b's step's
     gradients through ``compress_bf16`` and ``compress_int8`` on
     the card bit-equal to the CPU's, and one step with
-    ``gather_dtype="bfloat16"`` (``mesh train``, ``mesh compression``
-    lines); prefills qwen2-moe-a2.7b cut to 4 layers through the MoE's
+    ``gather_dtype="bfloat16"``, whose gathered parameters alive at once
+    (each unit's gathered just before it runs) may not pass the leaves
+    outside every unit plus two of the largest units, nor its memory peak
+    the float32 row's (``mesh train``, ``mesh compression`` lines);
+    prefills qwen2-moe-a2.7b cut to 4 layers through the MoE's
     TP and EP forms (an all-reduce and two all-to-alls over NCCL) against
     the mesh-less prefill under the family phase's gate, router flips
     counted (``mesh moe`` lines); the serve's resident cache bytes (the
@@ -3859,11 +3862,50 @@ MESH_TRAIN_REL = 1e-5
 MESH_PARAM_REL = 1e-6
 MESH_PEAK_GIB = 1.0
 # A gather_dtype="bfloat16" step's loss against the float32 gather's on
-# the same weights (bfloat16 weights in the forward).
+# the same weights (bfloat16 weights in the forward).  Its gathered
+# parameters alive at once (LiveGathers) may not pass the leaves outside
+# every unit plus two of the largest units (launch/dryrun.unit_bytes), nor
+# its memory peak the float32 row's.
 MESH_GATHER16_REL = 1e-2
 # The MoE forms: (arch, layers, batch, prompt) prefilled through the TP and
 # EP forms against the mesh-less prefill, under the family phase's gate.
 MESH_MOE = ("qwen2-moe-a2.7b", 4, 4, 2048)
+
+
+class LiveGathers:
+    """The bytes of gathered parameters a bundle holds at once inside the
+    block: each tensor ``bundle._gather_leaf`` returns in a storage of its
+    own (a copy its cast to ``gather_dtype`` or its gather made; on one
+    rank a float32 gather is the shard itself) counts from its return
+    until a finalizer on its storage runs; ``peak`` is the most alive at
+    once (the tests' ``_LiveGathers``, ``tests/port_lm_spmd.py``)."""
+
+    def __init__(self, bundle):
+        self.b, self.live, self.peak = bundle, 0, 0
+
+    def _drop(self, n: int) -> None:
+        self.live -= n
+
+    def __enter__(self):
+        import weakref
+
+        gather = self.b._gather_leaf
+
+        def counted(shard, name, spec=None):
+            out = gather(shard, name, spec)
+            storage = out.untyped_storage()
+            if storage.data_ptr() != shard.untyped_storage().data_ptr():
+                self.live += storage.nbytes()
+                self.peak = max(self.peak, self.live)
+                weakref.finalize(storage, self._drop, storage.nbytes())
+            return out
+
+        self.b._gather_leaf = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.b._gather_leaf
+        return False
 
 
 class MeshSmoke:
@@ -4071,17 +4113,20 @@ class MeshSmoke:
         params, state = bundle.shard_params(model), bundle.init_opt_state()
         self.lm.zero_counts()
         losses, times = [], []
-        for step in range(steps):
-            t0 = self._sync()
-            params, state, _, metrics = bundle.train_step(params, state, step, batch)
-            losses.append(float(metrics["loss"]))
-            times.append(self._sync() - t0)
-            if step == 0:
-                worst = max(((params[n].to_local().cpu() - p).abs().max()
-                             / p.abs().max().clamp(min=1e-30)).item() for n, p in want.items())
-                del want
+        with LiveGathers(bundle) as live:
+            for step in range(steps):
+                t0 = self._sync()
+                params, state, _, metrics = bundle.train_step(params, state, step, batch)
+                losses.append(float(metrics["loss"]))
+                times.append(self._sync() - t0)
+                if step == 0:
+                    worst = max(((params[n].to_local().cpu() - p).abs().max()
+                                 / p.abs().max().clamp(min=1e-30)).item()
+                                for n, p in want.items())
+                    del want
         # each peak above the memory allocated before its row
-        peak = torch.cuda.max_memory_allocated() / 2**30 - base
+        peak_abs = torch.cuda.max_memory_allocated() / 2**30
+        peak = peak_abs - base
         row = self.lm.stats[f"train {arch}"]
         plain = row["peak_gib"] - row["base_gib"]
         launches = self._count()
@@ -4090,14 +4135,17 @@ class MeshSmoke:
         want_launches["flash_wgmma"] = layers * steps
         ok = (rel <= MESH_TRAIN_REL and worst <= MESH_PARAM_REL and launches == want_launches
               and all(math.isfinite(x) for x in losses) and peak <= plain + MESH_PEAK_GIB)
-        self.stats[tag] = dict(losses=losses, step_s=times, peak_gib=peak, plain_peak_gib=plain)
+        self.stats[tag] = dict(losses=losses, step_s=times, peak_gib=peak, plain_peak_gib=plain,
+                               peak_abs_gib=peak_abs, gather_peak=live.peak)
         _log(f"{tag}: {layers} layers at full width, float32, {cfg.optimizer}, "
              f"batch {b} x seq {seq}, {steps} steps through StepBundle on a (1, 1) mesh, "
-             "the shards updated in place")
+             "each unit's parameters gathered just before it runs, the shards updated in place")
         _log(f"{tag} losses={[round(x, 6) for x in losses]} "
              f"step_s={[round(x, 4) for x in times]} launches={launches} peak_gib={peak:.3f} "
              f"above the {base:.3f} allocated before, beside the train phase's row {plain:.3f} "
-             f"above its {row['base_gib']:.3f} (gate +{MESH_PEAK_GIB}) card={self.card}")
+             f"above its {row['base_gib']:.3f} (gate +{MESH_PEAK_GIB}); gathered parameters "
+             f"alive at once {live.peak} bytes (a float32 gather on one rank is the shard "
+             f"itself) card={self.card}")
         _log(f"{tag} first step vs launch/train.train_step: loss {losses[0]:.7f} vs "
              f"{loss_ref:.7f} (rel {rel:.3e}, gate {MESH_TRAIN_REL}), parameters max "
              f"|diff|/max|leaf| {worst:.3e} (gate {MESH_PARAM_REL}): ok={ok} card={self.card}")
@@ -4112,7 +4160,11 @@ class MeshSmoke:
     def gather16(self, mesh, cfg, bundle, params, state, batch, step: int) -> None:
         """The step's gradients compressed on the card and on the CPU; then
         one step with the parameters gathered in bfloat16, its loss against
-        the float32 gather's on the same weights."""
+        the float32 gather's on the same weights, its gathered parameters
+        alive at once within the leaves outside every unit and two units,
+        its memory peak within the float32 row's."""
+        from repro_torch.launch.dryrun import unit_bytes
+
         torch = self.torch
         loss32, grads = bundle.loss_and_grads(params, batch)
         self._count()
@@ -4122,20 +4174,28 @@ class MeshSmoke:
         torch.cuda.reset_peak_memory_stats()
         b16 = self.steps.build(cfg.replace(gather_dtype="bfloat16"), mesh, bundle.shape)
         t0 = self._sync()
-        params, state, _, metrics = b16.train_step(params, state, step, batch)
+        with LiveGathers(b16) as live:
+            params, state, _, metrics = b16.train_step(params, state, step, batch)
         step16 = self._sync() - t0
         self._count()
         loss16 = float(metrics["loss"])
         rel16 = abs(loss16 - float(loss32)) / abs(float(loss32))
-        ok16 = rel16 <= MESH_GATHER16_REL
         peak = torch.cuda.max_memory_allocated() / 2**30
         tag = f"mesh train {cfg.name}"
-        self.stats[tag].update(step16_s=step16, peak16_gib=peak)
+        outer, unit = unit_bytes(b16)
+        bound = outer + 2 * unit
+        peak32 = self.stats[tag]["peak_abs_gib"]
+        ok16 = rel16 <= MESH_GATHER16_REL and live.peak <= bound and peak <= peak32
+        self.stats[tag].update(step16_s=step16, peak16_gib=peak, gather16_peak=live.peak)
         _log(f"{tag} gather_dtype=bfloat16 step_s={step16:.4f} loss {loss16:.6f} vs float32 "
              f"gather {float(loss32):.6f} on the same weights (rel {rel16:.3e}, gate "
-             f"{MESH_GATHER16_REL}): ok={ok16} peak_gib={peak:.3f} card={self.card}")
+             f"{MESH_GATHER16_REL}); gathered parameters alive at once {live.peak} bytes "
+             f"beside the leaves outside every unit {outer} plus two of the largest units "
+             f"{2 * unit}: {bound} (gate); peak_gib={peak:.3f} beside the float32 row's "
+             f"{peak32:.3f} (gate): ok={ok16} card={self.card}")
         if not ok16:
-            self.s.fail(f"{tag}: bfloat16 gather loss rel {rel16}")
+            self.s.fail(f"{tag}: bfloat16 gather loss rel {rel16}, gathered peak {live.peak} "
+                        f"(bound {bound}), peak {peak} GiB (float32 row {peak32})")
 
     def compression(self, grads: dict) -> None:
         """``compress_bf16`` and ``compress_int8`` of ``grads`` on the card,
@@ -4792,8 +4852,11 @@ def main(argv=None) -> int:
          f"peak_gib={d['mesh serve']['peak_gib']:.3f} "
          + "".join(f"train {a} step_s={[round(x, 4) for x in d[f'mesh train {a}']['step_s']]} "
                    f"peak_gib={d[f'mesh train {a}']['peak_gib']:.3f} (mesh-less "
-                   f"{d[f'mesh train {a}']['plain_peak_gib']:.3f}) " for a, *_ in MESH_TRAIN)
+                   f"{d[f'mesh train {a}']['plain_peak_gib']:.3f}) "
+                   f"gather_peak={d[f'mesh train {a}']['gather_peak']} " for a, *_ in MESH_TRAIN)
          + f"bf16_gather_step_s={d[f'mesh train {MESH_TRAIN[0][0]}']['step16_s']:.4f} "
+         f"peak_gib={d[f'mesh train {MESH_TRAIN[0][0]}']['peak16_gib']:.3f} "
+         f"gather_peak={d[f'mesh train {MESH_TRAIN[0][0]}']['gather16_peak']} "
          f"moe tp prefill_s={d['mesh moe tp']['prefill_s']:.4f} "
          f"ep prefill_s={d['mesh moe ep']['prefill_s']:.4f} card={card}")
     _log(f"phase total: {time.perf_counter() - t_all:.1f} s")

@@ -10,7 +10,9 @@ on the ``meta`` device.  For each cell it records
 * the bytes one rank stores of the parameters, the optimizer state (to
   train) and the caches (to decode): the ``StepBundle``'s ``Spec`` trees
   through ``local_shape``, each leaf in its own dtype; to train, also the
-  bytes one rank holds for the sharded update (``update_bytes``);
+  bytes one rank holds for the sharded update (``update_bytes``: the
+  shards, and the parameters and gradients of the leaves outside every
+  unit and of two units whole);
 * FLOPs and bytes of one step from ``roofline.trace_cost.flop_count``
   over the step's math on ``meta`` tensors: the mesh-less model over the
   global batch (the loss and its gradients, microbatch by microbatch, to
@@ -48,19 +50,20 @@ import os
 import sys
 import time
 import traceback
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..configs.ALL import ARCH_IDS, config
 from ..configs.base import SHAPES, ArchConfig, ShapeCfg
-from ..distributed.sharding import Spec, local_shape, stacked_cache
+from ..distributed.collectives import axis_sizes
+from ..distributed.sharding import Spec, _axes, local_shape, stacked_cache
 from ..roofline.analysis import roofline_terms
 from ..roofline.trace_cost import flop_count
 from .steps import StepBundle, input_shapes
 
-__all__ = ["MESHES", "cell_skip_reason", "rank_bytes", "update_bytes", "step_flops",
-           "run_cell", "main"]
+__all__ = ["MESHES", "cell_skip_reason", "rank_bytes", "unit_bytes", "update_bytes",
+           "step_flops", "run_cell", "main"]
 
 MESHES = {"pod16x16": {"data": 16, "model": 16},
           "pod2x16x16": {"pod": 2, "data": 16, "model": 16}}
@@ -119,23 +122,42 @@ def rank_bytes(bundle: StepBundle) -> Dict[str, int]:
     return out
 
 
+def unit_bytes(bundle: StepBundle, dtype: Optional[torch.dtype] = None) -> Tuple[int, int]:
+    """``(outer, largest)``: the bytes of the leaves outside every unit
+    (``bundle.outer``: the embedding, the unembedding, the final norms) and
+    of the largest unit (``bundle.units``), as the train step gathers a
+    parameter (``StepBundle._gather_leaf``): whole, but an expert that the
+    MoE's mesh forms take as this rank's block cut over ``'model'``
+    (``gspecs``); in ``cfg.gather_dtype`` (leaves of two or more dims,
+    stacked; the others in their own dtype), or every leaf in ``dtype``."""
+    sizes = axis_sizes(bundle.mesh)
+    gdt = getattr(torch, bundle.cfg.gather_dtype)
+    nbytes = {}
+    for n, t in bundle.model.named_parameters():
+        spec = Spec(tuple(a for a in _axes(e) if a not in _axes(g))  # the axes not gathered
+                    for e, g in zip(bundle.pspecs[n], bundle.gspecs[n]))
+        dt = dtype or (gdt if t.ndim + bundle._stacked[n] >= 2 else t.dtype)
+        nbytes[n] = math.prod(local_shape(t.shape, spec, sizes)) * dt.itemsize
+    return (sum(nbytes[n] for n in bundle.outer),
+            max((sum(nbytes[n] for n in names) for names in bundle.units.values()), default=0))
+
+
 def update_bytes(bundle: StepBundle) -> Dict[str, int]:
     """What one rank holds for a train step's sharded update, by term
     (``StepBundle.train_step``), activations not counted: ``gathered``,
-    the forward's copy of the parameters, gathered whole in
-    ``cfg.gather_dtype`` (leaves of two or more dims, stacked; the others
-    in their own dtype); ``full_grads``, the float32 gradients of every
-    leaf whole, before their reduce-scatter; and this rank's shards of the
-    ``masters``, the float32 ``grads`` and the optimizer ``state``."""
+    the parameters the forward and the backward run on, gathered a unit
+    at a time (``unit_bytes``: the leaves outside every unit for the whole
+    step, and two of the largest units, the one running and the one
+    gathered next); ``full_grads``, the float32 gradients of the same
+    leaves whole, before their reduce-scatter; and this rank's shards of
+    the ``masters``, the float32 ``grads`` and the optimizer ``state``."""
     sizes = dict(bundle.mesh)
     meta = dict(bundle.model.named_parameters())
-    gdt = getattr(torch, bundle.cfg.gather_dtype)
-    size = {n: (torch.empty((), dtype=gdt).element_size()
-                if t.ndim + bundle._stacked[n] >= 2 else t.element_size())
-            for n, t in meta.items()}
+    outer, unit = unit_bytes(bundle)
+    outer32, unit32 = unit_bytes(bundle, torch.float32)
     f32 = {n: t.to(torch.float32) for n, t in meta.items()}
-    return {"gathered": sum(t.numel() * size[n] for n, t in meta.items()),
-            "full_grads": sum(4 * t.numel() for t in meta.values()),
+    return {"gathered": outer + 2 * unit,
+            "full_grads": outer32 + 2 * unit32,
             "masters": _stored(meta, bundle.pspecs, sizes),
             "grads": _stored(f32, bundle.pspecs, sizes),
             "state": _stored(bundle.opt.init(meta), bundle.ospecs, sizes)}

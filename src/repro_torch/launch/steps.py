@@ -8,23 +8,38 @@ rank's local blocks, and parameters, optimizer state and caches cross the
 API as ``DTensor``s with the specs' placements.
 
 * ``train_step``: ZeRO-3, as the reference's ``jit_train`` places its
-  step.  Each rank casts its shard of the masters to ``cfg.gather_dtype``
-  (leaves of two or more dims, stacked) and all-gathers the cast shards,
-  so the gather moves ``gather_dtype`` bytes; the loss and its gradients
-  run on this rank's rows, over ``shape.microbatches`` equal slices of
-  them (``launch/train.py``'s loop, float32 accumulation); the experts'
-  partial gradients are summed over ``'model'``.  Then each leaf's
-  gradient is cut to this rank's shard: where the batch is split over the
-  data axes it is summed over them (a reduce-scatter along each dim they
-  shard, an all-reduce over the others) and divided by their size; a cut
-  over ``'model'`` is a local slice.  The optimizer updates the shards of
-  the masters and the state in place (``optim/optimizer.py``), with its
-  global norm and Adafactor's means and RMS summed over the axes that
-  shard each leaf (``_sums``).  No rank holds a full sharded leaf of the
-  masters or the state.
+  step, one unit at a time, as the reference's scan gathers each period
+  inside its body.  A unit (``models.model.unit_of``) is a period of the
+  stack, a prefix block, a period of the encoder or the MTP head; the
+  embedding, the unembedding and the final norms are gathered for each
+  use (a lookup, a product, a norm).  Just before a unit runs, each rank
+  casts its shard of the unit's masters to ``cfg.gather_dtype`` (leaves of
+  two or more dims, stacked) and all-gathers the cast shards
+  (``_Gather``), so the gather moves ``gather_dtype`` bytes; the unit's
+  parameters are freed when it ends.  The experts that the MoE's TP and EP forms cut over ``'model'``
+  are gathered over the other axes only, and the forms take them as this
+  rank's block (``MoE.blocks``), as the reference's ``shard_map`` does.  The backward gathers a unit's leaves again where it needs them
+  (``saved_tensors_hooks``: autograd keeps a handle of a gathered tensor,
+  or of a copy of one cast by ``Tensor.to``, not the tensor; under remat
+  the recompute gathers them), and each
+  leaf's gradient is cut to this rank's shard as soon as its unit's
+  backward ends: where the batch is split over the data axes it is summed
+  over them (a reduce-scatter along each dim they shard, an all-reduce
+  over the others) and divided by their size; a cut over ``'model'`` is a
+  local slice.  The loss and its gradients run on this rank's rows, over
+  ``shape.microbatches`` equal slices of them (``launch/train.py``'s
+  loop, float32 accumulation of the shards' gradients).  The optimizer
+  updates the shards of the masters and the state in place
+  (``optim/optimizer.py``), with its global norm and Adafactor's means
+  and RMS summed over the axes that shard each leaf (``_sums``).  No rank
+  holds a full sharded leaf of the masters or the state, nor whole
+  parameters and gradients beyond two units' and the leaves outside
+  them (``launch/dryrun.unit_bytes``).  ``loss_and_grads`` gathers every
+  leaf whole (the plain version).
 * ``prefill_step`` and ``serve_step``: the weights (resident, sharded over
-  ``'model'`` only, with ``cfg.weights_resident_serve``) are gathered, and
-  the model runs on this rank's rows.  The caches are stored in the
+  ``'model'`` only, with ``cfg.weights_resident_serve``) are gathered a
+  unit at a time, as the train step gathers them, and the model runs on
+  this rank's rows.  The caches are stored in the
   reference's layout, stacked over the periods (``stacked_cache``), with
   ``cache_specs``' placements: where the period count divides the data
   axes, a data rank stores only its periods, as the reference's does.
@@ -49,9 +64,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, Iterator
+import weakref
+from typing import Any, Dict, Iterator, Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from ..configs.base import ArchConfig, ShapeCfg
 from ..distributed.collectives import (all_reduce, axis_coords, axis_sizes, broadcast_from,
@@ -61,12 +78,15 @@ from ..distributed.sharding import (Spec, _axes, _stacked_specs, batch_specs, ca
                                     local_shape, map_specs, opt_state_specs, param_specs,
                                     shard_tensor, stacked_cache)
 from ..models.convert import is_stacked, stacked_groups
-from ..models.model import Model
-from ..models.moe import experts_split
+from ..models.model import Model, unit_of
+from ..models.moe import MoE, experts_split, moe_form
 from ..optim.optimizer import make_optimizer, warmup_cosine
 from .train import _loss_grads_metrics
 
 __all__ = ["StepBundle", "build", "input_shapes"]
+
+# The dim of each expert leaf that the MoE's mesh forms cut over 'model'.
+_FORM_DIMS = {"tp": {"w1": 2, "w3": 2, "w2": 1}, "ep": {"w1": 0, "w3": 0, "w2": 0}}
 
 
 def input_shapes(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, tuple]:
@@ -125,6 +145,15 @@ class StepBundle:
         cache_shapes: The decode cache's global shapes in the stacked
             layout (decode).
         cspecs: Their spec tree (decode).
+        units: ``{unit: [parameter name]}`` (``models.model.unit_of``);
+            ``outer`` the leaves outside every unit.
+        split: The experts' leaves that the MoE's mesh forms cut over
+            ``'model'``; ``blocks`` whether the forms take them as this
+            rank's block (their specs cut them over ``'model'`` where the
+            form does).
+        gspecs: ``{parameter name: Spec}`` the steps gather each leaf
+            over: ``pspecs``, ``'model'`` dropped for the experts taken as
+            blocks.
 
     ``sharding.named(mesh, spec)`` gives a spec's DTensor placements.
     """
@@ -166,10 +195,28 @@ class StepBundle:
             cache = self.model.init_cache(shape.global_batch, shape.seq_len, torch.bfloat16)
             self.cache_shapes = stacked_cache(map_specs(lambda _, t: tuple(t.shape), cache))
             self.cspecs = cache_specs(self.cache_shapes, mesh, self.tp)
-        # the experts' leaves whose gradients are partial over 'model', in
-        # one order on every rank (their reduction is a collective per leaf)
+        # the experts' leaves whose gradients are partial over 'model' when
+        # they are gathered whole, in one order on every rank (their
+        # reduction is a collective per leaf)
         self.split = [n for n, t in meta.items() if t.ndim == 3 and experts_split(cfg, mesh)
                       and n.split(".")[-2:] in (["ffn", "w1"], ["ffn", "w3"], ["ffn", "w2"])]
+        # the units' parameters, and the leaves outside every unit
+        self.units: Dict[str, list] = {}
+        for n in meta:
+            if unit_of(n) is not None:
+                self.units.setdefault(unit_of(n), []).append(n)
+        self.outer = [n for n in meta if unit_of(n) is None]
+        # the forms take the experts as this rank's block where their specs
+        # cut them over 'model' on the dim the form cuts; then they are
+        # gathered over the other axes only (``gspecs``)
+        dims = _FORM_DIMS.get(moe_form(cfg, mesh) if cfg.moe else "local", {})
+        self.blocks = bool(self.split) and all(
+            "model" in _axes(self.pspecs[n][dims[n.rsplit(".", 1)[1]]]) for n in self.split)
+        self.gspecs = {n: (Spec(tuple(a for a in _axes(e) if a != "model") for e in spec)
+                           if self.blocks and n in self.split else spec)
+                       for n, spec in self.pspecs.items()}
+        self._moes = [m for m in self.model.modules() if isinstance(m, MoE)]
+        self._gdt = getattr(torch, cfg.gather_dtype)
 
     # ------------------------------------------------------------ storage
 
@@ -213,39 +260,64 @@ class StepBundle:
 
     def loss_and_grads(self, params, batch):
         """``(loss, grads)`` of this step's rows, as ``train_step``
-        computes them: the loss averaged over the microbatches and the data
-        shards, the gradients float32 and reduced over the data axes whole
-        (every rank gets the same full gradients)."""
-        loss, grads = self._grads(params, batch)
-        if self._reduce:
-            for g in grads.values():
-                all_reduce(g, self.mesh, self.dp).div_(self.ndp)
-        return loss, grads
-
-    def _grads(self, params, batch):
-        """The loss and the full float32 gradients of this rank's rows, on
-        the parameters gathered in ``gather_dtype`` (each shard cast before
-        its gather): the loss averaged over the data shards, the experts'
-        partial gradients summed over ``'model'``, the gradients not yet
-        reduced over the data axes."""
-        gdt = getattr(torch, self.cfg.gather_dtype)
-        leaves = {}
-        for n, t in params.items():
-            local = t.to_local() if hasattr(t, "to_local") else t
-            if local.ndim + self._stacked[n] >= 2:
-                local = local.to(gdt)
-            leaves[n] = gather_tensor(local, self.mesh,
-                                      self.pspecs[n]).detach().requires_grad_(True)
+        computes them, on every parameter gathered whole before the
+        forward (the plain version of the step's per-unit gathers): the
+        loss averaged over the microbatches and the data shards, the
+        gradients float32 and reduced over the data axes whole (every rank
+        gets the same full gradients)."""
+        leaves = {n: self._gather_leaf(t.to_local() if hasattr(t, "to_local") else t, n,
+                                       self.pspecs[n]).detach().requires_grad_(True)
+                  for n, t in params.items()}
         with self._bound(leaves):
-            total, grads, _ = _loss_grads_metrics(self.model, self._rows(batch),
-                                                  self.shape.microbatches, self.mesh)
+            loss, grads, _ = _loss_grads_metrics(self.model, self._rows(batch),
+                                                 self.shape.microbatches, self.mesh)
         del leaves
         if group_size(self.mesh, "model") > 1:
             for n in self.split:  # each rank computed its slice of the experts
                 all_reduce(grads[n], self.mesh, "model")
         if self._reduce:
-            total = all_reduce(total.reshape(1).clone(), self.mesh, self.dp)[0] / self.ndp
-        return total, grads
+            for g in grads.values():
+                all_reduce(g, self.mesh, self.dp).div_(self.ndp)
+        return self._mean_loss(loss), grads
+
+    def _grads(self, params, batch):
+        """The loss of this step's rows and this rank's float32 shard of
+        every gradient, each unit's parameters gathered just before it runs
+        (``_Step``) and each leaf's gradient cut to the shard as soon as its
+        unit's backward ends (``_leaf_grad``): the loss averaged over the
+        microbatches and the data shards."""
+        step = _Step(self, params, grad=True)
+        with step.running():
+            loss, grads, _ = _loss_grads_metrics(self.model, self._rows(batch),
+                                                 self.shape.microbatches, self.mesh,
+                                                 leaves=step.shards, bind=step)
+        return self._mean_loss(loss), grads
+
+    def _mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """This rank's loss averaged over the data shards."""
+        if self._reduce:
+            loss = all_reduce(loss.reshape(1).clone(), self.mesh, self.dp)[0] / self.ndp
+        return loss
+
+    def _gather_leaf(self, shard: torch.Tensor, name: str,
+                     spec: Optional[Spec] = None) -> torch.Tensor:
+        """Parameter ``name`` as a unit runs on it: this rank's ``shard``
+        cast to ``gather_dtype`` (leaves of two or more dims, stacked) and
+        gathered over the axes of ``spec``, by default its ``gspecs`` entry
+        (on axes of one rank in all, no copy)."""
+        if shard.ndim + self._stacked[name] >= 2:
+            shard = shard.to(self._gdt)
+        return gather_tensor(shard, self.mesh, self.gspecs[name] if spec is None else spec)
+
+    def _leaf_grad(self, g: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's float32 shard of the gradient ``g`` of
+        ``_gather_leaf``'s result: an expert gathered whole while the forms
+        cut it over ``'model'`` is summed there first (each rank computed
+        its slice), then ``_grad_shard``."""
+        g = g.to(torch.float32)
+        if name in self.split and not self.blocks and group_size(self.mesh, "model") > 1:
+            g = all_reduce(g.clone(memory_format=torch.contiguous_format), self.mesh, "model")
+        return self._grad_shard(g, self.gspecs[name])
 
     def train_step(self, params, opt_state, step, batch):
         """One optimizer step on this rank's shards.
@@ -266,39 +338,39 @@ class StepBundle:
             of the batch.  ``opt_state["gnorm"]`` is the global gradient
             norm, the same on every rank.
         """
-        loss, grads = self._grads(params, batch)
-        mine = {n: self._grad_shard(grads.pop(n), self.pspecs[n]) for n in list(grads)}
+        loss, mine = self._grads(params, batch)
         state = _with_specs(lambda dt, _: dt.to_local(), opt_state, self.ospecs)
         self.opt.update(mine, state, {n: t.to_local() for n, t in params.items()}, step,
                         sums=self._sums)
         return params, opt_state, step + 1, {"loss": loss}
 
     def _grad_shard(self, g: torch.Tensor, spec: Spec) -> torch.Tensor:
-        """This rank's shard under ``spec`` of a full gradient (consumed):
-        where the rows are split over the data axes, summed over them (a
-        reduce-scatter along each dim they shard, in ``local_block``'s
-        order, the outer axis first; an all-reduce over the others) and
-        divided by their size; a cut over another axis is a local slice,
-        copied out so that the full gradient can be freed."""
+        """This rank's shard under ``spec`` of a full gradient (not
+        written): where the rows are split over the data axes, summed over
+        them (a reduce-scatter along each dim they shard, in
+        ``local_block``'s order, the outer axis first; an all-reduce over
+        the others) and divided by their size; a cut over another axis is a
+        local slice, copied out so that the full gradient can be freed."""
         sizes, coords = axis_sizes(self.mesh), axis_coords(self.mesh)
-        summed, cut = set(), False
+        summed, cut, own = set(), False, False
         for d, entry in enumerate(spec):
             for a in _axes(entry):
                 if sizes[a] == 1:
                     continue
                 if self._reduce and a in self.dp:
-                    g = reduce_scatter(g, self.mesh, a, d)
+                    g, own = reduce_scatter(g, self.mesh, a, d), True
                     summed.add(a)
                 else:
                     n = g.shape[d] // sizes[a]
                     g, cut = g.narrow(d, coords[a] * n, n), True
         if cut:
-            g = g.clone(memory_format=torch.contiguous_format)
+            g, own = g.clone(memory_format=torch.contiguous_format), True
         if self._reduce:
             rest = [a for a in self.dp if a not in summed and sizes[a] > 1]
             if rest:
-                g = all_reduce(g.contiguous(), self.mesh, rest)
-            g.div_(self.ndp)
+                g = g.contiguous() if own else g.clone(memory_format=torch.contiguous_format)
+                g, own = all_reduce(g, self.mesh, rest), True
+            g = g.div_(self.ndp) if own else g / self.ndp
         return g
 
     def _sums(self, parts):
@@ -339,8 +411,10 @@ class StepBundle:
             leaf.  Each period's caches are stored as soon as it has run.
         """
         store = _Periods(self)
-        with self._bound(self.gather_params(params)):
-            logits, caches = self.model.prefill(self._rows(batch), self.mesh, keep=store.keep)
+        step = _Step(self, params, grad=False)
+        with step.running():
+            logits, caches = self.model.prefill(self._rows(batch), self.mesh, keep=store.keep,
+                                                bind=step)
         return self._rows_out(logits), self._caches_out(caches, store, {}, {})
 
     def serve_step(self, params, caches, batch):
@@ -368,9 +442,10 @@ class StepBundle:
         local = {"stack": store}
         if "prefix" in caches:
             local["prefix"] = map_specs(rows, caches["prefix"])
-        with self._bound(self.gather_params(params)):
+        step = _Step(self, params, grad=False)
+        with step.running():
             logits, new = self.model.decode(local, self._rows(batch), self.mesh,
-                                            keep=store.keep)
+                                            keep=store.keep, bind=step)
         return self._rows_out(logits), self._caches_out(new, store, caches, given)
 
     # ------------------------------------------------------------ helpers
@@ -454,6 +529,147 @@ class StepBundle:
                 lambda _, t: given[id(t)] if id(t) in given else self._cache_out(t),
                 new["prefix"])
         return out
+
+
+class _Gather(torch.autograd.Function):
+    """This rank's float32 shard of a parameter -> the tensor its unit runs
+    on (``StepBundle._gather_leaf``); the backward is
+    ``StepBundle._leaf_grad``, this rank's float32 shard of the
+    gradient.  The shard is the autograd leaf, so no ``AccumulateGrad``
+    holds the gathered tensor."""
+
+    @staticmethod
+    def forward(ctx, shard, bundle, name):
+        ctx.bundle, ctx.name = bundle, name
+        return bundle._gather_leaf(shard, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bundle._leaf_grad(g, ctx.name), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class _Handle:
+    """What autograd keeps of a tensor made from a gathered parameter:
+    how to make it again (``recipe``), and its size, stride and storage
+    offset beside the tensor that ``recipe`` makes."""
+
+    recipe: tuple
+    size: tuple
+    stride: tuple
+    offset: int
+
+
+class _Casts(TorchFunctionMode):
+    """Records each ``Tensor.to`` copy of a tensor that ``step`` made from
+    a gathered parameter (a weight cast to the activations' dtype), so
+    that autograd keeps a handle of it too."""
+
+    def __init__(self, step: "_Step"):
+        super().__init__()
+        self.step = step
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func is torch.Tensor.to and out is not args[0] and isinstance(out, torch.Tensor):
+            self.step.cast(args[0], out, args[1:], kwargs)
+        return out
+
+
+class _Step:
+    """One call's parameters, bound into the bundle's model where they
+    run: the ``bind`` hook of ``Model``.
+
+    ``shards`` are this rank's blocks of the masters (with ``grad``,
+    float32 autograd leaves).  ``self(unit)`` gathers a unit's leaves, and
+    ``self(name)`` a leaf outside every unit for one use (``_Gather`` with
+    ``grad``, else ``StepBundle._gather_leaf``), binds them for the block
+    and drops them after.  With ``grad``, ``running()`` keeps autograd
+    from holding a tensor made from a gathered parameter for the backward
+    (a gathered tensor, a view of one, or a ``Tensor.to`` copy of those;
+    ``made`` maps their storages, by weak reference): it keeps a
+    ``_Handle``, and the backward makes the tensor again where it reads
+    it, gathering the leaf again, and keeps none of them.  Every rank
+    packs and unpacks in the same order, so the gathers match.
+    """
+
+    def __init__(self, bundle: StepBundle, params, grad: bool):
+        self.b, self.grad = bundle, grad
+        self.shards = {}
+        for n, t in params.items():
+            local = t.to_local() if hasattr(t, "to_local") else t
+            self.shards[n] = local.detach().requires_grad_(True) if grad else local
+        self.made: Dict[int, tuple] = {}
+
+    def _gather(self, name: str) -> torch.Tensor:
+        if not self.grad:
+            return self.b._gather_leaf(self.shards[name], name)
+        t = _Gather.apply(self.shards[name], self.b, name)
+        self._note(t, ("leaf", name))
+        return t
+
+    def _note(self, t: torch.Tensor, recipe: tuple) -> None:
+        ptr = t.untyped_storage().data_ptr()
+        if ptr:
+            self.made[ptr] = (weakref.ref(t), t.storage_offset(), recipe)
+
+    def _entry(self, t: torch.Tensor):
+        entry = self.made.get(t.untyped_storage().data_ptr())
+        return entry if entry is not None and entry[0]() is not None else None
+
+    @contextlib.contextmanager
+    def __call__(self, unit: str) -> Iterator[None]:
+        with self.b._bound({n: self._gather(n) for n in self.b.units.get(unit, [unit])}):
+            yield
+
+    @contextlib.contextmanager
+    def running(self) -> Iterator[None]:
+        """The call's context: the MoE forms take the experts as blocks
+        where the bundle gathers them so (``MoE.blocks``), and with
+        ``grad`` autograd keeps handles."""
+        for m in self.b._moes:
+            m.blocks = self.b.blocks
+        none = contextlib.nullcontext()
+        try:
+            with (torch.autograd.graph.saved_tensors_hooks(self.pack, self.unpack)
+                  if self.grad else none), (_Casts(self) if self.grad else none):
+                yield
+        finally:
+            for m in self.b._moes:
+                m.blocks = False
+
+    def cast(self, src: torch.Tensor, out: torch.Tensor, args, kwargs) -> None:
+        """Note ``out = src.to(*args, **kwargs)`` where ``src`` shares a
+        noted storage."""
+        entry = self._entry(src)
+        if entry is None or any(isinstance(a, torch.Tensor)
+                                for a in (*args, *kwargs.values())):
+            return
+        geom = (tuple(src.size()), tuple(src.stride()), src.storage_offset() - entry[1])
+        self._note(out, ("to", entry[2], geom, tuple(args), dict(kwargs)))
+
+    def pack(self, t: torch.Tensor):
+        entry = self._entry(t)
+        if entry is None:
+            return t
+        return _Handle(entry[2], tuple(t.size()), tuple(t.stride()),
+                       t.storage_offset() - entry[1])
+
+    def unpack(self, h):
+        if not isinstance(h, _Handle):
+            return h
+        base = self._make(h.recipe)
+        return base.as_strided(h.size, h.stride, base.storage_offset() + h.offset)
+
+    def _make(self, recipe: tuple) -> torch.Tensor:
+        """The tensor ``recipe`` names, made again without autograd."""
+        if recipe[0] == "to":
+            _, parent, (size, stride, offset), args, kwargs = recipe
+            src = self._make(parent)
+            return src.as_strided(size, stride, src.storage_offset() + offset).to(*args, **kwargs)
+        with torch.no_grad():
+            return self.b._gather_leaf(self.shards[recipe[1]].detach(), recipe[1])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -164,20 +164,24 @@ def loss_and_grads(model: Model, batch: Dict[str, torch.Tensor], microbatches: i
     return _loss_grads_metrics(model, batch, microbatches)[:2]
 
 
-def _loss_grads_metrics(model, batch, microbatches, mesh=None):
+def _loss_grads_metrics(model, batch, microbatches, mesh=None, leaves=None, bind=None):
     """``loss_and_grads`` and the loss's metrics (``ce``, ``aux``) as
     floats, averaged the same way; every input of ``batch`` is cut into
-    the microbatches, and ``mesh`` goes to ``model.loss``."""
-    params = dict(model.named_parameters())
-    names = [n for n, p in params.items() if p.requires_grad]
-    if not names:
-        raise ValueError("no parameter records a gradient: call model.requires_grad_(True)")
+    the microbatches, and ``mesh`` and ``bind`` go to ``model.loss``.
+    ``leaves`` (``{name: tensor}``) are differentiated in place of the
+    parameters that record a gradient (the step bundle's shards, from
+    which ``bind`` gathers each unit's parameters)."""
+    if leaves is None:
+        leaves = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        if not leaves:
+            raise ValueError("no parameter records a gradient: call model.requires_grad_(True)")
+    names = list(leaves)
     total, grads = None, None
     sums = {"ce": 0.0, "aux": 0.0}
     for i in range(microbatches):
         mb = {k: v.reshape((microbatches, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
-        loss, metrics = model.loss(mb, mesh)
-        g = torch.autograd.grad(loss, [params[n] for n in names])
+        loss, metrics = model.loss(mb, mesh, bind=bind)
+        g = torch.autograd.grad(loss, list(leaves.values()))
         for key in sums:
             sums[key] += metrics[key].detach().item()
         if grads is None:

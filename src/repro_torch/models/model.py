@@ -28,12 +28,22 @@ the weights.
 The parameters are made with ``requires_grad=False`` and ``prefill`` and
 ``decode`` run under ``torch.no_grad()``, so serving records no graph; a
 trainer turns gradients on with ``model.requires_grad_(True)``.
+
+``loss``, ``prefill`` and ``decode`` take a ``bind`` hook: each unit of
+the model (``unit_of``: a period of the stack, a prefix block, a period
+of the encoder, the MTP head) runs inside ``bind(unit)``, a context in
+which the caller puts that unit's parameters in place, and each use of a
+leaf outside every unit (an embedding lookup, a product with the
+unembedding, a final norm) inside ``bind(name)``.  The step bundle
+(``launch/steps.py``) gathers the parameters there and frees them after,
+as the reference's scan gathers each period's inside its body.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+import contextlib
+from typing import Any, Callable, ContextManager, Dict, Optional
 
 import torch
 from torch import nn
@@ -51,7 +61,30 @@ MTP_WEIGHT = 0.3
 # The encoder's block: bidirectional attention and a dense FFN.
 ENCODER_SPEC = LayerSpec("attn", "dense")
 
-__all__ = ["Model"]
+__all__ = ["Model", "unit_of"]
+
+Bind = Optional[Callable[[str], ContextManager]]
+
+
+def unit_of(name: str) -> Optional[str]:
+    """The unit a parameter belongs to, by the name ``bind`` takes:
+    ``stack.<k>``, ``prefix.p<i>``, ``encoder.stack.<k>`` or ``mtp``; None
+    for the embedding, the unembedding and the final norms.
+
+    Example:
+        >>> unit_of("stack.3.l0.mixer.wq"), unit_of("mtp.block.ffn.w1"), unit_of("embed.e")
+        ('stack.3', 'mtp', None)
+    """
+    parts = name.split(".")
+    if parts[0] in ("stack", "prefix"):
+        return ".".join(parts[:2])
+    if parts[:2] == ["encoder", "stack"]:
+        return ".".join(parts[:3])
+    return "mtp" if parts[0] == "mtp" else None
+
+
+def _in(bind: Bind, unit: str) -> ContextManager:
+    return bind(unit) if bind else contextlib.nullcontext()
 
 
 class MTP(Params):
@@ -141,12 +174,16 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ embeddings
 
-    def _embed_inputs(self, batch):
+    def _embed(self, tokens: torch.Tensor, bind: Bind = None) -> torch.Tensor:
+        with _in(bind, "embed.e"):
+            return embed(self.embed, tokens, self.adtype)
+
+    def _embed_inputs(self, batch, bind: Bind = None):
         """Returns ``(embeds (B, S, d), positions (B, S), positions3 (B, S,
         3) or None)``; with ``cfg.n_patches`` the batch's ``patches`` come
         first and take M-RoPE positions."""
         tokens = batch["tokens"]
-        x = embed(self.embed, tokens, self.adtype)
+        x = self._embed(tokens, bind)
         positions3 = None
         if self.cfg.n_patches and "patches" in batch:
             x = torch.cat([batch["patches"].to(self.adtype), x], dim=1)
@@ -168,15 +205,16 @@ class Model(nn.Module):
         ww = torch.cat([grid % side, text + (side - 1)])
         return torch.stack([t, hh, ww], dim=-1).to(torch.int32)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.embed["e"].T if self.cfg.tie_embeddings else self.unembed
-        return x @ w.to(self.adtype)
+    def _logits(self, x: torch.Tensor, bind: Bind = None) -> torch.Tensor:
+        with _in(bind, "embed.e" if self.cfg.tie_embeddings else "unembed"):
+            w = self.embed["e"].T if self.cfg.tie_embeddings else self.unembed
+            return x @ w.to(self.adtype)
 
     def _backbone(self, x, positions, *, caches=None, mode="train", enc_out=None,
-                  positions3=None, mesh=None, keep=None):
+                  positions3=None, mesh=None, keep=None, bind: Bind = None):
         """The prefix blocks, then the stack, then the final norm; returns
         ``(x, new_caches, aux)``.  ``mesh`` goes to every block and
-        ``keep`` to ``stack_apply``."""
+        ``keep`` to ``stack_apply``; each unit runs inside ``bind``."""
         cfg = self.cfg
         new_caches: Dict[str, Any] = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -185,10 +223,11 @@ class Model(nn.Module):
             for i, spec in enumerate(self.prefix_specs):
                 c_i = caches["prefix"][f"p{i}"] if caches else None
                 cross_cache = c_i.get("cross") if (c_i and mode == "decode") else None
-                x, pc[f"p{i}"], a = block_apply(
-                    self.prefix[f"p{i}"], cfg, spec, x, positions, cache=c_i, mode=mode,
-                    enc_out=enc_out, cross_cache=cross_cache, positions3=positions3,
-                    mesh=mesh)
+                with _in(bind, f"prefix.p{i}"):
+                    x, pc[f"p{i}"], a = block_apply(
+                        self.prefix[f"p{i}"], cfg, spec, x, positions, cache=c_i, mode=mode,
+                        enc_out=enc_out, cross_cache=cross_cache, positions3=positions3,
+                        mesh=mesh)
                 if cross_cache is not None:
                     pc[f"p{i}"]["cross"] = cross_cache
                 aux = aux + a
@@ -196,24 +235,29 @@ class Model(nn.Module):
         x, new_caches["stack"], a = stack_apply(
             self.stack, cfg, self.specs, x, positions,
             caches=caches["stack"] if caches else None, mode=mode, enc_out=enc_out,
-            positions3=positions3, mesh=mesh, keep=keep)
-        return rmsnorm(self.final_norm, x, cfg.norm_eps), new_caches, aux + a
+            positions3=positions3, mesh=mesh, keep=keep,
+            bind=(lambda k: bind(f"stack.{k}")) if bind else None)
+        with _in(bind, "final_norm.w"):
+            x = rmsnorm(self.final_norm, x, cfg.norm_eps)
+        return x, new_caches, aux + a
 
-    def _encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
+    def _encode(self, src_embeds: torch.Tensor, bind: Bind = None) -> torch.Tensor:
         """The encoder over ``src_embeds`` (B, Sk, d): bidirectional, in the
         train mode (no caches) in every mode of the model, as the
-        reference runs it."""
+        reference runs it; each period inside ``bind``."""
         cfg = self.cfg
         b, s, _ = src_embeds.shape
         positions = torch.arange(s, device=src_embeds.device)[None].expand(b, s)
         x, _, _ = stack_apply(self.encoder["stack"], cfg, (ENCODER_SPEC,),
                               src_embeds.to(self.adtype), positions, mode="train",
-                              bidirectional=True)
-        return rmsnorm(self.encoder["final_norm"], x, cfg.norm_eps)
+                              bidirectional=True,
+                              bind=(lambda k: bind(f"encoder.stack.{k}")) if bind else None)
+        with _in(bind, "encoder.final_norm.w"):
+            return rmsnorm(self.encoder["final_norm"], x, cfg.norm_eps)
 
     # ------------------------------------------------------------------ loss
 
-    def loss(self, batch: Dict[str, torch.Tensor], mesh=None):
+    def loss(self, batch: Dict[str, torch.Tensor], mesh=None, bind: Bind = None):
         """Next-token cross-entropy plus the extra terms, as the
         reference's ``Model.loss``.
 
@@ -226,6 +270,9 @@ class Model(nn.Module):
                 rank's rows.
             mesh: A ``DeviceMesh`` for the mesh forms of the causal
                 attention and the MoE FFN (``launch/steps.py``), or None.
+            bind: Each unit runs inside ``bind(unit)`` (``unit_of``), and
+                each use of a leaf outside every unit inside ``bind(its
+                name)``; or None.
 
         Returns:
             ``(total, {"ce": ce, "aux": aux})``, float32 scalars; ``aux``
@@ -235,34 +282,36 @@ class Model(nn.Module):
         """
         tokens = batch["tokens"]
         labels = tokens[:, 1:]
-        x, positions, pos3 = self._embed_inputs({**batch, "tokens": tokens[:, :-1]})
-        enc_out = self._encode(batch["src_embeds"]) if self.is_encdec else None
+        x, positions, pos3 = self._embed_inputs({**batch, "tokens": tokens[:, :-1]}, bind)
+        enc_out = self._encode(batch["src_embeds"], bind) if self.is_encdec else None
         h, _, aux = self._backbone(x, positions, mode="train", enc_out=enc_out,
-                                   positions3=pos3, mesh=mesh)
+                                   positions3=pos3, mesh=mesh, bind=bind)
         h_text = h[:, -labels.shape[1]:]  # the text positions, after any patches
-        ce = _cross_entropy(self._logits(h_text), labels)
+        ce = _cross_entropy(self._logits(h_text, bind), labels)
         total = ce + aux
         if self.cfg.mtp:
-            total = total + MTP_WEIGHT * self._mtp_loss(h_text, tokens, mesh)
+            total = total + MTP_WEIGHT * self._mtp_loss(h_text, tokens, mesh, bind)
         return total, {"ce": ce, "aux": aux}
 
-    def _mtp_loss(self, h: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    def _mtp_loss(self, h: torch.Tensor, tokens: torch.Tensor, mesh=None,
+                  bind: Bind = None) -> torch.Tensor:
         """DeepSeek-V3's multi-token prediction: the depth-1 head predicts
         token t+2 from ``[h_t ; embed(token_{t+1})]``."""
         cfg = self.cfg
-        emb_next = embed(self.embed, tokens[:, 1:-1], self.adtype)
-        x = torch.cat([h[:, :-1], emb_next], dim=-1) @ self.mtp["proj"].to(self.adtype)
-        b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        x, _, _ = block_apply(self.mtp.block, cfg, MTP_SPEC, x, positions, mode="train",
-                              mesh=mesh)
-        x = rmsnorm(self.mtp.norm, x, cfg.norm_eps)
-        return _cross_entropy(self._logits(x), tokens[:, 2:])
+        emb_next = self._embed(tokens[:, 1:-1], bind)
+        with _in(bind, "mtp"):
+            x = torch.cat([h[:, :-1], emb_next], dim=-1) @ self.mtp["proj"].to(self.adtype)
+            b, s, _ = x.shape
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+            x, _, _ = block_apply(self.mtp.block, cfg, MTP_SPEC, x, positions, mode="train",
+                                  mesh=mesh)
+            x = rmsnorm(self.mtp.norm, x, cfg.norm_eps)
+        return _cross_entropy(self._logits(x, bind), tokens[:, 2:])
 
     # ------------------------------------------------------- prefill / decode
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor], mesh=None, keep=None):
+    def prefill(self, batch: Dict[str, torch.Tensor], mesh=None, keep=None, bind: Bind = None):
         """Full-sequence forward filling the caches.
 
         Args:
@@ -272,6 +321,7 @@ class Model(nn.Module):
             mesh: As ``loss`` takes it.
             keep: Given to ``stack_apply``: each period's caches are
                 ``keep(k, caches)``.
+            bind: As ``loss`` takes it.
 
         Returns:
             ``(last_logits (B, 1, vocab), caches)`` with ``caches =
@@ -283,14 +333,15 @@ class Model(nn.Module):
             tail)``, an sLSTM block's ``(c, n, h, m)``; a block with cross
             attention also keeps the encoder's ``(k, v)`` as ``"cross"``.
         """
-        x, positions, pos3 = self._embed_inputs(batch)
-        enc_out = self._encode(batch["src_embeds"]) if self.is_encdec else None
+        x, positions, pos3 = self._embed_inputs(batch, bind)
+        enc_out = self._encode(batch["src_embeds"], bind) if self.is_encdec else None
         h, caches, _ = self._backbone(x, positions, mode="prefill", enc_out=enc_out,
-                                      positions3=pos3, mesh=mesh, keep=keep)
-        return self._logits(h[:, -1:]), caches
+                                      positions3=pos3, mesh=mesh, keep=keep, bind=bind)
+        return self._logits(h[:, -1:], bind), caches
 
     @torch.no_grad()
-    def decode(self, caches, batch: Dict[str, torch.Tensor], mesh=None, keep=None):
+    def decode(self, caches, batch: Dict[str, torch.Tensor], mesh=None, keep=None,
+               bind: Bind = None):
         """One token against full caches.
 
         Args:
@@ -301,6 +352,7 @@ class Model(nn.Module):
             mesh: As ``loss`` takes it.
             keep: Given to ``stack_apply``: each period's caches are
                 ``keep(k, caches)``.
+            bind: As ``loss`` takes it.
 
         Returns:
             ``(logits (B, 1, vocab), new_caches)``; a GQA block's new cache
@@ -309,14 +361,14 @@ class Model(nn.Module):
             mLSTM or sLSTM block's is its stepped state; ``"cross"`` is
             carried as it is.
         """
-        x = embed(self.embed, batch["tokens"], self.adtype)
+        x = self._embed(batch["tokens"], bind)
         positions = batch["pos"][:, None]
         pos3 = None
         if self.cfg.mrope_sections is not None:
             pos3 = positions[..., None].expand(x.shape[0], 1, 3).to(torch.int32)
         h, new_caches, _ = self._backbone(x, positions, caches=caches, mode="decode",
-                                          positions3=pos3, mesh=mesh, keep=keep)
-        return self._logits(h), new_caches
+                                          positions3=pos3, mesh=mesh, keep=keep, bind=bind)
+        return self._logits(h, bind), new_caches
 
     # ----------------------------------------------------------------- caches
 

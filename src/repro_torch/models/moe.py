@@ -26,8 +26,12 @@ experts' work over ``'model'``:
   and the results come back, two all-to-alls over ``'model'``.
 
 ``moe_form`` says which form a config takes on a mesh, and
-``experts_split`` whether the experts' gradients are partial over
-``'model'`` (the step sums them there).
+``experts_split`` whether the forms cut the experts over ``'model'``.
+Each form narrows whole expert weights to this rank's block, whose
+gradient is then partial over ``'model'``, unless the MoE's ``blocks``
+is set: then the weights it holds are this rank's block already (the
+step bundle gathers them over the data axes only, as the reference's
+``shard_map`` takes them), and their gradients are this rank's own.
 """
 
 from __future__ import annotations
@@ -70,7 +74,15 @@ def record_routing() -> Iterator[List[torch.Tensor]]:
 class MoE(Params):
     """One MoE FFN's parameters: ``router`` (d, E) in float32, the experts'
     ``w1``, ``w3`` (E, d, expert_ff) and ``w2`` (E, expert_ff, d), and the
-    shared experts' SwiGLU ``shared`` where ``n_shared > 0``."""
+    shared experts' SwiGLU ``shared`` where ``n_shared > 0``.
+
+    ``blocks``: the mesh forms take ``w1``, ``w3``, ``w2`` as this rank's
+    block (TP: ``expert_ff / |model|`` columns of ``w1``, ``w3`` and rows
+    of ``w2``; EP: ``E / |model|`` whole experts) instead of narrowing
+    whole ones; a step bundle sets it on its own model while it binds
+    them so."""
+
+    blocks = False
 
     def __init__(self, cfg, dtype, device):
         mc, d = cfg.moe, cfg.d_model
@@ -188,9 +200,10 @@ def _dispatch_compute_combine(x2, gates, idx, probs, p, mc, mesh=None):
     if mesh is not None:
         from ..distributed import collectives as C
 
-        f = mc.expert_ff // C.axis_sizes(mesh)["model"]
-        lo = mesh.get_local_rank("model") * f
-        w1, w3, w2 = w1.narrow(2, lo, f), w3.narrow(2, lo, f), w2.narrow(1, lo, f)
+        if not p.blocks:
+            f = mc.expert_ff // C.axis_sizes(mesh)["model"]
+            lo = mesh.get_local_rank("model") * f
+            w1, w3, w2 = w1.narrow(2, lo, f), w3.narrow(2, lo, f), w2.narrow(1, lo, f)
         x2, gates = C.enter_tp(x2, mesh), C.enter_tp(gates, mesh)
     buf = _buffer(x2, slot, mc, cap).reshape(mc.n_experts, cap, -1)
     y = _experts(buf, w1, w3, w2).reshape(mc.n_experts * cap, -1)
@@ -219,8 +232,10 @@ def _moe_ep(x2, gates, idx, probs, p, mc, mesh):
     buf = _buffer(C.enter_tp(x2, mesh), slot, mc, cap).reshape(msize, e_loc, cap, d)
     recv = C.all_to_all(buf, mesh)  # (peers, e_loc, cap, d): their rows for my experts
     recv = recv.transpose(0, 1).reshape(e_loc, msize * cap, d)
-    y = _experts(recv, p["w1"].narrow(0, lo, e_loc), p["w3"].narrow(0, lo, e_loc),
-                 p["w2"].narrow(0, lo, e_loc))
+    w1, w3, w2 = p["w1"], p["w3"], p["w2"]
+    if not p.blocks:
+        w1, w3, w2 = (w.narrow(0, lo, e_loc) for w in (w1, w3, w2))
+    y = _experts(recv, w1, w3, w2)
     y = y.reshape(e_loc, msize, cap, d).transpose(0, 1)
     back = C.all_to_all(y, mesh, grad_scale=1.0 / msize).reshape(mc.n_experts * cap, d)
     out = _combine(back, slot, gates, keep, t, idx.shape[1], mc, cap)
@@ -246,8 +261,9 @@ def moe_form(cfg, mesh) -> str:
 
 
 def experts_split(cfg, mesh) -> bool:
-    """Whether the experts' gradients are partial over ``'model'`` on
-    ``mesh`` (the TP and EP forms): the step sums them over that axis."""
+    """Whether the forms cut the experts over ``'model'`` on ``mesh`` (the
+    TP and EP forms): the gradients of whole experts are then partial over
+    that axis, and the step sums them there."""
     return bool(cfg.moe) and moe_form(cfg, mesh) in ("tp", "ep")
 
 

@@ -14,7 +14,8 @@ the stack sums them, as the reference's scan carries them.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+import functools
+from typing import Any, Callable, ContextManager, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -197,6 +198,12 @@ def _period_apply(period, cfg, specs, x, positions, caches, mode, enc_out, bidir
     return x, nc, aux
 
 
+def _bound_period(bind, k, *args):
+    """``_period_apply`` with period ``k``'s parameters bound by ``bind``."""
+    with bind(k):
+        return _period_apply(*args)
+
+
 # The matrix products without a batch dimension: what remat "dots" saves,
 # as the reference's ``checkpoint_dots_with_no_batch_dims`` does.
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -215,7 +222,8 @@ def stack_apply(params: nn.ModuleList, cfg, specs: Sequence, x: torch.Tensor,
                 positions: torch.Tensor, *, caches: Optional[List] = None,
                 mode: str = "train", enc_out: Optional[torch.Tensor] = None,
                 bidirectional: bool = False, positions3: Optional[torch.Tensor] = None,
-                mesh=None, keep: Optional[Callable[[int, Any], Any]] = None):
+                mesh=None, keep: Optional[Callable[[int, Any], Any]] = None,
+                bind: Optional[Callable[[int], ContextManager]] = None):
     """Run the periods in order.  Returns ``(x, new_caches, aux)``: one
     dict of block caches per period, and the sum of the blocks' balance
     losses (float32).  ``enc_out``, ``bidirectional``, ``positions3`` and
@@ -223,7 +231,11 @@ def stack_apply(params: nn.ModuleList, cfg, specs: Sequence, x: torch.Tensor,
     by period, once each, in order.  With ``keep``, period ``k``'s entry
     of ``new_caches`` is ``keep(k, its caches)``, called as soon as the
     period has run, so that a caller can store each period's caches
-    elsewhere and free them (the step bundle's placement).
+    elsewhere and free them (the step bundle's placement).  With
+    ``bind``, period ``k`` runs inside ``bind(k)``, a context in which its
+    parameters are in place (the step bundle gathers them there and frees
+    them after); under remat the context is inside what the backward
+    runs again, so the recompute binds them again.
 
     ``cfg.remat`` acts where autograd records, as the reference's
     ``jax.checkpoint`` of the scanned period: ``"none"`` keeps every
@@ -247,10 +259,11 @@ def stack_apply(params: nn.ModuleList, cfg, specs: Sequence, x: torch.Tensor,
     for k, period in enumerate(params):
         args = (period, cfg, specs, x, positions, caches[k] if caches else None, mode, enc_out,
                 bidirectional, positions3, mesh)
+        fn = functools.partial(_bound_period, bind, k) if bind else _period_apply
         if remat:
-            x, nc, a = checkpoint(_period_apply, *args, use_reentrant=False, **context)
+            x, nc, a = checkpoint(fn, *args, use_reentrant=False, **context)
         else:
-            x, nc, a = _period_apply(*args)
+            x, nc, a = fn(*args)
         new_caches.append(keep(k, nc) if keep else nc)
         aux = aux + a
         del args, nc  # a kept period's caches are freed before the next runs

@@ -50,6 +50,18 @@ JIT_TRAIN = ("yi", "yi_af")
 PLAIN_UPDATE = ("yi", "yi_af")
 NO_CLIP = 1e9
 
+# The gathered parameters a train step holds at once (``_LiveGathers``):
+# reduced yi-6b deepened to 8 layers, remat "none" and "full", on weights
+# from MEMORY_SEED and a batch of 4 x 32, each step beside the whole-gather
+# ``loss_and_grads`` (its gradients too); the MoE train cases are counted
+# as they run.
+MEMORY_CASES = {"yi8": ("yi-6b", {"n_layers": 8, "remat": "none"}),
+                "yi8_full": ("yi-6b", {"n_layers": 8, "remat": "full"}),
+                "yi8_bf16": ("yi-6b", {"n_layers": 8, "remat": "none",
+                                       "gather_dtype": "bfloat16"})}
+MEMORY_MOE = ("moe_tp", "moe_ep")
+MEMORY_SEED = 11
+
 # Serving: (arch, fields, batch, prompt) prefilled and decoded DECODE_STEPS
 # tokens through the bundle.
 SERVE_CASES = {
@@ -192,9 +204,14 @@ def _train(setup, mesh, out):
         params = bundle.shard_params(model)
         opt_state = bundle.init_opt_state(params)
         batch = bundle.shard_batch({"tokens": tokens})
-        with _GatherDtypes() as gathered, _tracked_update(bundle) as allocs:
+        with _GatherDtypes() as gathered, _tracked_update(bundle) as allocs, \
+                _LiveGathers(bundle) as live:
             new_p, new_o, step, metrics = bundle.train_step(params, opt_state, 0, batch)
         assert step == 1
+        if name in MEMORY_MOE:
+            with _LiveGathers(bundle) as whole:
+                bundle.loss_and_grads(params, batch)
+            out[f"mem.{name}"] = live.facts(whole)
         out[f"train.{name}.same_dtensors"] = np.array(
             all(new_p[n] is params[n] for n in params) and new_o is opt_state)
         out[f"train.{name}.gather_dtypes"] = np.array(sorted(set(gathered)))
@@ -206,6 +223,131 @@ def _train(setup, mesh, out):
             out[f"train.{name}.p.{key}"] = np.stack(arr) if key.startswith("stack.") else arr[0]
         for k, v in _flat(_gathered(bundle, new_o, bundle.ospecs)).items():
             out[f"train.{name}.o.{k}"] = v
+
+
+def _memory(mesh, out):
+    """``MEMORY_CASES``: one train step and one whole-gather
+    ``loss_and_grads`` on the same shards, each counted by
+    ``_LiveGathers``; the step's shard gradients (``_grads``) against the
+    whole ones' blocks, ``mem.<case>.grads`` ``[|loss diff|, the largest
+    |diff| / max|leaf|]``."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.distributed.sharding import local_block
+    from repro_torch.launch.steps import build
+    from repro_torch.models.model import Model
+
+    for name, (arch, fields) in MEMORY_CASES.items():
+        cfg = _cfg(arch, fields)
+        model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(MEMORY_SEED))
+        bundle = build(cfg, mesh, ShapeCfg("m", 32, 4, "train"))
+        tokens = torch.randint(0, cfg.vocab, (4, 33), generator=torch.Generator().manual_seed(0))
+        params = bundle.shard_params(model)
+        batch = bundle.shard_batch({"tokens": tokens})
+        with _LiveGathers(bundle) as whole:
+            loss, grads = bundle.loss_and_grads(params, batch)
+        mine_loss, mine = bundle._grads(params, batch)
+        rel = max(float((mine[n] - local_block(g, mesh, bundle.pspecs[n])).abs().max())
+                  / (float(g.abs().max()) or 1.0) for n, g in grads.items())
+        out[f"mem.{name}.grads"] = np.array([abs(float(mine_loss - loss)), rel])
+        with _LiveGathers(bundle) as live:
+            bundle.train_step(params, bundle.init_opt_state(), 0, batch)
+        out[f"mem.{name}"] = live.facts(whole)
+
+
+class _LiveGathers:
+    """What a bundle's parameter gathers hold inside the block.
+
+    Each tensor ``bundle._gather_leaf`` returns in a storage of its own (a
+    copy the gather or its cast made, not the shard itself) counts its
+    bytes from its return until a finalizer on its storage runs; ``peak``
+    is the most alive at once.  An expert leaf of ``bundle.split`` counts
+    as gathered whole over ``'model'`` (``whole``) or cut there (``cut``).
+    ``casts`` is the most ``Tensor.to`` copies of gathered parameters (a
+    bfloat16 weight cast for float32 activations) alive at once, each
+    followed to its storage's finalizer.  At each leaf's gradient cut (``_leaf_grad``) a float32 gradient of a
+    whole unit leaf that the cut shrinks is followed to its storage's
+    finalizer (``followed``); ``stale`` counts the cuts of a unit's leaf
+    that began while one of another unit was still alive."""
+
+    def __init__(self, bundle):
+        self.b = bundle
+        self.live = self.peak = self.whole = self.cut = self.followed = self.stale = 0
+        self.cast_live = self.casts = 0
+
+    def __enter__(self):
+        import math
+        import weakref
+
+        from repro_torch.distributed.sharding import local_shape
+        from repro_torch.launch import steps
+        from repro_torch.models.model import unit_of
+
+        b = self.b
+        gather, leaf_grad, note = b._gather_leaf, b._leaf_grad, steps._Step.cast
+        numel = {n: t.numel() for n, t in b.model.named_parameters()}
+        alive = {}
+
+        def drop(n):
+            self.live -= n
+
+        def uncast():
+            self.cast_live -= 1
+
+        def cast(step, src, out, args, kwargs):
+            if step._entry(src) is not None:
+                self.cast_live += 1
+                self.casts = max(self.casts, self.cast_live)
+                weakref.finalize(out.untyped_storage(), uncast)
+            return note(step, src, out, args, kwargs)
+
+        def counted(shard, name, spec=None):
+            out = gather(shard, name, spec)
+            storage = out.untyped_storage()
+            if storage.data_ptr() != shard.untyped_storage().data_ptr():
+                self.live += storage.nbytes()
+                self.peak = max(self.peak, self.live)
+                weakref.finalize(storage, drop, storage.nbytes())
+            if name in b.split:
+                if out.numel() == numel[name]:
+                    self.whole += 1
+                else:
+                    self.cut += 1
+            return out
+
+        def cut(g, name):
+            unit = unit_of(name)
+            self.stale += unit is not None and any(u != unit for u in alive.values())
+            if unit is not None and math.prod(local_shape(g.shape, b.gspecs[name],
+                                                          b.mesh)) < g.numel():
+                key = object()
+                alive[key] = unit
+                weakref.finalize(g.untyped_storage(), alive.pop, key, None)
+                self.followed += 1
+            return leaf_grad(g, name)
+
+        b._gather_leaf, b._leaf_grad, steps._Step.cast = counted, cut, cast
+        self.note = note
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import steps
+
+        del self.b._gather_leaf, self.b._leaf_grad
+        steps._Step.cast = self.note
+        return False
+
+    def facts(self, whole: "_LiveGathers"):
+        """``[peak, bound, stale, followed, whole, cut, casts]`` of the train
+        step, then the whole-gather control's ``peak`` and ``whole``: ``bound``
+        is the leaves outside every unit plus two of the largest units, as
+        the dry run reckons them (``launch/dryrun.unit_bytes``)."""
+        from repro_torch.launch.dryrun import unit_bytes
+
+        outer, unit = unit_bytes(self.b)
+        return np.array([self.peak, outer + 2 * unit, self.stale, self.followed, self.whole,
+                         self.cut, self.casts, whole.peak, whole.whole])
 
 
 def _plain_update(setup, mesh, name, out):
@@ -509,6 +651,7 @@ def run_rank(rank: int, store_path: str, out_dir: str) -> None:
         _moe(setup, mesh, out)
         _attention(setup, mesh, out)
         _train(setup, mesh, out)
+        _memory(mesh, out)
         _serve(setup, mesh, out)
         _storage(setup, errors)
         _refusals(errors)

@@ -14,7 +14,9 @@
 * ``policy.on_card`` sends ``meta`` tensors to the plain versions, CPU
   ones too, CUDA ones to the kernel, and refuses any other device.
 * The sharded update, reckoned on ``meta`` tensors: ``update_bytes``'
-  shard terms fall with the mesh, and one update's all-reduces, by axes.
+  shard terms fall with the mesh while its per-unit terms (the leaves
+  outside every unit and two of the largest units, whole) do not, its
+  totals for two cells, and one update's all-reduces, by axes.
 * The command line records skips and failures and exits 1 on a failure,
   and a train cell's record holds ``update_bytes``.
 """
@@ -171,23 +173,31 @@ def test_reduced_cell_against_the_reference_compile(reference_cell, mode):
 @pytest.mark.parametrize("gather", ["float32", "bfloat16"])
 def test_update_bytes_shard_terms_fall_with_the_mesh(gather):
     """yi-6b in full to train: the sharded update's whole terms (the
-    gathered forward copy, the full gradients) are the same on (1, 1) and
-    (2, 2); each shard term (masters, gradients, state) falls as 1/k, k
-    the ranks each leaf's spec cuts it into, so near a quarter, the
-    embedding and unembedding (cut over ``'model'`` only) a half."""
+    parameters gathered a unit at a time, their full gradients: the
+    embedding, unembedding and final norm, and two layers) are the same on
+    (1, 1) and (2, 2); each shard term (masters, gradients, state) falls
+    as 1/k, k the ranks each leaf's spec cuts it into, so near a quarter,
+    the embedding and unembedding (cut over ``'model'`` only) a half."""
     cfg = config("yi-6b").replace(gather_dtype=gather)
     one, four = (StepBundle(cfg, sizes, SHAPES["train_4k"])
                  for sizes in ({"data": 1, "model": 1}, {"data": 2, "model": 2}))
     u1, u4 = D.update_bytes(one), D.update_bytes(four)
     stored = D.rank_bytes(four)
     assert (u4["masters"], u4["state"]) == (stored["params"], stored["opt_state"])
-    n = sum(p.numel() for p in one.model.parameters())
-    assert u1["full_grads"] == u4["full_grads"] == u1["masters"] == u1["grads"] == 4 * n
+    meta = dict(one.model.named_parameters())
+    n = sum(p.numel() for p in meta.values())
+    assert u1["masters"] == u1["grads"] == 4 * n
+    outer = sum(meta[m].numel() for m in ("embed.e", "unembed", "final_norm.w"))
+    layer = sum(t.numel() for m, t in meta.items() if m.startswith("stack.0."))
+    assert sorted(one.outer) == ["embed.e", "final_norm.w", "unembed"]
+    assert len(one.units) == cfg.n_layers
+    whole = outer + 2 * layer  # the leaves outside every unit and two layers
+    assert u1["full_grads"] == u4["full_grads"] == 4 * whole < 4 * n / 5
     assert u1["gathered"] == u4["gathered"]
     if gather == "bfloat16":  # every leaf but the final norm moves 2 bytes
-        assert 2 * n < u4["gathered"] < 2 * n + 4 * cfg.d_model
+        assert 2 * whole < u4["gathered"] < 2 * whole + 4 * cfg.d_model
     else:
-        assert u4["gathered"] == 4 * n
+        assert u4["gathered"] == 4 * whole
     # every axis of the (2, 2) mesh has two ranks
     k = {name: 2 ** sum(len((e,) if isinstance(e, str) else e or ()) for e in spec)
          for name, spec in four.pspecs.items()}
@@ -196,6 +206,28 @@ def test_update_bytes_shard_terms_fall_with_the_mesh(gather):
     for term in ("masters", "grads", "state"):
         assert u1[term] / 4 <= u4[term] <= 0.28 * u1[term], term
     assert u4["state"] == 2 * u4["masters"] + 4  # AdamW's m and v, and the norm
+
+
+# What a rank holds for the sharded update in GB (``update_bytes`` summed),
+# a unit at a time; gathering every leaf whole, it held 74.8 and 5,398.
+UPDATE_GB = {("yi-6b", 2): 33.31, ("deepseek-v3-671b", 16): 53.84}
+
+
+@pytest.mark.parametrize("arch,k", sorted(UPDATE_GB))
+def test_update_bytes_of_a_unit_at_a_time(arch, k):
+    """The train step's reckoning for yi-6b on (2, 2) and deepseek-v3 on
+    (16, 16): the shards, the leaves outside every unit and two of the
+    largest units whole, deepseek's experts after their ``'model'`` cut
+    (the EP and TP forms take them as this rank's block)."""
+    bundle = StepBundle(config(arch), {"data": k, "model": k}, SHAPES["train_4k"])
+    total = sum(D.update_bytes(bundle).values())
+    assert round(total / 1e9, 2) == UPDATE_GB[arch, k]
+    assert bundle.blocks == (arch == "deepseek-v3-671b")
+    outer, unit = D.unit_bytes(bundle)
+    if bundle.blocks:  # an expert leaf is 1/16 of itself in the largest unit
+        whole = StepBundle(config(arch).replace(tp_size=1), {"data": k, "model": k},
+                           SHAPES["train_4k"])
+        assert unit < D.unit_bytes(whole)[1] / 8
 
 
 # The all-reduces one sharded update issues on the (16, 16) mesh, by the

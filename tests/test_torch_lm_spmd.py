@@ -306,6 +306,36 @@ def test_train_step_gathers_in_gather_dtype(sides, name):
         assert bool(out[f"train.{name}.same_dtensors"])
 
 
+@pytest.mark.parametrize("name", list(P.MEMORY_CASES) + list(P.MEMORY_MOE))
+def test_train_step_gathers_a_unit_at_a_time(sides, name):
+    """The parameters a rank's train step gathers, alive at once, stay
+    within the leaves outside every unit plus two of the largest units;
+    every float32 gradient of a whole unit leaf is freed before the next
+    unit's gradients are cut; no expert is gathered over ``'model'``; with
+    the bfloat16 gather under remat "none", autograd holds no float32 cast
+    of a weight (at most the one an operation is using is alive).  The
+    whole-gather ``loss_and_grads`` on the same shards exceeds the bound
+    (deepened yi-6b; there the step's shard gradients are the blocks of its
+    whole gradients within ``PLAIN_REL``) and gathers the experts whole
+    (the MoE cases)."""
+    _, got, _, _ = sides
+    for out, _ in got:
+        peak, bound, stale, followed, whole, cut, casts, control, control_whole = \
+            out[f"mem.{name}"]
+        assert 0 < peak <= bound, (peak, bound)
+        bf16 = P.MEMORY_CASES.get(name, ("", {}))[1].get("gather_dtype") == "bfloat16"
+        assert (0 < casts <= 1) if bf16 else casts == 0, casts
+        assert stale == 0 and followed > 0, (stale, followed)
+        assert whole == 0 and (cut > 0) == (name in P.MEMORY_MOE), (whole, cut)
+        if name in P.MEMORY_MOE:
+            assert control_whole > 0
+        else:
+            assert control > bound, (control, bound)
+            # the shards' gradients are the whole ones' blocks
+            loss_diff, rel = out[f"mem.{name}.grads"]
+            assert loss_diff == 0 and rel <= PLAIN_REL, (loss_diff, rel)
+
+
 @pytest.mark.parametrize("name", list(P.SERVE_CASES))
 def test_serve_steps_match_the_reference_mesh(sides, name):
     """The bundle's prefill and decode steps against the reference's
