@@ -123,7 +123,14 @@ coordinates into element origins.  This script
 10. serves full-width yi-6b (32 layers, d_model 4096, float32 weights
    from ``--seed``; batch 4, prompt 2048, 16 greedy tokens) with every
    counter at 0, and checks that prefill launched ``flash_wgmma`` once
-   per layer and no other flash kernel;
+   per layer and no other flash kernel; the decode is captured at its
+   first step as a CUDA graph and replayed (``launch/graphs.StepGraph``),
+   and each replayed step is held against an eager ``model.decode`` on
+   the same caches and tokens: logits bit-equal (or within
+   ``GRAPH_REL * max|logit|``, said), every greedy token equal; the
+   ``serve ... graph`` line gives the replayed ``decode_tok_s`` (capture
+   included) beside the eager one, ``capture_s``, the median step ms of
+   each and the graph pool's bytes;
 11. prefills the same prompts again with ``attention_impl="chunked"``
    (the reference's own executor knob) and holds the last-token logits
    of the two within ``rtol 2e-3, atol 2e-4``;
@@ -169,7 +176,13 @@ coordinates into element origins.  This script
    text tokens, M-RoPE) and seamless-m4t-large-v2 in full (24 encoder
    and 24 decoder layers, 2048 frame embeddings); logs each one's
    layers, widths, parameters, cut, ``prefill_s``, ``decode_tok_s``,
-   ``peak_gib`` (under 75 GiB) and the card line; checks that prefill
+   ``peak_gib`` (under 75 GiB, the replayed decode's graph pool and its
+   hold against eager included) and the card line; every dense and
+   family serve decodes through the captured graph, held against eager
+   as in step 10 (``graph`` lines), and a MoE model's routing is
+   recorded for the prefill, the graph's warm-up calls and its capture
+   only, never for a replay; each serve, its model and graph freed, must
+   leave no more memory allocated than it found; checks that prefill
    launched ``flash_wgmma`` 24, 1, 0, 0, 12 and 24 times (deepseek-v3's MLA
    head dims differ, so its prefill takes the chunked executor; xlstm has
    no attention; seamless's encoder and cross attention run the plain
@@ -313,7 +326,12 @@ coordinates into element origins.  This script
     against the mesh-less serve's on the same weights (rtol 2e-3, atol
     2e-4, every argmax equal), the prefill's cache leaves handed back by
     ``serve_step`` as the same ``DTensor``s, decode tok/s beside the
-    mesh-less serve's (``mesh serve`` lines); trains yi-6b cut to
+    mesh-less serve's (``mesh serve`` lines); then the bundle's compiled
+    step (``StepBundle.serve_graph``: ``serve_step`` captured once on the
+    NCCL rank and replayed) bit-equal to its eager steps, its outputs
+    ``DTensor``s and the prefill's cache leaves passed through, and the
+    mesh-less decode replayed bit-equal to its own, tok/s of each (``mesh
+    serve ... graph`` line); trains yi-6b cut to
     4 layers (AdamW, batch 4 x 2048) 3 steps and internlm2-20b cut to 2
     layers (Adafactor, batch 2 x 2048) 2 steps, each rank's shards updated
     in place, the first step's loss within 1e-5 relative of
@@ -334,13 +352,17 @@ coordinates into element origins.  This script
     stacked layout) must equal the rule's figure;
 24a. trace: ``torch.profiler`` (CPU and CUDA) over yi-6b's prefill and
     one decode step after it (32 layers, float32, batch 4, prompt 2048),
-    then over one ``StepBundle`` decode step on the one-rank mesh, read by
+    eager and replayed from a CUDA graph, then over one ``StepBundle``
+    decode step on the one-rank mesh, eager and replayed, read by
     ``roofline/trace_cost.py`` (``trace`` lines: kernel time by name and
     launches, the device's busy and idle share, the longest idle gaps and
     the host op under each, host ops, FLOPs by op, the collective census);
-    fails when a trace has no device events, when a hand-written kernel's
+    fails when a trace has no device events (a replay's is said, and the
+    step timed by CUDA events), when a hand-written kernel's
     traced launches differ from its counter for the same step, or when
-    the summed kernel time passes the step's CUDA-event time;
+    the summed kernel time passes the step's CUDA-event time; a replayed
+    step's FLOPs are the eager step's, and its operations, kernel ms,
+    step ms and busy share are logged beside the eager step's;
 25. prints the ``kernels`` JSON line, then the result line.
 
 The tuner's decisions go to a private cache in a temporary directory.
@@ -498,6 +520,10 @@ SERVE_ARGV = ["--arch", "yi-6b", "--batch", "4", "--prompt-len", "2048", "--gen"
               "--temperature", "0"]
 SERVE_SHAPE = (4, 32, 4, 2048, 128)  # (B, Hq, Hkv, S, D) of one attention call
 LOGIT_TOL = dict(rtol=2e-3, atol=2e-4)
+# A replayed decode step launches the eager step's kernels on the same
+# addresses, so its logits are expected bit-equal to the eager step's; a
+# difference up to GRAPH_REL * max|logit| passes and is reported.
+GRAPH_REL = 1e-5
 # The 16-bit prefill: yi-6b at its config's own dtypes (bfloat16
 # activations, float32 weights), the serve batch and prompt.  Its
 # last-token logits are held against the same model's chunked prefill
@@ -1930,9 +1956,9 @@ class FlashSmoke:
     Shares the simplex ``Smoke``'s generators, timer and failure list.
     """
 
-    def __init__(self, smoke: Smoke, fa, serve, configs, model_cls):
+    def __init__(self, smoke: Smoke, fa, serve, configs, model_cls, card: str):
         self.s, self.fa, self.serve = smoke, fa, serve
-        self.configs, self.model_cls = configs, model_cls
+        self.configs, self.model_cls, self.card = configs, model_cls, card
         self.torch = smoke.torch
         self.err = dict.fromkeys(fa.ROUTES, 0.0)
         self.rows: list = []
@@ -1949,15 +1975,16 @@ class FlashSmoke:
         cfg = r.model.cfg
         b, gen = r.tokens.shape
         self.stats = dict(prefill_s=r.prefill_s, decode_tok_s=(gen - 1) * b / r.decode_s,
-                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                           params=sum(p.numel() for p in r.model.parameters()))
         _log(f"serve {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} heads "
              f"{cfg.n_heads}/{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab {cfg.vocab}, "
              f"{self.stats['params']} float32 parameters; batch {b}, prompt "
              f"{r.prompts.shape[1]}, {gen - 1} greedy tokens")
+        self.stats.update(self.graph_hold(r, f"serve {cfg.name}"))
+        self.stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         _log(f"serve prefill_s={r.prefill_s:.4f} decode_s={r.decode_s:.4f} "
              f"decode_tok_s={self.stats['decode_tok_s']:.2f} "
-             f"peak_gib={self.stats['peak_gib']:.3f}")
+             f"peak_gib={self.stats['peak_gib']:.3f} card={self.card}")
         lg = r.prefill_logits
         if tuple(lg.shape) != (b, 1, cfg.vocab) or not torch.isfinite(lg).all():
             self.s.fail(f"serve: prefill logits {tuple(lg.shape)} not finite or misshapen")
@@ -1965,6 +1992,82 @@ class FlashSmoke:
                 or int(r.tokens.max()) >= cfg.vocab):
             self.s.fail(f"serve: token ids {tuple(r.tokens.shape)} out of range")
         return r
+
+    def graph_hold(self, r, tag: str) -> dict:
+        """``serve.run``'s decode, captured at its first step and replayed,
+        against an eager ``model.decode`` on the same caches and tokens (the
+        run's own).  The eager steps run first, then each step is replayed
+        again: every replayed step's logits must equal the eager step's bit
+        for bit, or lie within ``GRAPH_REL * max|logit|`` (said on the
+        line), and every greedy token of the run must be the eager step's
+        argmax.  Then the replayed steps again, timed as the eager ones
+        were: one synchronisation at the end, CUDA events between the steps
+        (``_steps``).  Logs and returns the run's ``decode_tok_s`` (capture
+        included), ``capture_s``, its median step ms (each step
+        synchronised), the eager and the replayed loop's tok/s and median
+        step ms, and the graph pool's bytes."""
+        torch = self.torch
+        model, dev = r.model, r.prefill_logits.device
+        b, n = r.tokens.shape
+        s = r.prompts.shape[1] + model.cfg.n_patches
+        tokens = r.tokens.to(dev)
+        pos = torch.empty((b,), dtype=torch.long, device=dev)
+
+        def inputs(i):
+            pos.fill_(s + i)
+            return {"tokens": tokens[:, i:i + 1], "pos": pos}
+
+        eager, eager_s, eager_ms = self._steps(
+            n - 1, lambda i: model.decode(r.caches, inputs(i))[0], keep=True)
+        err, equal, greedy = 0.0, True, True
+        for i in range(n - 1):
+            got = r.decode(inputs(i))
+            err = max(err, (got - eager[i]).abs().max().item())
+            equal = equal and torch.equal(got, eager[i])
+            greedy = greedy and bool((eager[i][:, -1].argmax(-1) == tokens[:, i + 1]).all())
+        _, replay_s, replay_ms = self._steps(n - 1, lambda i: r.decode(inputs(i)))
+        scale = max(x.abs().max().item() for x in eager)
+        ok = greedy and (equal or err <= GRAPH_REL * scale)
+        st = dict(decode_tok_s=(n - 1) * b / r.decode_s, capture_s=r.capture_s,
+                  run_step_ms=statistics.median(r.step_s[1:]) * 1e3,
+                  eager_decode_tok_s=(n - 1) * b / eager_s,
+                  eager_step_ms=statistics.median(eager_ms),
+                  replay_decode_tok_s=(n - 1) * b / replay_s,
+                  replay_step_ms=statistics.median(replay_ms),
+                  pool_gib=r.decode.pool_bytes() / 2**30, graph_err=err, graph_equal=equal)
+        _log(f"{tag} graph: decode captured at the first step and replayed: decode_tok_s="
+             f"{st['decode_tok_s']:.2f} (capture included) capture_s={r.capture_s:.4f} "
+             f"run_step_ms={st['run_step_ms']:.3f} (median, each step synchronised); "
+             f"{n - 1} steps again: replayed {st['replay_decode_tok_s']:.2f} tok/s, "
+             f"replay_step_ms={st['replay_step_ms']:.3f}, eager "
+             f"{st['eager_decode_tok_s']:.2f} tok/s, eager_step_ms={st['eager_step_ms']:.3f} "
+             f"(medians of CUDA-event steps) pool_gib={st['pool_gib']:.4f}; replayed "
+             f"steps against eager model.decode: bit_equal={equal} max_abs_err={err:.3e} "
+             f"max|logit|={scale:.3f} greedy_tokens_equal={greedy}: ok={ok} card={self.card}")
+        if not ok:
+            self.s.fail(f"{tag}: the replayed decode differs from the eager one by {err} "
+                        f"(greedy tokens equal: {greedy})")
+        return st
+
+    def _steps(self, n: int, step, keep: bool = False):
+        """``step(i)`` for ``i < n``, each followed by its greedy argmax, one
+        synchronisation at the end.  Returns the logits (``keep``), the
+        seconds of the loop, and each step's ms between CUDA events."""
+        torch = self.torch
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks[0].record()
+        for i in range(n):
+            lg = step(i)
+            lg[:, -1].argmax(-1)
+            marks[i + 1].record()
+            if keep:
+                out.append(lg)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, [a.elapsed_time(z) for a, z in
+                                               zip(marks, marks[1:])]
 
     def hold(self, r) -> None:
         """The same prefill with the chunked executor: last-token logits
@@ -2658,11 +2761,13 @@ class ModelSmoke:
         ``flash_want``, its last-token logits held against the same model's
         prefill with ``knob``, and the router choices of the two prefills
         compared (none without experts); ``tag`` starts its lines."""
+        from repro_torch.launch.graphs import WARMUP
+
         torch, fa = self.torch, self.fa
         argv = ["--arch", arch, "--seed", str(self.s.seed)] + DENSE_ARGV
         if layers:
             argv += ["--n-layers", str(layers)]
-        self.live(f"{tag} {arch}")
+        before = self.live(f"{tag} {arch}")
         self.zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2675,12 +2780,21 @@ class ModelSmoke:
         full = self.f.configs.config(arch)
         b, gen = r.tokens.shape
         n_moe = self.moe_layers(cfg)
+        # the prefill's routing, then one record a MoE layer for each of the
+        # graph's warm-up calls and its capture, none for a replay
+        records = len(ids)
         routes = ids[:n_moe]
         del ids
-        st = dict(prefill_s=r.prefill_s, decode_tok_s=(gen - 1) * b / r.decode_s,
-                  peak_gib=torch.cuda.max_memory_allocated() / 2**30, serve_s=wall,
+        st = dict(prefill_s=r.prefill_s, serve_s=wall,
                   params=sum(p.numel() for p in r.model.parameters()),
                   flash_launches=launches["flash_wgmma"])
+        st.update(self.f.graph_hold(r, f"{tag} {arch}"))
+        st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        want_records = n_moe * (2 + WARMUP)
+        _log(f"{tag} {arch} routing records {records} (want {want_records}: the prefill, "
+             f"{WARMUP} warm-up calls and the capture, none for the {gen - 1} replays)")
+        if records != want_records:
+            self.s.fail(f"{tag} {arch}: {records} routing records, not {want_records}")
         cut = (f"depth cut {full.n_layers} -> {cfg.n_layers} layers (float32 weights "
                f"{full.param_count() * 4 / 2**30:.1f} -> {st['params'] * 4 / 2**30:.1f} GiB)"
                if layers else f"not cut ({st['params'] * 4 / 2**30:.1f} GiB of float32 weights)")
@@ -2713,12 +2827,14 @@ class ModelSmoke:
                         f"{tuple(r.tokens.shape)} or {len(routes)} routing records "
                         "misshapen, out of range or not finite")
         model = r.model
+        r.decode = r.caches = None  # the graph's pool and the caches, before the next prefill
+        self._free()
         self.zero_counts()
         model.cfg = self.with_knob(cfg, knob)
         try:
             t0 = time.perf_counter()
             with self.moe.record_routing() as other_routes:
-                other, _ = model.prefill(r.inputs)
+                other = model.prefill(r.inputs)[0]
             torch.cuda.synchronize()
             st["hold_prefill_s"] = time.perf_counter() - t0
         finally:
@@ -2752,6 +2868,12 @@ class ModelSmoke:
         self.stats[f"{tag} {arch}"] = st
         del r, model, lg, other, routes, other_routes
         self._free()
+        # the serve, its graph and its pool freed leave nothing allocated (a
+        # new capture stream each graph kept a cuBLAS workspace, 32 MiB)
+        left = torch.cuda.memory_allocated() / 2**30 - before
+        _log(f"{tag} {arch} left allocated after the serve: {left:.4f} GiB (gate 0)")
+        if left > 0:
+            self.s.fail(f"{tag} {arch}: the serve left {left:.4f} GiB allocated")
 
     def card_vs_cpu(self, arch: str) -> None:
         """The reduced config's weights made on the CPU (float32, from
@@ -3960,7 +4082,11 @@ class MeshSmoke:
     def serve(self, mesh) -> None:
         """Full-depth serve through the bundle: prefill, then greedy decode
         steps against the fixed prefill cache, each step's logits held
-        against the mesh-less serve's."""
+        against the mesh-less serve's; then the bundle's step and the
+        mesh-less decode captured as CUDA graphs and replayed, each held bit
+        for bit against its eager steps."""
+        from repro_torch.launch.graphs import StepGraph
+
         torch, fa = self.torch, self.fa
         arch, b, s, gen = MESH_SERVE
         cfg = self._cfg(arch)
@@ -3986,7 +4112,20 @@ class MeshSmoke:
         for i in range(gen):
             model.decode(caches, {"tokens": want[i][:, -1].argmax(-1)[:, None], "pos": pos(i)})
         plain_warm_s = self._sync() - t0
-        del caches
+        # the mesh-less decode captured and replayed (launch/graphs.StepGraph)
+        t0 = self._sync()
+        plain_graph = StepGraph(lambda bt: model.decode(caches, bt)[0],
+                                {"tokens": want[0][:, -1].argmax(-1)[:, None], "pos": pos(0)})
+        plain_capture_s = self._sync() - t0
+        plain_graph_equal = True
+        for i in range(gen):
+            lg = plain_graph({"tokens": want[i][:, -1].argmax(-1)[:, None], "pos": pos(i)})
+            plain_graph_equal = plain_graph_equal and torch.equal(lg, want[i + 1])
+        t0 = self._sync()  # again, timed
+        for i in range(gen):
+            plain_graph({"tokens": want[i][:, -1].argmax(-1)[:, None], "pos": pos(i)})
+        plain_graph_s = self._sync() - t0
+        del caches, plain_graph
         self.lm._free()
         bundle = self.steps.build(cfg, mesh, self.steps.ShapeCfg("serve", s, b, "decode"))
         params = bundle.shard_params(model)
@@ -4014,6 +4153,29 @@ class MeshSmoke:
         passed = all(c is n for c, n in zip(caches["stack"]["l0"]["mixer"],
                                             new["stack"]["l0"]["mixer"]))
         del new
+        # the bundle's compiled step: serve_step captured once, replayed
+        t0 = self._sync()
+        graph = bundle.serve_graph(params, caches, {"tokens": got[0][:, -1].argmax(-1)[:, None],
+                                                    "pos": pos(0)})
+        capture_s = self._sync() - t0
+        replayed = []
+        t0 = self._sync()
+        for i in range(gen):
+            lg, gnew = graph({"tokens": got[i][:, -1].argmax(-1)[:, None], "pos": pos(i)})
+            replayed.append(lg.to_local().clone())
+        graph_s = self._sync() - t0
+        graph_equal = all(torch.equal(x, y) for x, y in zip(replayed, got[1:]))
+        graph_err = max((x - y).abs().max().item() for x, y in zip(replayed, got[1:]))
+        graph_kinds = ({type(lg).__name__}
+                       | {type(c).__name__ for c in gnew["stack"]["l0"]["mixer"]})
+        graph_passed = all(c is n for c, n in zip(caches["stack"]["l0"]["mixer"],
+                                                  gnew["stack"]["l0"]["mixer"]))
+        pool_gib = graph.pool_bytes() / 2**30
+        t0 = self._sync()  # again, timed
+        for i in range(gen):
+            graph({"tokens": got[i][:, -1].argmax(-1)[:, None], "pos": pos(i)})
+        graph_warm_s = self._sync() - t0
+        del graph, lg, gnew, replayed
         resident, rule = self.cache_bytes(caches, mesh)
         decode_launches = self._count()
         t0 = self._sync()  # again, warm: the first call made the NCCL communicators
@@ -4031,13 +4193,21 @@ class MeshSmoke:
                   decode_tok_s=gen * b / decode_s, warm_decode_tok_s=gen * b / warm_decode_s,
                   plain_prefill_s=plain_prefill_s, plain_decode_tok_s=gen * b / plain_decode_s,
                   plain_warm_decode_tok_s=gen * b / plain_warm_s,
+                  graph_decode_tok_s=gen * b / (capture_s + graph_s),
+                  graph_warm_decode_tok_s=gen * b / graph_warm_s, capture_s=capture_s,
+                  plain_graph_decode_tok_s=gen * b / (plain_capture_s + plain_graph_s),
+                  plain_graph_warm_decode_tok_s=gen * b / plain_graph_s,
+                  plain_capture_s=plain_capture_s, pool_gib=pool_gib,
                   peak_gib=peak, logit_err=err, launches=launches, cache_bytes=resident)
         self.stats["mesh serve"] = st
         want_launches = dict.fromkeys(fa.ROUTES, 0)
         want_launches["flash_wgmma"] = cfg.n_layers
+        graph_ok = (graph_equal and graph_passed and graph_kinds == {"DTensor"}
+                    and plain_graph_equal)
         ok = (argmax and close and launches == want_launches and kinds == {"DTensor"}
               and passed and not any(decode_launches.values()) and peak <= SERVE_PEAK_GIB
-              and warm_equal and warm_launches == want_launches and resident == rule)
+              and warm_equal and warm_launches == want_launches and resident == rule
+              and graph_ok)
         _log(f"mesh serve {arch}: {cfg.n_layers} layers at full width, float32, batch {b}, "
              f"prompt {s}, {gen} greedy tokens through StepBundle on a (1, 1) data/model mesh "
              f"(backend {self.torch.distributed.get_backend()}, tp_size {cfg.tp_size}); "
@@ -4052,6 +4222,17 @@ class MeshSmoke:
              f"decode_tok_s={st['plain_decode_tok_s']:.2f} (again, warm: "
              f"{st['plain_warm_decode_tok_s']:.2f}); peak_gib={peak:.3f} "
              f"launches={launches} decode_launches={decode_launches} card={self.card}")
+        _log(f"mesh serve {arch} graph: StepBundle.serve_graph (serve_step captured once "
+             f"under capture_error_mode thread_local, replayed) capture_s={capture_s:.4f} "
+             f"decode_tok_s={st['graph_decode_tok_s']:.2f} (capture included; again, warm: "
+             f"{st['graph_warm_decode_tok_s']:.2f}) pool_gib={pool_gib:.4f}; {gen} replayed "
+             f"steps against the bundle's eager serve_step: bit_equal={graph_equal} "
+             f"max_abs_err={graph_err:.3e}, outputs {sorted(graph_kinds)}, the prefill's "
+             f"cache leaves passed through: {graph_passed}; beside the mesh-less decode "
+             f"replayed: capture_s={plain_capture_s:.4f} decode_tok_s="
+             f"{st['plain_graph_decode_tok_s']:.2f} (again, warm: "
+             f"{st['plain_graph_warm_decode_tok_s']:.2f}), bit-equal to its eager steps: "
+             f"{plain_graph_equal}: ok={graph_ok} card={self.card}")
         _log(f"mesh serve {arch} hold vs mesh-less serve: {gen + 1} logit steps "
              f"max_abs_err={err:.3e} argmax_equal={argmax} rtol 2e-3 atol 2e-4: {close} "
              f"flash_wgmma={launches['flash_wgmma']} (want {cfg.n_layers}): ok={ok} "
@@ -4059,7 +4240,9 @@ class MeshSmoke:
         if not ok:
             self.s.fail(f"mesh serve {arch}: err {err}, argmax {argmax}, launches {launches}, "
                         f"decode {decode_launches}, caches {kinds}, passed {passed}, peak {peak}, "
-                        f"cache bytes {resident} (rule {rule})")
+                        f"cache bytes {resident} (rule {rule}), graph equal {graph_equal} "
+                        f"(mesh-less {plain_graph_equal}), outputs {graph_kinds}, graph "
+                        f"passed {graph_passed}")
         del model, params, caches, logits, got, want, bundle
         self.lm._free()
 
@@ -4306,8 +4489,12 @@ class TraceSmoke:
         self.steps, self.tc = steps, trace_cost
         self.stats: dict = {}
 
-    def traced(self, label: str, fn) -> None:
-        """Trace one call of ``fn`` (already warm), check it and log it."""
+    def traced(self, label: str, fn, eager=None) -> None:
+        """Trace one call of ``fn`` (already warm), check it and log it.
+        ``eager``, for ``fn`` a replayed CUDA graph: the eager step that
+        does the same work, whose FLOPs are counted (a dispatch mode sees
+        no op under a replay); a replay's trace without device events is
+        said and timed by CUDA events alone, not failed."""
         import re
 
         from torch.profiler import ProfilerActivity, profile
@@ -4325,7 +4512,7 @@ class TraceSmoke:
         counts = self.lm.counts()
         step_ms = a.elapsed_time(b)
         events = prof.events()
-        _, flops, moved = self.tc.flop_count(fn)
+        _, flops, moved = self.tc.flop_count(fn if eager is None else eager)
         self.lm.zero_counts()
         out = self.tc.summarize(events, flops, group_size=1, gaps=5)
         kernels, dev = out["kernels"], out["device"]
@@ -4334,9 +4521,13 @@ class TraceSmoke:
                          if re.search(rf"(?<!\w){sym}(?!\w)", name))
                   for k, sym in TRACE_SYMBOLS.items()}
         want = {k: counts[k] for k in TRACE_SYMBOLS}
-        ok = (dev is not None and traced == want
+        ok = ((dev is not None or eager is not None) and traced == want
               and kernel_ms <= step_ms + TRACE_EVENT_SLACK_MS)
+        if dev is None and eager is not None:
+            _log(f"trace {label}: the profiler recorded no kernel inside the graph launch; "
+                 f"the step is timed by CUDA events alone (step_ms={step_ms:.4f})")
         self.stats[label] = dict(step_ms=step_ms, kernel_ms=kernel_ms, device=dev,
+                                 events=sum(r["launches"] for r in kernels.values()),
                                  flops=out["flops_total"], bytes=moved,
                                  top={k: v for k, v in list(kernels.items())[:TRACE_TOP]},
                                  host_ops=dict(list(out["host_ops"].items())[:TRACE_TOP]),
@@ -4367,7 +4558,10 @@ class TraceSmoke:
                         f"step_ms {step_ms}")
 
     def path(self, mesh) -> None:
-        """yi-6b's prefill and decode step, then the bundle's decode step."""
+        """yi-6b's prefill and decode step, eager and replayed, then the
+        bundle's decode step, eager and replayed."""
+        from repro_torch.launch.graphs import StepGraph
+
         torch = self.torch
         arch, b, s = TRACE_SERVE
         cfg = self.lm.f.configs.config(arch).replace(act_dtype="float32",
@@ -4382,15 +4576,37 @@ class TraceSmoke:
         model.decode(caches, step)
         self.traced(f"{arch} prefill", lambda: model.prefill({"tokens": prompts}))
         self.traced(f"{arch} decode", lambda: model.decode(caches, step))
-        del caches
+        graph = StepGraph(lambda bt: model.decode(caches, bt)[0], step)
+        graph(step)
+        self.traced(f"{arch} decode replayed", lambda: graph(step),
+                    eager=lambda: model.decode(caches, step))
+        self.beside(f"{arch} decode")
+        del caches, graph
         self.lm._free()
         bundle = self.steps.build(cfg, mesh, self.steps.ShapeCfg("serve", s, b, "decode"))
         params = bundle.shard_params(model)
         _, bcaches = bundle.prefill_step(params, {"tokens": prompts})
         bundle.serve_step(params, bcaches, step)
         self.traced(f"{arch} bundle decode", lambda: bundle.serve_step(params, bcaches, step))
-        del model, params, bcaches, bundle, logits
+        graph = bundle.serve_graph(params, bcaches, step)
+        graph(step)
+        self.traced(f"{arch} bundle decode replayed", lambda: graph(step),
+                    eager=lambda: bundle.serve_step(params, bcaches, step))
+        self.beside(f"{arch} bundle decode")
+        del model, params, bcaches, bundle, logits, graph
         self.lm._free()
+
+    def beside(self, label: str) -> None:
+        """The replayed step's trace figures beside the eager step's."""
+        e, r = self.stats[label], self.stats[f"{label} replayed"]
+
+        def busy(st):
+            return f"{st['device']['busy_share']:.4f}" if st["device"] else "not measured"
+
+        _log(f"trace {label} replayed vs eager: device_events {r['events']} vs {e['events']} "
+             f"kernel_ms {r['kernel_ms']:.4f} vs {e['kernel_ms']:.4f} step_ms "
+             f"{r['step_ms']:.4f} vs {e['step_ms']:.4f} busy_share {busy(r)} vs {busy(e)} "
+             f"(flops, from the eager step, {r['flops']:.4e}) card={self.card}")
 
 
 def examples_phase(smoke: Smoke, counts, zero_counts) -> dict:
@@ -4513,7 +4729,7 @@ def main(argv=None) -> int:
     old_md = LegacyMdSmoke(smoke, legacy)
     mxu = MxuSmoke(smoke, hmap_mxu, hmap)
     dtypes = DtypeSmoke(smoke, legacy, fa)
-    flash = FlashSmoke(smoke, fa, serve, configs, Model)
+    flash = FlashSmoke(smoke, fa, serve, configs, Model, card)
     lm = ModelSmoke(flash, train, optimizer, moe, Model, counts, zero_counts, card)
     zero_counts()
     t0 = time.perf_counter()
@@ -4827,16 +5043,26 @@ def main(argv=None) -> int:
         })
     st = flash.stats
     _log(f"serve summary: prefill_s={st['prefill_s']:.4f} "
-         f"decode_tok_s={st['decode_tok_s']:.2f} peak_gib={st['peak_gib']:.3f} "
+         f"decode_tok_s={st['decode_tok_s']:.2f} (replayed, capture included; eager "
+         f"{st['eager_decode_tok_s']:.2f}, replayed again {st['replay_decode_tok_s']:.2f}) "
+         f"capture_s={st['capture_s']:.4f} replay_step_ms={st['replay_step_ms']:.3f} "
+         f"eager_step_ms={st['eager_step_ms']:.3f} pool_gib={st['pool_gib']:.4f} "
+         f"graph_bit_equal={st['graph_equal']} peak_gib={st['peak_gib']:.3f} "
          f"logit_err={st['logit_err']:.3e} prefill16_s={st['prefill16_s']:.4f} "
          f"peak16_gib={st['peak16_gib']:.3f} logit16_rel={st['logit16_rel']:.3e} "
          f"prefill16_{SMALL_TILE_S}_s={st[f'prefill16_{SMALL_TILE_S}_s']:.4f} "
-         f"logit16_{SMALL_TILE_S}_rel={st[f'logit16_{SMALL_TILE_S}_rel']:.3e}")
+         f"logit16_{SMALL_TILE_S}_rel={st[f'logit16_{SMALL_TILE_S}_rel']:.3e} "
+         f"card={card}")
     for key, d in lm.stats.items():
         if key in ("mlstm hold", "slstm loop"):
             continue
         _log(f"{key} summary: prefill_s={d['prefill_s']:.4f} "
-             f"decode_tok_s={d['decode_tok_s']:.2f} peak_gib={d['peak_gib']:.3f} "
+             f"decode_tok_s={d['decode_tok_s']:.2f} (replayed, capture included; eager "
+             f"{d['eager_decode_tok_s']:.2f}, replayed again {d['replay_decode_tok_s']:.2f}) "
+             f"capture_s={d['capture_s']:.4f} replay_step_ms={d['replay_step_ms']:.3f} "
+             f"eager_step_ms={d['eager_step_ms']:.3f} "
+             f"pool_gib={d['pool_gib']:.4f} graph_bit_equal={d['graph_equal']} "
+             f"peak_gib={d['peak_gib']:.3f} "
              f"hold_prefill_s={d['hold_prefill_s']:.4f} logit_err={d['logit_err']:.3e} "
              f"router_flips={d['flips']} of {d['choices']} card={card}"
              if "prefill_s" in d else
@@ -4848,7 +5074,11 @@ def main(argv=None) -> int:
     _log(f"mesh summary: serve prefill_s={d['mesh serve']['prefill_s']:.4f} "
          f"warm_prefill_s={d['mesh serve']['warm_prefill_s']:.4f} "
          f"decode_tok_s={d['mesh serve']['decode_tok_s']:.2f} (mesh-less "
-         f"{d['mesh serve']['plain_decode_tok_s']:.2f}) "
+         f"{d['mesh serve']['plain_decode_tok_s']:.2f}) replayed "
+         f"{d['mesh serve']['graph_decode_tok_s']:.2f}, warm "
+         f"{d['mesh serve']['graph_warm_decode_tok_s']:.2f} (mesh-less replayed "
+         f"{d['mesh serve']['plain_graph_decode_tok_s']:.2f}, warm "
+         f"{d['mesh serve']['plain_graph_warm_decode_tok_s']:.2f}) "
          f"peak_gib={d['mesh serve']['peak_gib']:.3f} "
          + "".join(f"train {a} step_s={[round(x, 4) for x in d[f'mesh train {a}']['step_s']]} "
                    f"peak_gib={d[f'mesh train {a}']['peak_gib']:.3f} (mesh-less "

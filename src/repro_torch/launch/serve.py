@@ -10,6 +10,14 @@ prefill cache plus the new token, at the absolute position
 ``prompt_len + i``, the reference's semantics: nothing is appended to
 the cache.  Every architecture of ``configs.ALL.ARCH_IDS`` serves.
 
+On the card the decode step is captured once, at the first step, as a
+CUDA graph (``launch/graphs.StepGraph``) and replayed at every step, as
+the reference compiles its decode once with ``jax.jit``: the step's
+shapes never change, only the values of ``tokens`` and ``pos``.  The
+capture counts in ``decode_s`` as the reference's compile does.
+Sampling runs outside the graph.  On a CPU device the decode runs
+eagerly.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --smoke \
       --device cpu
@@ -20,14 +28,17 @@ the cache.  Every architecture of ``configs.ALL.ARCH_IDS`` serves.
 from __future__ import annotations
 
 import argparse
+import statistics
 import time
 from dataclasses import dataclass
+from typing import Callable, List, Optional
 
 import torch
 
 from ..configs.ALL import config
 from ..kernels.policy import resolve_device
 from ..models.model import Model
+from .graphs import StepGraph
 
 __all__ = ["ServeRun", "parse_args", "run", "main"]
 
@@ -47,7 +58,17 @@ class ServeRun:
         tokens: ``(B, gen+1)`` generated token ids on the host: the
             prefill's greedy token, then one per decode step.
         prefill_s: Prefill wall time, synchronised, in seconds.
-        decode_s: Wall time of the decode steps, in seconds.
+        decode_s: Wall time of the decode steps, in seconds, the capture
+            included.
+        caches: The prefill's caches, which every decode step reads.
+        decode: One decode step, ``decode({"tokens": (B, 1), "pos": (B,)})
+            -> logits (B, 1, vocab)``, against ``caches``: on the card the
+            captured graph, whose logits are a static buffer that its next
+            call overwrites; on the CPU ``model.decode``.
+        capture_s: Seconds of the graph's warm-up and capture, inside the
+            first step; ``None`` on the CPU.
+        step_s: Each decode step's wall time, synchronised, in seconds
+            (the first includes the capture).
     """
 
     model: Model
@@ -57,6 +78,10 @@ class ServeRun:
     tokens: torch.Tensor
     prefill_s: float
     decode_s: float
+    caches: dict
+    decode: Callable[[dict], torch.Tensor]
+    capture_s: Optional[float]
+    step_s: List[float]
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -108,21 +133,31 @@ def run(args: argparse.Namespace) -> ServeRun:
     prefill_logits = logits
     tok = logits[:, -1].argmax(-1)[:, None]
     out = [tok]
-    t0 = time.perf_counter()
+    pos = torch.empty((b,), dtype=torch.long, device=device)
+
+    def eager(step):
+        return model.decode(caches, step)[0]
+
+    decode, capture_s, step_s = eager, None, []
     for i in range(args.gen):
-        step = {"tokens": tok, "pos": torch.full((b,), s + i, dtype=torch.long,
-                                                 device=device)}
-        logits, _ = model.decode(caches, step)
+        t0 = time.perf_counter()
+        pos.fill_(s + i)
+        step = {"tokens": tok, "pos": pos}
+        if i == 0 and device.type != "cpu":
+            decode = StepGraph(eager, step)
+            capture_s = decode.capture_s
+        logits = decode(step)
         if args.temperature > 0:
             probs = torch.softmax(logits[:, -1] / args.temperature, -1)
             tok = torch.multinomial(probs, 1, generator=gen)
         else:
             tok = logits[:, -1].argmax(-1)[:, None]
         out.append(tok)
-    _sync(device)
-    decode_s = time.perf_counter() - t0
+        _sync(device)
+        step_s.append(time.perf_counter() - t0)
     tokens = torch.cat(out, 1).cpu()
-    return ServeRun(model, prompts, inputs, prefill_logits, tokens, prefill_s, decode_s)
+    return ServeRun(model, prompts, inputs, prefill_logits, tokens, prefill_s, sum(step_s),
+                    caches, decode, capture_s, step_s)
 
 
 def main(argv=None) -> torch.Tensor:
@@ -133,6 +168,10 @@ def main(argv=None) -> torch.Tensor:
     print(f"prefill {s} tokens x {b}: {r.prefill_s:.2f}s")
     rate = args.gen * b / r.decode_s if r.decode_s > 0 else float("inf")
     print(f"decoded {args.gen} tokens x {b} in {r.decode_s:.2f}s ({rate:.1f} tok/s)")
+    if r.capture_s is not None:
+        steady = statistics.median(r.step_s[1:]) if len(r.step_s) > 1 else float("nan")
+        print(f"decode graph captured in {r.capture_s:.2f}s; median replayed step "
+              f"{steady * 1e3:.2f} ms")
     print("sample token ids:", r.tokens[0][:16].tolist())
     return r.tokens
 

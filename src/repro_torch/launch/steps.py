@@ -48,7 +48,9 @@ API as ``DTensor``s with the specs' placements.
   caches are stored as soon as it has run.  ``serve_step`` hands back a
   cache leaf that the decode passes through unchanged (the prefill's
   keys and values) as the caller's own ``DTensor``, so a token wraps
-  only what it made.
+  only what it made.  ``serve_graph`` is the compiled ``serve_step``, as
+  the reference's ``lower_serve`` jits it: one step captured as a CUDA
+  graph with the parameters and caches bound, then replayed.
 
 Inside the model the causal attention and the MoE FFN take their mesh
 forms (``models/attention.py``, ``models/moe.py``).  A gather over axes
@@ -81,6 +83,7 @@ from ..models.convert import is_stacked, stacked_groups
 from ..models.model import Model, unit_of
 from ..models.moe import MoE, experts_split, moe_form
 from ..optim.optimizer import make_optimizer, warmup_cosine
+from .graphs import StepGraph
 from .train import _loss_grads_metrics
 
 __all__ = ["StepBundle", "build", "input_shapes"]
@@ -447,6 +450,27 @@ class StepBundle:
             logits, new = self.model.decode(local, self._rows(batch), self.mesh,
                                             keep=store.keep, bind=step)
         return self._rows_out(logits), self._caches_out(new, store, caches, given)
+
+    def serve_graph(self, params, caches, batch):
+        """The compiled ``serve_step``, as the reference jits it: one
+        ``serve_step(params, caches, batch)`` captured as a CUDA graph
+        (``launch/graphs.StepGraph``) with ``params`` and ``caches`` bound.
+
+        Args:
+            params: ``shard_params``' ``DTensor``s, kept alive and in place
+                while the step is used.
+            caches: ``prefill_step``'s caches, likewise.
+            batch: An example ``{"tokens": (B, 1), "pos": (B,)}`` of global
+                tensors on the card (the same on every rank); its shapes
+                are fixed.
+
+        Returns:
+            ``step(batch) -> (logits, new_caches)`` as ``serve_step``
+            returns them: ``DTensor``s made once at capture around the
+            graph's static outputs, which the next call overwrites (a leaf
+            passed through unchanged is the caller's own).
+        """
+        return StepGraph(lambda b: self.serve_step(params, caches, b), batch)
 
     # ------------------------------------------------------------ helpers
 

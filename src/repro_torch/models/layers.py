@@ -125,8 +125,10 @@ def mrope(x: torch.Tensor, positions3: torch.Tensor, sections: Tuple[int, int, i
     if sum(sections) != half:
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim/2 = {half}")
     dev = x.device
-    # frequency slot -> the position stream that drives it (known on the host)
-    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)], device=dev)
+    # frequency slot -> the position stream that drives it, made on the
+    # device (no copy from the host inside a captured decode)
+    sec_id = torch.cat([torch.full((n,), i, dtype=torch.long, device=dev)
+                        for i, n in enumerate(sections)])
     pos = positions3.to(torch.float32).index_select(-1, sec_id)  # (B, S, half)
     ang = pos * _inv_freq(half, theta, dev)
     return _rotate(x, torch.cos(ang)[:, None], torch.sin(ang)[:, None])

@@ -136,6 +136,13 @@ def capacity(t: int, mc) -> int:
     return max(int(math.ceil(t * mc.top_k / mc.n_experts * mc.capacity_factor)), 4)
 
 
+def _one_hot(idx: torch.Tensor, e: int) -> torch.Tensor:
+    """``one_hot(idx, e)`` (int64) as a comparison with ``arange(e)``:
+    ``nn.functional.one_hot`` on the CPU reads ``idx``'s range on the host
+    (``.item()``), which a captured decode may not do."""
+    return (idx[..., None] == torch.arange(e, device=idx.device)).long()
+
+
 def dispatch(idx: torch.Tensor, mc):
     """Where each (token, slot) goes.
 
@@ -151,7 +158,7 @@ def dispatch(idx: torch.Tensor, mc):
     t, k = idx.shape
     e = mc.n_experts
     cap = capacity(t, mc)
-    onehot = nn.functional.one_hot(idx, e)  # (T, k, E)
+    onehot = _one_hot(idx, e)  # (T, k, E)
     pos_flat = onehot.transpose(0, 1).reshape(k * t, e).cumsum(0) - 1
     pos = pos_flat.reshape(k, t, e).gather(2, idx.T[..., None])[..., 0].T
     keep = pos < cap
@@ -185,7 +192,7 @@ def _combine(y, slot, gates, keep, t, k, mc, cap):
 def _balance(idx, keep, probs, mc):
     """The Switch balance loss: ``E * sum_e f_e * p_e``."""
     e = mc.n_experts
-    frac_tokens = (nn.functional.one_hot(idx, e).to(torch.float32)
+    frac_tokens = (_one_hot(idx, e).to(torch.float32)
                    * keep[..., None]).sum(1).mean(0)
     return e * torch.sum(frac_tokens * probs.mean(0))
 
